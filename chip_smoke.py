@@ -150,11 +150,10 @@ def knn_phase() -> dict:
         gd, gi = knn_ops.knn_topk(x, k)
         wd, wi = knn_topk_ref(x, k)
         check(torch.equal(gd, wd) and torch.equal(gi, wi), f"knn_topk lattice n={n} k={k}")
-    check(knn_ops.knn_topk.launches == before + 6, "knn_topk wrapper did not launch its kernel")
-    # main path: the 142,541-voxel lattice, k = 16 — exact equality required
+    # main path: the 142,541-voxel lattice, k = 16, through the wrapper that
+    # Stage 1 calls — exact equality required
     x = lattice(N_FULL)
-    xp = torch.nn.functional.pad(x, (0, 1)).contiguous()  # the wrapper's padding
-    gd, gi = knn_topk_cuda(xp, xp, KNN_K)
+    gd, gi = knn_ops.knn_topk(x, KNN_K)
     t0 = time.perf_counter()
     wd, wi = knn_topk_ref(x, KNN_K)
     torch.cuda.synchronize()
@@ -166,11 +165,13 @@ def knn_phase() -> dict:
     ties = int((wd[:, 1:] == wd[:, :-1]).sum())
     # main shape on random points in the same box: ids equal unless a near-tie
     u = (torch.rand(N_FULL, 3, generator=gen) * 52).to(dev)
-    up = torch.nn.functional.pad(u, (0, 1)).contiguous()
-    rd, ri = knn_topk_cuda(up, up, KNN_K)
+    rd, ri = knn_ops.knn_topk(u, KNN_K)
     pd, pi = knn_topk_ref(u, KNN_K)
     torch.testing.assert_close(rd, pd, rtol=1e-5, atol=1e-6)
     swaps = near_tie_swaps(u, ri, pi, pd)
+    check(knn_ops.knn_topk.launches == before + 8, "knn_topk wrapper did not launch its kernel")
+    # the kernel alone, on the wrapper's zero-padded input
+    xp = torch.nn.functional.pad(x, (0, 1)).contiguous()
     ms = cuda_ms(lambda: knn_topk_cuda(xp, xp, KNN_K), iters=10)
 
     def library():  # cdist + topk, chunked so one [chunk, n] tile is live
@@ -307,10 +308,12 @@ def main_path(pos, prof, region) -> dict:
     pipe = main_pipeline(K_FULL)
     for _, fn in COUNTERS:
         fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = pipe.run_state(prof, torch.Generator().manual_seed(0), points=pos)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {name: fn.launches for name, fn in COUNTERS}
     res = state.result
     for name, n in launches.items():
@@ -332,8 +335,8 @@ def main_path(pos, prof, region) -> dict:
         f"escalations={emb['escalations']}")
     log(f"[main] kmeans iterations={res.kmeans_iterations} non-empty={live}/{K_FULL} "
         f"purity={pur:.4f} cluster escalations={reports[2]['escalations']}")
-    log(f"[main] launches {launches}")
-    return dict(wall_s=wall, reports=reports, restarts=res.lanczos_restarts,
+    log(f"[main] launches {launches}; peak device memory allocated {peak_gb:.3f} GB")
+    return dict(wall_s=wall, peak_gb=peak_gb, reports=reports, restarts=res.lanczos_restarts,
                 kmeans_iterations=res.kmeans_iterations, non_empty=live, purity=pur,
                 launches=launches, eig_min=float(res.eigenvalues.min()),
                 eig_max=float(res.eigenvalues.max()))

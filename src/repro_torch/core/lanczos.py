@@ -272,7 +272,7 @@ def _lanczos_topk_single(matvec: Callable, n: int, cfg: LanczosConfig, *,
         return ok
 
     def cycle(V, T, l):
-        V0, T0 = V.clone(), T.clone()
+        T0 = T.clone()  # a cycle writes V only from row l+1, zero until then
         broke = torch.zeros((), dtype=torch.bool, device=device)
         for j in range(l, m):
             broke |= ~step(V, T, j, careful=False)
@@ -283,7 +283,8 @@ def _lanczos_topk_single(matvec: Callable, n: int, cfg: LanczosConfig, *,
         n_conv_t = (res[m - k:] <= cfg.tol * scale).sum()
         broke_h, n_conv = torch.stack([broke.long(), n_conv_t]).tolist()
         if broke_h:  # replay the cycle with a host check per step
-            V, T = V0, T0
+            V[l + 1:] = 0
+            T = T0
             for j in range(l, m):
                 step(V, T, j, careful=True)
             beta_m = T[m, m - 1]
@@ -370,14 +371,15 @@ def _lanczos_topk_block(matmat: Callable, n: int, cfg: LanczosConfig, *,
         return Bm, theta, S, res, (res[m - k:] <= cfg.tol * scale).sum()
 
     def cycle(V, T, l):
-        V0, T0 = V.clone(), T.clone()
+        T0 = T.clone()  # a cycle writes V only from row l+b, zero until then
         broke = torch.zeros((), dtype=torch.bool, device=device)
         for j in range(l, m, b):
             broke |= ~step(V, T, j, careful=False)
         Bm, theta, S, res, n_conv_t = ritz(T)
         broke_h, n_conv = torch.stack([broke.long(), n_conv_t]).tolist()
         if broke_h:  # replay the cycle with a host check per step
-            V, T = V0, T0
+            V[l + b:] = 0
+            T = T0
             for j in range(l, m, b):
                 step(V, T, j, careful=True)
             Bm, theta, S, res, n_conv_t = ritz(T)

@@ -18,7 +18,8 @@
 //   * the thread walks its row's W slots in order with fused multiply-adds;
 //     the plain version reduces in another order, hence a stated tolerance
 //     rather than bit equality.  Padding slots (col 0, val 0) add 0;
-//   * other b fall back to one thread per (row, column) with scalar gathers.
+//   * b must be a multiple of 4: the wrapper pads other blocks with zero
+//     columns.
 #include <cuda_runtime.h>
 
 namespace {
@@ -47,42 +48,21 @@ ell_spmm_vec4(const float4* __restrict__ x, const int* __restrict__ cols,
   y[t] = acc;
 }
 
-__global__ void __launch_bounds__(kThreads)
-ell_spmm_scalar(const float* __restrict__ x, const int* __restrict__ cols,
-                const float* __restrict__ vals, int n_rows, int w, int b,
-                float* __restrict__ y) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (long long)n_rows * b) return;
-  const int r = (int)(t / b);
-  const int j = (int)(t % b);
-  const int* cr = cols + (long long)r * w;
-  const float* vr = vals + (long long)r * w;
-  float acc = 0.f;
-  for (int s = 0; s < w; ++s) acc = fmaf(vr[s], x[(long long)cr[s] * b + j], acc);
-  y[t] = acc;
-}
-
 }  // namespace
 
 // x [n, b], cols/vals [n_rows, w] row-major, y [n_rows, b]; all fp32 except
-// cols (int32, every id in [0, n)).  x and y 16-byte aligned when b % 4 == 0.
+// cols (int32, every id in [0, n)).  b % 4 == 0; x and y 16-byte aligned.
 extern "C" int ell_spmm_f32(const float* x, const int* cols, const float* vals,
                             int n, int n_rows, int w, int b, float* y,
                             void* stream) {
   (void)n;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaGetLastError();
-  if (b % 4 == 0) {
-    const int groups = b / 4;
-    const long long threads = (long long)n_rows * groups;
-    const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
-    ell_spmm_vec4<<<grid, kThreads, 0, st>>>(reinterpret_cast<const float4*>(x), cols,
-                                             vals, n_rows, w, groups,
-                                             reinterpret_cast<float4*>(y));
-  } else {
-    const long long threads = (long long)n_rows * b;
-    const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
-    ell_spmm_scalar<<<grid, kThreads, 0, st>>>(x, cols, vals, n_rows, w, b, y);
-  }
+  const int groups = b / 4;
+  const long long threads = (long long)n_rows * groups;
+  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
+  ell_spmm_vec4<<<grid, kThreads, 0, st>>>(reinterpret_cast<const float4*>(x), cols,
+                                           vals, n_rows, w, groups,
+                                           reinterpret_cast<float4*>(y));
   return (int)cudaGetLastError();
 }

@@ -15,9 +15,9 @@
 // positions), so a GEMM formulation would run at d/8 of the tensor-core
 // tile, and k min-extract passes per candidate would cost k times the
 // distance work.  Here:
-//   * one thread owns one query; its coordinates sit in registers (d padded
-//     to 4 or 16 with zeros, which add exactly 0), or are read through L1 for
-//     wider d;
+//   * one thread owns one query; its coordinates sit in registers for d <= 4
+//     (padded to 4 with zeros, which add exactly 0), or are read through L1
+//     for wider d;
 //   * a block of 128 queries stages tiles of candidates in shared memory;
 //     every thread reads the same candidate at the same time (a broadcast,
 //     no bank conflicts) and forms Σ (q_j − c_j)² directly — exact on
@@ -125,8 +125,6 @@ cudaError_t launch_kp(const float* xq, const float* xc, int nq, int nc, int dp,
   const dim3 grid((nq + kThreads - 1) / kThreads);
   if (dp == 4)
     knn_topk_kernel<KP, 4><<<grid, kThreads, smem, st>>>(xq, xc, nq, nc, dp, tc, k, off, od, oi);
-  else if (dp == 16)
-    knn_topk_kernel<KP, 16><<<grid, kThreads, smem, st>>>(xq, xc, nq, nc, dp, tc, k, off, od, oi);
   else
     knn_topk_kernel<KP, 0><<<grid, kThreads, smem, st>>>(xq, xc, nq, nc, dp, tc, k, off, od, oi);
   return cudaGetLastError();

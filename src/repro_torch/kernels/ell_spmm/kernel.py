@@ -22,7 +22,7 @@ def _lib():
 
 
 def ell_spmm_cuda(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """Raw kernel entry: ``x [n, b]`` fp32, ``cols [R, W]`` int32 (every id
+    """Raw kernel entry: ``x [n, b]`` fp32 with ``b % 4 == 0``, ``cols [R, W]`` int32 (every id
     in ``[0, n)``), ``vals [R, W]`` fp32, all contiguous on one CUDA device.
     Returns ``y [R, b]`` fp32 for the ELL body; launches on the current
     stream and does not synchronise."""
@@ -41,12 +41,13 @@ def ell_spmm_cuda(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor) -> to
                          f"{tuple(vals.shape)} must match")
     n, b = x.shape
     n_rows, w = cols.shape
-    if b % 4 == 0 and x.data_ptr() % 16:
-        raise ValueError("ell_spmm_cuda: x must be 16-byte aligned for float4 gathers")
+    if b % 4 or x.data_ptr() % 16:
+        raise ValueError(f"ell_spmm_cuda: x must have a multiple of 4 columns (got {b}) and "
+                         f"be 16-byte aligned for float4 gathers")
     y = torch.empty((n_rows, b), dtype=torch.float32, device=x.device)
     if n_rows == 0 or b == 0:
         return y
-    if n_rows * max(b, 1) >= 2**31:
+    if n_rows * b >= 2**31:
         raise ValueError("ell_spmm_cuda: rows·b must fit in int32")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

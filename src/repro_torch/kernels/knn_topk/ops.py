@@ -20,16 +20,6 @@ from repro_torch.kernels.knn_topk.kernel import MAX_K, knn_topk_cuda
 from repro_torch.kernels.knn_topk.ref import knn_topk_ref
 
 
-def _padded_width(d: int) -> int:
-    """The kernel keeps query coordinates in registers for d ≤ 4 and d ≤ 16;
-    zero columns add exactly 0 to every squared distance."""
-    if d <= 4:
-        return 4
-    if d <= 16:
-        return 16
-    return round_up(d, 4)
-
-
 def knn_topk(
     x: torch.Tensor,  # [n, d] candidate points
     k: int,
@@ -46,7 +36,9 @@ def knn_topk(
         raise ValueError(f"knn_topk supports 1 <= k <= {MAX_K}, got k={k}")
     q = x if queries is None else queries
     if x.device.type == "cuda":
-        dp = _padded_width(x.shape[1])
+        # zero columns up to a multiple of 4 add exactly 0 to every distance;
+        # the kernel keeps a query's coordinates in registers when d ≤ 4
+        dp = round_up(x.shape[1], 4)
         xc = pad_to(x.float(), dp, 1).contiguous()
         xq = xc if queries is None else pad_to(q.float(), dp, 1).contiguous()
         dist, idx = knn_topk_cuda(xq, xc, k, query_offset=query_offset)

@@ -2,9 +2,10 @@
 small shapes (run on a machine with a card; every test here skips without
 one).
 
-Tolerances: kNN ids equal and distances exact on integer lattices, ids equal
-and distances at rtol 1e-5 on tie-free random data (both sum fp32 squares,
-in different orders); k-means labels equal on tie-free data, counts exact,
+Tolerances: kNN ids equal and distances exact on integer lattices; on random
+data distances at rtol 1e-5 and ids equal except at near-ties, where the
+float64 distance of each differing id must match within rtol 1e-5 (both sum
+fp32 squares, in different orders); k-means labels equal on tie-free data, counts exact,
 sums at rtol 1e-5 / atol 1e-4 (atomics add in a varying order), min distances
 at 1e-5 of ‖x‖² + ‖c‖² (the terms they cancel); ELL SpMM at
 rtol 1e-5 / atol 1e-6 (fused multiply-adds against a plain reduction);
@@ -29,6 +30,24 @@ pytestmark = pytest.mark.skipif(
     reason="needs a CUDA device: the Hopper kernels run only on the card")
 
 
+def knn_ids_equal_up_to_near_ties(queries, x, got_idx, want_idx, want_d,
+                                  rtol: float = 1e-5) -> int:
+    """Assert that every neighbour slot whose id differs between two kNN
+    results is a near-tie: the float64 distance from the query to the
+    differing id matches the expected distance at that rank within ``rtol``
+    (fp32 rounding may order such a pair either way).  Returns the count of
+    differing slots."""
+    q64, x64 = queries.double().cpu().numpy(), x.double().cpu().numpy()
+    got_idx, want_idx = got_idx.cpu().numpy(), want_idx.cpu().numpy()
+    want_d = want_d.cpu().numpy()
+    rows, slots = np.nonzero(got_idx != want_idx)
+    assert (got_idx[rows, slots] >= 0).all(), "a valid slot was left unfilled"
+    d_got = ((q64[rows] - x64[got_idx[rows, slots]]) ** 2).sum(1)
+    want = want_d[rows, slots].astype(np.float64)
+    np.testing.assert_allclose(d_got, want, rtol=rtol, atol=1e-6)
+    return int(rows.size)
+
+
 @pytest.mark.parametrize("side,k", [(5, 16), (7, 8), (6, 33), (4, 63)])
 def test_knn_lattice_exact(side, k):
     g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)
@@ -46,8 +65,8 @@ def test_knn_random(n, d, k, off):
     q = x[off:off + 100] if off else None
     got = knn_topk(x, k, queries=q, query_offset=off)
     want = knn_topk_ref(x, k, queries=q, query_offset=off)
-    assert (got[1] == want[1]).float().mean() > 0.999  # near-ties may swap
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    knn_ids_equal_up_to_near_ties(x if q is None else q, x, got[1], want[1], want[0])
 
 
 @pytest.mark.parametrize("n,k,d", [(1, 1, 1), (129, 65, 17), (1000, 37, 90), (513, 500, 33)])
