@@ -1,12 +1,20 @@
 """Stage 3 — k-means with k-means++ seeding (paper Alg. 4-5; mirrors
 :mod:`repro.core.kmeans`).
 
-The fused iteration is the default and the only engine ported so far: one
-Lloyd iteration = assignment and centroid accumulation from one pass over
-the points (:mod:`repro_torch.kernels.kmeans_iter`, the CUDA kernel on the
-card).  ``iter="two_pass"`` waits for the ``kmeans_assign`` kernel
-(ROADMAP B6).  The reference's ``while_loop`` is a Python loop that reads
-the changed-label count once per iteration.  k-means++ draws its Gumbels
+Two engines, as in the reference:
+
+* **fused** (the default): one Lloyd iteration = assignment and centroid
+  accumulation from one pass over the points
+  (:mod:`repro_torch.kernels.kmeans_iter`, the CUDA kernel on the card);
+* **two-pass** (``iter="two_pass"``, the paper's Alg. 4 split): the
+  assignment (:mod:`repro_torch.kernels.kmeans_assign`, the CUDA kernel on
+  the card, or with ``assign="ref"`` the materialized distance matrix), then
+  a separate centroid update — a one-hot product (``update="matmul"``) or
+  an index-add (``"segment"``).  There is no fallback: ``assign="auto"``
+  and ``"fused"`` launch the kernel on the card and raise if it cannot.
+
+The reference's ``while_loop`` is a Python loop that reads the
+changed-label count once per iteration.  k-means++ draws its Gumbels
 from the caller's CPU generator, so one seed gives the same seeding on the
 CPU and on the card.
 """
@@ -36,9 +44,9 @@ class KMeansConfig:
     max_iters: int = 100
     tol_changes: int = 0  # stop when <= this many labels change
     init: str = "kmeans++"  # "kmeans++" | "random"
-    iter: str = "fused"  # "fused" | "two_pass" (not ported: ROADMAP B6)
-    update: str = "matmul"  # two-pass update (kept for config parity)
-    assign: str = "auto"  # two-pass assignment (kept for config parity)
+    iter: str = "fused"  # "fused" (one-pass kmeans_iter) | "two_pass"
+    update: str = "matmul"  # two-pass update: "matmul" (one-hot) | "segment" (index-add)
+    assign: str = "auto"  # two-pass assignment: "auto" | "fused" (kernel) | "ref"
     empty: str = "keep"  # dead centroids: "keep" (paper) | "reseed_farthest"
     fixed_iters: Optional[int] = None  # exact iteration count (benchmarks)
     block_q: int = KMEANS_BLOCK_Q  # plain version's row chunk
@@ -67,6 +75,33 @@ class KMeansConfig:
     def resolved(self, k: int) -> "KMeansConfig":
         """This config with ``k`` filled in (pipeline-stage dispatch)."""
         return self if self.k == k else dataclasses.replace(self, k=k)
+
+
+# ---------------------------------------------------------------------------
+# assignment step (two-pass mode)
+# ---------------------------------------------------------------------------
+
+def assign_ref(x: torch.Tensor, c: torch.Tensor, x_norm: Optional[torch.Tensor] = None):
+    """labels, min-dist² via the materialized distance matrix (paper Alg. 4)."""
+    xf = x.float()
+    cf = c.float()
+    xn = (xf * xf).sum(1) if x_norm is None else x_norm.float()
+    cn = (cf * cf).sum(1)
+    s = xn[:, None] + cn[None, :] - 2.0 * (xf @ cf.T)  # Eq. 12/15/16
+    val, labels = torch.min(s, dim=1)  # first occurrence: ties low
+    return labels.to(torch.int32), torch.clamp(val, min=0.0)
+
+
+def _assign(x, c, x_norm, cfg: KMeansConfig):
+    """The configured assignment: ``"auto"``/``"fused"`` is the
+    ``kmeans_assign`` wrapper (its kernel on the card, which raises rather
+    than fall back; its plain version on the CPU), ``"ref"`` the
+    materialized distance matrix."""
+    if cfg.assign == "ref":
+        return assign_ref(x, c, x_norm)
+    from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
+
+    return kmeans_assign(x, c, x_norm=x_norm, block_q=cfg.block_q)
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +135,28 @@ def reseed_empty_farthest(c: torch.Tensor, counts: torch.Tensor, x: torch.Tensor
     donors = x.float()[donor_idx]  # [k, d]
     rank = torch.clamp(torch.cumsum(empty.long(), 0) - 1, 0, k - 1)
     return torch.where(empty[:, None], donors[rank], c.float()).to(c.dtype)
+
+
+# ---------------------------------------------------------------------------
+# update step (two-pass mode)
+# ---------------------------------------------------------------------------
+
+def update_centroids(x: torch.Tensor, labels: torch.Tensor, k: int, prev: torch.Tensor, *,
+                     how: str = "matmul") -> torch.Tensor:
+    """New centroids = per-cluster means via a second pass over ``x``:
+    ``how="matmul"`` materializes the n×k one-hot and multiplies (fp32, no
+    TF32 on the card), ``how="segment"`` index-adds the rows."""
+    xf = x.float()
+    lab = labels.long()
+    if how == "matmul":
+        h = torch.nn.functional.one_hot(lab, k).float()  # [n, k]
+        sums = h.T @ xf
+        counts = h.sum(0)
+    else:
+        sums = torch.zeros((k, xf.shape[1]), dtype=torch.float32, device=x.device)
+        sums.index_add_(0, lab, xf)
+        counts = torch.bincount(lab, minlength=k).float()
+    return centroids_from_sums(sums, counts, prev)
 
 
 # ---------------------------------------------------------------------------
@@ -163,11 +220,8 @@ def kmeans(x: torch.Tensor, cfg: KMeansConfig,
     if cfg.k is None:
         raise ValueError("KMeansConfig.k is unset — standalone kmeans() needs "
                          "an explicit k (use cfg.resolved(k))")
-    if cfg.iter != "fused":
-        raise NotImplementedError(
-            "KMeansConfig(iter='two_pass') is not ported yet — its "
-            "assign='auto' path needs the kmeans_assign kernel (ROADMAP B6)")
     n, _ = x.shape
+    k = cfg.k
     xf32 = x.float()
     x_norm = (xf32 * xf32).sum(1)
     if init_centroids is not None:
@@ -180,8 +234,14 @@ def kmeans(x: torch.Tensor, cfg: KMeansConfig,
     changed, iters = n, 0
 
     def one_iter(c, labels):
-        new_labels, dmin, sums, counts = lloyd_iter(x, c, x_norm, cfg)
-        new_c = centroids_from_sums(sums, counts, c)
+        if cfg.iter == "fused":
+            new_labels, dmin, sums, counts = lloyd_iter(x, c, x_norm, cfg)
+            new_c = centroids_from_sums(sums, counts, c)
+        else:  # two_pass: re-stream x for the update
+            new_labels, dmin = _assign(x, c, x_norm, cfg)
+            new_c = update_centroids(x, new_labels, k, c, how=cfg.update)
+            if cfg.empty == "reseed_farthest":
+                counts = torch.bincount(new_labels.long(), minlength=k).float()
         if cfg.empty == "reseed_farthest":
             new_c = reseed_empty_farthest(new_c, counts, x, dmin)
         return new_c, new_labels, dmin, (new_labels != labels).sum()

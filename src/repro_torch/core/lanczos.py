@@ -83,14 +83,19 @@ def operator_passes(cfg: LanczosConfig, restarts: int) -> int:
 
 
 def solver_streams(cfg, result=None) -> int:
-    """Operator streams of a Stage-2 run: :func:`operator_passes` of the
+    """Operator streams of a Stage-2 run: for a
+    :class:`~repro_torch.core.chebyshev.ChebConfig` its fixed
+    :func:`~repro_torch.core.chebyshev.operator_streams` (``result``
+    ignored); for a :class:`LanczosConfig` :func:`operator_passes` of the
     executed restart count (pass the :class:`LanczosResult` or an int)."""
+    from repro_torch.core.chebyshev import ChebConfig, operator_streams
+
+    if isinstance(cfg, ChebConfig):
+        return operator_streams(cfg)
     if not isinstance(cfg, LanczosConfig):
-        if type(cfg).__name__ == "ChebConfig":
-            raise NotImplementedError(
-                "the Chebyshev solver is not ported yet — ROADMAP A6")
         raise TypeError(
-            f"solver_streams expects a LanczosConfig, got {type(cfg).__name__}")
+            f"solver_streams expects a LanczosConfig or ChebConfig, got "
+            f"{type(cfg).__name__}")
     if result is None:
         raise ValueError(
             "solver_streams(LanczosConfig) needs the executed restart count "
@@ -165,13 +170,19 @@ def eigsh(op, cfg, *, v0: Optional[torch.Tensor] = None,
           generator: Optional[torch.Generator] = None) -> LanczosResult:
     """Top-k eigenpairs of a symmetric
     :class:`~repro_torch.core.operator.LinearOperator`: the solver only
-    calls ``op.mv`` or, with ``cfg.block_size > 1``, ``op.mm``.  Runs on the
-    device of ``v0`` (else the operator's); random draws come from the CPU
-    ``generator`` (seed 0 by default)."""
+    calls ``op.mv`` or, with ``cfg.block_size > 1``, ``op.mm``.  A
+    :class:`~repro_torch.core.chebyshev.ChebConfig` dispatches to the
+    polynomial-filter embedding
+    (:func:`repro_torch.core.chebyshev.chebyshev_eigsh`) under the same
+    contract.  Runs on the device of ``v0`` (else the operator's); random
+    draws come from the CPU ``generator`` (seed 0 by default)."""
+    from repro_torch.core.chebyshev import ChebConfig, chebyshev_eigsh
+
+    if isinstance(cfg, ChebConfig):
+        return chebyshev_eigsh(op, cfg, v0=v0, generator=generator)
     if not isinstance(cfg, LanczosConfig):
-        raise NotImplementedError(
-            f"eigsh with {type(cfg).__name__}: only LanczosConfig is ported; "
-            f"the Chebyshev solver is ROADMAP A6")
+        raise TypeError(
+            f"eigsh expects a LanczosConfig or ChebConfig, got {type(cfg).__name__}")
     n = op.shape[0]
     validate_basis(cfg, n)
     gen = cpu_generator(0) if generator is None else generator

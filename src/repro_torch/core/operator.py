@@ -6,8 +6,9 @@ The eigensolver never sees the matrix, only ``mv`` ([n] → [n]) and ``mm``
 Matrix-backed operators also expose ``nnz`` (stored entries one application
 streams, padding included) and the ``device`` their tensors live on.
 
-``ShardedCooOperator`` is not ported yet (ROADMAP A12), nor is the
-``BlockEllOperator.cheb_step`` hook of the Chebyshev solver (ROADMAP A6).
+Operators may also provide the optional ``cheb_step(x, prev, ca, cb)``
+hook (``ca·(A x) + cb·x − prev``), which the Chebyshev filter uses when it
+is there.  ``ShardedCooOperator`` is not ported yet (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Any, Callable, Optional, Protocol, Tuple, runtime_checkable
 import torch
 
 from repro_torch.sparse.formats import COO, BlockELL
-from repro_torch.sparse.ops import spmm_coo, spmv_blockell, spmv_coo
+from repro_torch.sparse.ops import spmm_coo, spmv_coo
 
 
 @runtime_checkable
@@ -67,10 +68,9 @@ class CooOperator:
 
 @dataclasses.dataclass(frozen=True)
 class BlockEllOperator:
-    """BlockELL(+COO tail) operator: the multi-vector ``mm`` is the
-    ``ell_spmm`` kernel on the card (plain version on the CPU); ``mv`` is
-    the plain gather path, as in the reference (kernel B4 is not ported
-    yet: ROADMAP B4)."""
+    """BlockELL(+COO tail) operator: ``mv`` is the ``ell_spmv`` kernel,
+    ``mm`` the ``ell_spmm`` kernel and ``cheb_step`` the fused Chebyshev
+    step of ``ell_spmm`` on the card (their plain versions on the CPU)."""
 
     a: BlockELL
 
@@ -92,12 +92,22 @@ class BlockEllOperator:
         return int(self.a.vals.numel()) + self.a.tail.nnz
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
-        return spmv_blockell(self.a, x)
+        from repro_torch.kernels.ell_spmv.ops import ell_spmv
+
+        return ell_spmv(self.a, x)
 
     def mm(self, x: torch.Tensor) -> torch.Tensor:
         from repro_torch.kernels.ell_spmm.ops import ell_spmm
 
         return ell_spmm(self.a, x)
+
+    def cheb_step(self, x: torch.Tensor, prev: torch.Tensor, ca, cb) -> torch.Tensor:
+        """Fused Chebyshev three-term step ``ca·(A x) + cb·x − prev``: the
+        recurrence's AXPY chain rides the ``ell_spmm`` epilogue instead of
+        three more passes over the [n, b] iterates."""
+        from repro_torch.kernels.ell_spmm.ops import ell_spmm_cheb_step
+
+        return ell_spmm_cheb_step(self.a, x, prev, ca, cb)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,9 +5,11 @@ Given data points ``X ∈ R^{n×d}`` and a neighbourhood edge list, compute
 the per-edge similarity and emit a COO graph.  Two builders coexist, as in
 the reference:
 
-* :func:`build_knn_graph` — on the device: the ``knn_topk`` neighbour
-  search (the CUDA kernel on the card) → edge similarity → symmetrization →
-  row-sorted COO with nnz = 2·n·k;
+* :func:`build_knn_graph` — on the device: the neighbour search (exact:
+  the ``knn_topk`` CUDA kernel on the card; ``method="lsh"``: LSH
+  candidates, hashed by the ``hash_codes`` CUDA kernel, then an exact
+  rerank) → edge similarity → symmetrization → row-sorted COO with
+  nnz = 2·n·k;
 * :func:`eps_neighbors` / :func:`knn_edges` — host-side numpy builders
   (blocked brute force), copied from the reference.
 """
@@ -18,7 +20,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.knn_topk.ops import knn_topk
+from repro_torch.kernels.knn_topk.ops import knn_topk, knn_topk_rerank
+from repro_torch.kernels.lsh_candidates.ops import (DEFAULT_N_BITS, DEFAULT_N_TABLES,
+                                                    default_candidates, lsh_candidates)
 from repro_torch.sparse.formats import COO, coo_from_edges
 from repro_torch.sparse.ops import sort_coo_rows, symmetrize_coo
 
@@ -154,27 +158,41 @@ def build_knn_graph(
     eps=None,
     clip_negative: bool = True,
     method: str = "exact",
+    n_tables: int = DEFAULT_N_TABLES,
+    n_bits: int = DEFAULT_N_BITS,
+    candidates: Optional[int] = None,
+    lsh_seed: int = 0,
+    block_q: Optional[int] = None,
 ) -> COO:
     """kNN search → similarity → symmetric row-sorted COO, on the device of
     ``x`` (static nnz = 2·n·k).
+
+    ``method="exact"`` is the O(n²d) ``knn_topk`` search; ``"lsh"`` hashes
+    the points into ``n_tables`` tables of ``n_bits``-bit random-hyperplane
+    codes, takes ``candidates = m`` ids per point from windows around it
+    (``None`` → ``default_candidates(k, n_tables)``) and reranks them
+    exactly with ``knn_topk_rerank`` in chunks of ``block_q`` (1024 by
+    default) — O(n·m·d).  A low-recall row degrades to fewer than k
+    neighbours, never to wrong distances.
 
     ``points`` separates the neighbour-search space from the similarity
     features (the paper's DTI workflow: spatial neighbours, cross-correlation
     of connectivity profiles as weights).  ``eps`` drops neighbours beyond
     the radius (applied in :func:`graph_from_knn`, as in the reference).
     """
-    if method == "lsh":
-        raise NotImplementedError(
-            "build_knn_graph(method='lsh') is not ported yet — ROADMAP A7 "
-            "(LSH candidates + rerank, kernel B7)")
-    if method != "exact":
-        raise ValueError(f"unknown method {method!r} (expected 'exact'|'lsh')")
     p = x if points is None else points
     if points is not None and points.shape[0] != x.shape[0]:
         raise ValueError(
             f"points rows ({points.shape[0]}) must match feature rows "
             f"({x.shape[0]}) — one search point per feature row")
-    dist2, idx = knn_topk(p, k)
+    if method == "lsh":
+        m = default_candidates(k, n_tables) if candidates is None else candidates
+        cand = lsh_candidates(p, m=m, n_tables=n_tables, n_bits=n_bits, seed=lsh_seed)
+        dist2, idx = knn_topk_rerank(p, cand, k, block_q=block_q or 1024)
+    elif method == "exact":
+        dist2, idx = knn_topk(p, k)
+    else:
+        raise ValueError(f"unknown method {method!r} (expected 'exact'|'lsh')")
     return graph_from_knn(x, dist2, idx, measure=measure, sigma=sigma, eps=eps,
                           clip_negative=clip_negative,
                           dist2_in_x_space=points is None)

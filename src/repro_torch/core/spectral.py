@@ -3,7 +3,7 @@
 
     pipe  = SpectralPipeline(n_clusters=8)
     state = pipe.build_graph(x)        # Stage 1 (or pipe.prepare(w))
-    emb   = pipe.embed(state, gen)     # Stage 2: Lanczos → spectral embedding
+    emb   = pipe.embed(state, gen)     # Stage 2: eigensolver → spectral embedding
     out   = pipe.cluster(emb, gen2)    # Stage 3: k-means on the embedding
     out   = pipe.run(x_or_graph, gen)  # or all three at once
 
@@ -14,9 +14,8 @@ for the CPU, raising when there is none.  ``Plan.device`` keeps the
 reference's meaning ("single" | "sharded") so the reference's JSON loads.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``Plan(device="sharded")`` (A12), ``solver="chebyshev"`` (A6),
-``method="lsh"`` (A7), the sparsify/coarsen/refine stages (A8),
-checkpointing (A9).
+item: ``Plan(device="sharded")`` (A12), the sparsify/coarsen/refine stages
+(A8), checkpointing (A9).
 """
 from __future__ import annotations
 
@@ -26,6 +25,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+import repro_torch.core.chebyshev as cheb
 import repro_torch.core.health as health
 import repro_torch.core.kmeans as km
 import repro_torch.core.lanczos as lz
@@ -35,6 +35,8 @@ from repro_torch.core.health import HealthConfig, PipelineError, StageReport
 from repro_torch.core.operator import BlockEllOperator, CooOperator, LinearOperator
 from repro_torch.core.reduce import CoarsenConfig, SparsifyConfig
 from repro_torch.core.similarity import build_knn_graph
+from repro_torch.kernels.lsh_candidates.ops import (DEFAULT_N_BITS, DEFAULT_N_TABLES,
+                                                    MAX_N_BITS)
 from repro_torch.sparse.formats import COO, coo_to_csr, csr_to_blockell
 
 KMeansConfig = km.KMeansConfig  # the Stage-3 nested config (re-exported)
@@ -47,10 +49,6 @@ _VARIANTS = ("gspmd", "shard_map")
 _EXCHANGES = ("gather", "ring")
 _SOLVERS = ("lanczos", "chebyshev")
 _REPRESENTATIONS = ("coo", "blockell")
-# LSH knobs of GraphConfig (the LSH search itself is ROADMAP A7)
-_DEFAULT_LSH_TABLES = 16
-_DEFAULT_LSH_BITS = 16
-_MAX_LSH_BITS = 24
 
 
 class SpectralResult(NamedTuple):
@@ -75,18 +73,22 @@ def default_basis_size(n: int, k: int, b: int = 1) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class GraphConfig:
-    """Stage-1 knobs (kNN similarity graph, paper Alg. 1).  ``impl``,
-    ``block_q``, ``block_k`` and ``interpret`` select Pallas paths in the
-    reference and are kept for config parity only: here the device of the
-    input picks the kernel or its plain version."""
+    """Stage-1 knobs (kNN similarity graph, paper Alg. 1).  ``method``
+    selects the neighbour search: ``"exact"`` (the O(n²d) ``knn_topk``
+    kernel) or ``"lsh"`` (random-hyperplane candidates reranked exactly,
+    O(n·m·d)); ``n_tables``/``n_bits``/``candidates``/``lsh_seed`` are the
+    LSH knobs and ``block_q`` the rerank's query chunk.  ``impl``,
+    ``block_k`` and ``interpret`` select Pallas paths in the reference and
+    are kept for config parity only: here the device of the input picks the
+    kernel or its plain version."""
 
     knn_k: int = 10
     measure: str = "exp_decay"
     sigma: float = 1.0
     eps: Any = None  # degree-capped ε-ball radius
-    method: str = "exact"  # "exact" | "lsh" (ROADMAP A7)
-    n_tables: int = _DEFAULT_LSH_TABLES
-    n_bits: int = _DEFAULT_LSH_BITS
+    method: str = "exact"  # "exact" | "lsh"
+    n_tables: int = DEFAULT_N_TABLES
+    n_bits: int = DEFAULT_N_BITS
     candidates: Optional[int] = None
     lsh_seed: int = 0
     impl: str = "auto"
@@ -108,9 +110,9 @@ class GraphConfig:
             raise ValueError(f"GraphConfig.knn_k must be >= 1, got {self.knn_k}")
         if self.n_tables < 1:
             raise ValueError(f"GraphConfig.n_tables must be >= 1, got {self.n_tables}")
-        if not 1 <= self.n_bits <= _MAX_LSH_BITS:
+        if not 1 <= self.n_bits <= MAX_N_BITS:
             raise ValueError(
-                f"GraphConfig.n_bits must be in [1, {_MAX_LSH_BITS}], got {self.n_bits}")
+                f"GraphConfig.n_bits must be in [1, {MAX_N_BITS}], got {self.n_bits}")
         if self.candidates is not None and self.candidates < self.n_tables:
             raise ValueError(
                 f"GraphConfig.candidates={self.candidates} < n_tables="
@@ -129,10 +131,12 @@ class GraphConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EigConfig:
-    """Stage-2 knobs (paper Alg. 2-3).  ``representation="blockell"``
-    converts the graph to BlockELL(+tail) host-side so block Lanczos streams
-    the ``ell_spmm`` kernel.  The Chebyshev knobs are kept for config parity
-    (``solver="chebyshev"`` is ROADMAP A6)."""
+    """Stage-2 knobs (paper Alg. 2-3).  ``solver`` is ``"lanczos"``
+    (thick-restart, exact to ``tol``) or ``"chebyshev"`` (Jackson-damped
+    polynomial-filter embedding: ``cheb_degree``, ``n_signals``,
+    ``lambda_cut``, ``cheb_margin``).  ``representation="blockell"``
+    converts the graph to BlockELL(+tail) host-side so both solvers stream
+    the ``ell_spmm`` kernel (and the Chebyshev filter its fused step)."""
 
     n_eigvecs: Optional[int] = None  # embedding width; default: n_clusters
     basis_m: Optional[int] = None  # Krylov basis (ARPACK ncv); default 2k-ish
@@ -360,17 +364,26 @@ class SpectralPipeline:
             block_size=b,
         )
 
-    def _eig_config(self, n: int, eig: Optional[EigConfig] = None) -> lz.LanczosConfig:
+    def _cheb_config(self, n: int, eig: Optional[EigConfig] = None) -> cheb.ChebConfig:
+        e = eig if eig is not None else self.eig
+        k = (e.n_eigvecs or self.n_clusters) + (1 if e.drop_first else 0)
+        return cheb.ChebConfig(k=k, degree=e.cheb_degree, n_signals=e.n_signals,
+                               lambda_cut=e.lambda_cut, margin=e.cheb_margin, which="LA")
+
+    def _eig_config(self, n: int, eig: Optional[EigConfig] = None):
+        """The engine config :func:`repro_torch.core.lanczos.eigsh`
+        dispatches on; ``eig`` overrides the pipeline's Stage-2 config (the
+        escalation ladder's retry handle)."""
         e = eig if eig is not None else self.eig
         if e.solver == "chebyshev":
-            raise NotImplementedError(
-                "EigConfig(solver='chebyshev') is not ported yet — ROADMAP A6")
+            return self._cheb_config(n, e)
         return self._lanczos_config(n, e)
 
     def operator(self, state: GraphState) -> LinearOperator:
         """The Stage-2 operator for this graph: the COO index-add operator,
         or with ``eig.representation="blockell"`` a BlockELL(+tail) built
-        host-side, whose block product is the ``ell_spmm`` kernel."""
+        host-side, whose products are the ``ell_spmv``/``ell_spmm``
+        kernels."""
         self._check_plan()
         if self.eig.representation == "blockell":
             return BlockEllOperator(csr_to_blockell(coo_to_csr(state.adj)))
@@ -395,7 +408,9 @@ class SpectralPipeline:
         w = build_knn_graph(
             _as_points(x, dev), g.knn_k,
             points=None if points is None else _as_points(points, dev),
-            measure=g.measure, sigma=g.sigma, eps=g.eps, method=g.method)
+            measure=g.measure, sigma=g.sigma, eps=g.eps, method=g.method,
+            n_tables=g.n_tables, n_bits=g.n_bits, candidates=g.candidates,
+            lsh_seed=g.lsh_seed, block_q=g.block_q)
         return self.prepare(w, device=dev)
 
     # -- Stage 2 ------------------------------------------------------------
@@ -404,14 +419,17 @@ class SpectralPipeline:
               operator: Optional[LinearOperator] = None,
               eig: Optional[EigConfig] = None, device: DeviceLike = None) -> EmbedState:
         """Stage 2: the top-k eigenpairs of the normalized adjacency via
-        thick-restart Lanczos, mapped to Ng-Jordan-Weiss rows.  ``operator``
-        overrides the plan-chosen operator; ``eig`` the Stage-2 config."""
+        thick-restart Lanczos (``eig.solver="lanczos"``) or the Chebyshev
+        polynomial-filter sketch (``"chebyshev"``), mapped to
+        Ng-Jordan-Weiss rows.  ``operator`` overrides the plan-chosen
+        operator; ``eig`` the Stage-2 config."""
         dev = resolve_device(device)
         state = state.to(dev)
         n = state.adj.shape[0]
         op = self.operator(state) if operator is None else operator
         scfg = self._eig_config(n, eig)
-        # D^{1/2}·1 is exactly the trivial eigenvector of A_sym
+        # D^{1/2}·1 is exactly the trivial eigenvector of A_sym (the
+        # Chebyshev path seeds its sketch with it)
         v0 = torch.sqrt(torch.clamp(state.deg.float(), min=0.0)) + 1e-3
         ecfg = eig if eig is not None else self.eig
         res = lz.eigsh(op, scfg, v0=v0,
@@ -486,21 +504,37 @@ class SpectralPipeline:
     def _stage_refine(self, st: PipelineState) -> PipelineState:
         raise NotImplementedError("the refine stage is not ported yet — ROADMAP A8")
 
-    def _embed_failure(self, emb: EmbedState) -> Optional[str]:
-        """``None`` (healthy), ``"nonfinite"`` or ``"unconverged"``."""
-        if health.nonfinite_count(emb.embedding) + health.nonfinite_count(emb.eigenvalues):
+    def _embed_failure(self, emb: EmbedState, ecfg: EigConfig) -> Optional[str]:
+        """``None`` (healthy), ``"cheb_diverged"`` (the polynomial filter
+        left its bounds interval), ``"nonfinite"`` or ``"unconverged"``."""
+        bad = health.nonfinite_count(emb.embedding) + health.nonfinite_count(emb.eigenvalues)
+        if ecfg.solver == "chebyshev" and (bad or cheb.diverged(emb.eigenvalues)):
+            return "cheb_diverged"
+        if bad:
             return "nonfinite"
         if not bool(emb.converged):
             return "unconverged"
         return None
 
-    def _escalate_embed(self, ecfg: EigConfig, n: int) -> Tuple[EigConfig, str]:
-        """Next rung of the Stage-2 ladder: widen the Krylov basis and double
-        the restart budget (:func:`repro_torch.core.lanczos.escalate_basis`)."""
-        lcfg = self._lanczos_config(n, ecfg)
-        wid = lz.escalate_basis(lcfg, n, widen=self.health.basis_widen)
-        new = dataclasses.replace(ecfg, basis_m=wid.m, max_restarts=wid.max_restarts)
-        return new, f"lanczos_widen[m={wid.m},restarts={wid.max_restarts}]"
+    def _escalate_embed(self, ecfg: EigConfig, failure: str,
+                        n: int) -> Tuple[Optional[EigConfig], str]:
+        """The next rung of the Stage-2 ladder for this failure, or
+        ``(None, "")`` when none applies.  Chebyshev: widen the bounds
+        margin by ``HealthConfig.margin_widen`` once, then fall back to
+        Lanczos.  Lanczos: widen the Krylov basis and double the restart
+        budget (:func:`repro_torch.core.lanczos.escalate_basis`)."""
+        hc = self.health
+        if ecfg.solver == "chebyshev":
+            if ecfg.cheb_margin < self.eig.cheb_margin * hc.margin_widen:
+                new = dataclasses.replace(ecfg, cheb_margin=ecfg.cheb_margin * hc.margin_widen)
+                return new, f"cheb_margin_widen[{new.cheb_margin:g}]"
+            return dataclasses.replace(ecfg, solver="lanczos"), "fallback_lanczos"
+        if failure in ("unconverged", "nonfinite"):
+            lcfg = self._lanczos_config(n, ecfg)
+            wid = lz.escalate_basis(lcfg, n, widen=hc.basis_widen)
+            new = dataclasses.replace(ecfg, basis_m=wid.m, max_restarts=wid.max_restarts)
+            return new, f"lanczos_widen[m={wid.m},restarts={wid.max_restarts}]"
+        return None, ""
 
     def _stage_embed(self, st: PipelineState) -> PipelineState:
         if st.graph is None:
@@ -516,17 +550,20 @@ class SpectralPipeline:
         attempts = 1
         rungs = []
         if hc.enabled:
-            failure = self._embed_failure(emb)
+            failure = self._embed_failure(emb, ecfg)
             while failure and attempts < hc.max_attempts:
-                ecfg, rung = self._escalate_embed(ecfg, st.graph.adj.shape[0])
+                ecfg, rung = self._escalate_embed(ecfg, failure, st.graph.adj.shape[0])
+                if ecfg is None:
+                    break
                 rungs.append(rung)
                 emb = self.embed(st.graph, fold_in(st.gen_embed, attempts), operator=op,
                                  eig=ecfg, device=st.device)
                 attempts += 1
-                failure = self._embed_failure(emb)
-            if failure == "nonfinite":
+                failure = self._embed_failure(emb, ecfg)
+            if failure in ("nonfinite", "cheb_diverged"):
                 raise PipelineError(
-                    "embed", f"spectral embedding is nonfinite after {attempts} attempt(s)",
+                    "embed", f"spectral embedding is {failure.replace('_', ' ')} "
+                             f"after {attempts} attempt(s)",
                     ladder=tuple(rungs),
                     remedy="check the similarity graph / operator for "
                            "degenerate values (health.check_graph), or raise "

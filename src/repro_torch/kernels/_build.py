@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
-``build/repro_torch/`` at the repo root, named by a hash of the source and
-the flags, then loaded with ``ctypes``.  A build takes seconds (no PyTorch
-headers); the result is reused while the source is unchanged.  Only sources
+``build/repro_torch/`` at the repo root, named by a hash of the source, of
+every ``csrc`` header it includes (``#include "x.cuh"``, followed
+recursively: ``kmeans_iter.cu`` and ``kmeans_assign.cu`` share
+``kmeans_tile.cuh``) and of the flags, then loaded with ``ctypes``.  A
+build takes seconds (no PyTorch headers); the result is reused while none
+of those inputs changes.  Only sources
 in this package are built.  A failed build raises with the compiler's
 output — there is no fallback to the plain versions.
 """
@@ -13,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -21,7 +25,9 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
-KERNELS = ("knn_topk", "ell_spmm", "kmeans_iter")
+# ell_spmm.cu holds both the block SpMM and the fused Chebyshev step
+KERNELS = ("knn_topk", "ell_spmm", "ell_spmv", "kmeans_iter", "kmeans_assign",
+           "hash_codes")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -37,10 +43,27 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every local header it includes, recursively,
+    in first-include order."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNELS, *, verbose: bool = False) -> Dict[str, str]:

@@ -7,6 +7,10 @@ in ``csrc/knn_topk.cu`` (or raises), a CPU tensor runs the plain version in
 
 The ε-ball variant masks neighbours beyond ``eps`` to (+inf, −1), giving a
 static-shape [n, k] ε-neighbourhood (k caps the per-row degree).
+
+:func:`knn_topk_rerank` is the exact rerank of the approximate (LSH)
+Stage 1 over bounded candidate sets; as in the reference it is plain tensor
+code (a gather and a batched product), with no kernel of its own.
 """
 from __future__ import annotations
 
@@ -55,3 +59,53 @@ def knn_topk(
 
 
 knn_topk.launches = 0  # kernel launches (CUDA path only)
+
+
+def knn_topk_rerank(
+    x: torch.Tensor,  # [n, d] candidate pool
+    cand: torch.Tensor,  # [nq, m] candidate ids (−1 = padding), unique per row
+    k: int,
+    *,
+    queries: Optional[torch.Tensor] = None,  # [nq, d]; defaults to x (cand is [n, m])
+    query_rows: Optional[torch.Tensor] = None,  # [nq] global ids; default arange(nq)
+    eps: Optional[float] = None,
+    block_q: int = 1024,
+):
+    """Exact top-k over per-query candidate sets: ``knn_topk``'s output
+    contract (dist² ascending, int32 ids, invalid slots (+inf, −1), ties to
+    the lowest position in the row — the smallest id, since candidate rows
+    are ascending) with the ``m ≪ n`` ids of ``cand`` as the only candidates.
+    The query's own row and −1 slots never count.  Queries go in chunks of
+    ``block_q``, so only a [block_q, m, d] gather is live."""
+    xf = x.float()
+    cn = (xf * xf).sum(1)
+    q = xf if queries is None else queries.float()
+    nq, m = q.shape[0], cand.shape[1]
+    if cand.shape[0] != nq:
+        raise ValueError(f"knn_topk_rerank: cand has {cand.shape[0]} rows for {nq} queries")
+    qrow = (torch.arange(nq, device=x.device) if query_rows is None
+            else query_rows.to(x.device).long())
+    qn = (q * q).sum(1)
+    ko = min(k, m)
+    dist = torch.empty((nq, ko), dtype=torch.float32, device=x.device)
+    idx = torch.empty((nq, ko), dtype=torch.int32, device=x.device)
+    for s in range(0, nq, block_q):
+        cb = cand[s:s + block_q].long()
+        valid = (cb >= 0) & (cb != qrow[s:s + block_q, None])
+        safe = torch.where(cb >= 0, cb, 0)
+        d2 = qn[s:s + block_q, None] + cn[safe] \
+            - 2.0 * torch.einsum("qd,qmd->qm", q[s:s + block_q], xf[safe])
+        d2 = torch.where(valid, torch.clamp(d2, min=0.0), math.inf)
+        val, sel = torch.sort(d2, dim=1, stable=True)  # ties → lowest position
+        dist[s:s + block_q] = val[:, :ko]
+        idx[s:s + block_q] = safe.gather(1, sel[:, :ko]).to(torch.int32)
+    idx = torch.where(torch.isinf(dist), -1, idx)  # canonicalize invalid slots
+    if ko < k:  # fewer candidates than requested neighbours
+        dist = torch.cat([dist, torch.full((nq, k - ko), math.inf, device=x.device)], 1)
+        idx = torch.cat([idx, torch.full((nq, k - ko), -1, dtype=torch.int32,
+                                         device=x.device)], 1)
+    if eps is not None:
+        beyond = dist > float(eps) ** 2
+        dist = torch.where(beyond, math.inf, dist)
+        idx = torch.where(beyond, -1, idx)
+    return dist, idx

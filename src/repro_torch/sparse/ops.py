@@ -4,7 +4,9 @@
 Plain PyTorch: the reference's ``segment_sum`` becomes ``index_add_``.  The
 BlockELL multi-vector product used by the eigensolver on the card is the
 ``ell_spmm`` kernel (:mod:`repro_torch.kernels.ell_spmm`); the functions here
-are the plain paths.  Every op runs where its input tensors live.
+are the plain paths, and ``ell_body_spmv`` / ``ell_body_spmm`` are also the
+plain versions of the ``ell_spmv`` / ``ell_spmm`` kernels.  Every op runs
+where its input tensors live.
 """
 from __future__ import annotations
 
@@ -38,23 +40,42 @@ def spmv_csr(m, x: torch.Tensor) -> torch.Tensor:
     return spmv_coo(COO(m.row, m.indices, m.data, m.shape), x)
 
 
+_TILE_ELEMS = 1 << 26  # bound on the live [rows, w, b] gather tile of ell_body_spmm
+
+
+def ell_body_spmv(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """y[r] = Σ_w vals[r, w] · x[cols[r, w]] over the [rows, w] slots of an
+    ELL body (padding slots carry val = 0), in fp32."""
+    return (vals.float() * x.float()[cols.long()]).sum(dim=1)
+
+
+def ell_body_spmm(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Y[r, :] = Σ_w vals[r, w] · x[cols[r, w], :] over the [rows, w] slots of
+    an ELL body, in fp32; one gather serves all b columns.  Chunked over
+    rows so it runs at main-path shapes on the card."""
+    n_rows, w = cols.shape
+    b = x.shape[1]
+    xf = x.float()
+    step = max(1, _TILE_ELEMS // max(1, w * b))
+    out = [(vals[s:s + step].float()[..., None] * xf[cols[s:s + step].long()]).sum(dim=1)
+           for s in range(0, n_rows, step)]
+    return torch.cat(out) if out else torch.zeros((0, b), device=x.device)
+
+
 def spmv_blockell(m: BlockELL, x: torch.Tensor) -> torch.Tensor:
-    """BlockELL SpMV, plain path: dense gather over the padded layout + COO tail."""
+    """BlockELL SpMV, plain path: the ELL body's gather + the COO tail."""
     nb, br, w = m.cols.shape
-    gathered = m.vals.float() * x[m.cols.long()].float()
-    y = gathered.sum(dim=-1).reshape(nb * br)[: m.shape[0]]
-    y = y + spmv_coo(m.tail, x).float()
+    y = ell_body_spmv(x, m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w))
+    y = y[: m.shape[0]] + spmv_coo(m.tail, x).float()
     return y.to(x.dtype)
 
 
 def spmm_blockell(m: BlockELL, x: torch.Tensor) -> torch.Tensor:
-    """Y = W @ X for dense X [n, b] on the BlockELL layout, plain path: one
-    gather over the padded body serves all b columns; the tail goes through
-    the COO product."""
+    """Y = W @ X for dense X [n, b] on the BlockELL layout, plain path: the
+    ELL body's gather + the COO tail."""
     nb, br, w = m.cols.shape
-    gathered = m.vals.float()[..., None] * x[m.cols.long()].float()
-    y = gathered.sum(dim=2).reshape(nb * br, -1)[: m.shape[0]]
-    y = y + spmm_coo(m.tail, x).float()
+    y = ell_body_spmm(x, m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w))
+    y = y[: m.shape[0]] + spmm_coo(m.tail, x).float()
     return y.to(x.dtype)
 
 

@@ -1,4 +1,4 @@
-"""The three CUDA kernels against their plain versions on the card, on ragged
+"""The CUDA kernels against their plain versions on the card, on ragged
 small shapes (run on a machine with a card; every test here skips without
 one).
 
@@ -8,22 +8,36 @@ float64 distance of each differing id must match within rtol 1e-5 (both sum
 fp32 squares, in different orders); k-means labels equal on tie-free data, counts exact,
 sums at rtol 1e-5 / atol 1e-4 (atomics add in a varying order), min distances
 at 1e-5 of ‖x‖² + ‖c‖² (the terms they cancel); ELL SpMM at
-rtol 1e-5 / atol 1e-6 (fused multiply-adds against a plain reduction);
-block Lanczos eigenvalues within 1e-5 of a float64 dense solve.
+rtol 1e-5 / atol 1e-6 (fused multiply-adds against a plain reduction),
+and so the ELL SpMV and the fused Chebyshev step, whose epilogue adds two
+more roundings; the k-means assignment as the fused iteration's labels and
+distances; LSH codes equal wherever every projection is at least 1e-4 from
+0 in float64 (nearer, the two summation orders may take different signs),
+tie-breaks at rtol 1e-5; block Lanczos eigenvalues within 1e-5 of a float64
+dense solve; the scalable path's labels ARI ≥ 0.99 between the card and the
+CPU from one seed.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.spectral import EigConfig, GraphConfig, SpectralPipeline
+from repro_torch.core.spectral import EigConfig, GraphConfig, KMeansConfig, SpectralPipeline
 from repro_torch.data.pointcloud import dti_like_pointcloud
-from repro_torch.kernels.ell_spmm.ops import ell_spmm
-from repro_torch.kernels.ell_spmm.ref import ell_spmm_ref
+from repro_torch.kernels.ell_spmm.ops import ell_spmm, ell_spmm_cheb_step
+from repro_torch.kernels.ell_spmm.ref import ell_spmm_cheb_ref, ell_spmm_ref
+from repro_torch.kernels.ell_spmv.ops import ell_spmv
+from repro_torch.kernels.ell_spmv.ref import ell_spmv_ref
+from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
+from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
 from repro_torch.kernels.kmeans_iter.ops import kmeans_iter
 from repro_torch.kernels.kmeans_iter.ref import kmeans_iter_ref
 from repro_torch.kernels.knn_topk.ops import knn_topk
 from repro_torch.kernels.knn_topk.ref import knn_topk_ref
+from repro_torch.kernels.lsh_candidates.ops import hash_codes
+from repro_torch.kernels.lsh_candidates.ref import hash_codes_ref
+from repro_torch.serve.metrics import adjusted_rand_index
 from repro_torch.sparse import formats as tf
+from repro_torch.sparse.ops import spmm_coo, spmv_coo
 
 pytestmark = pytest.mark.skipif(
     "not torch.cuda.is_available()",
@@ -97,10 +111,105 @@ def test_ell_spmm(n, b, width):
     got = ell_spmm(m, x)
     nb, br, w = m.cols.shape
     want = ell_spmm_ref(x, m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w))[:n]
-    from repro_torch.sparse.ops import spmm_coo
-
     want = want + spmm_coo(m.tail, x)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _random_blockell(n, width):
+    rng = np.random.default_rng(n)
+    r, c = rng.integers(0, n, 12 * n), rng.integers(0, n, 12 * n)
+    v = rng.random(12 * n).astype(np.float32)
+    return tf.csr_to_blockell(tf.coo_to_csr(tf.coo_from_edges(r, c, v, (n, n), device="cuda")),
+                              width=width)
+
+
+@pytest.mark.parametrize("n,width", [(100, None), (257, 8), (1000, 16), (3001, 40)])
+def test_ell_spmv(n, width):
+    m = _random_blockell(n, width)
+    x = torch.randn(n, device="cuda")
+    got = ell_spmv(m, x)
+    nb, br, w = m.cols.shape
+    want = ell_spmv_ref(x, m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w))[:n]
+    torch.testing.assert_close(got, want + spmv_coo(m.tail, x), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,b,width", [(100, 4, None), (257, 3, 8), (1000, 12, 16),
+                                       (513, 508, 24)])
+def test_ell_spmm_cheb_step(n, b, width):
+    m = _random_blockell(n, width)
+    x, prev = torch.randn(n, b, device="cuda"), torch.randn(n, b, device="cuda")
+    ca = torch.tensor(0.37, device="cuda")
+    cb = torch.tensor(-1.25, device="cuda")
+    got = ell_spmm_cheb_step(m, x, prev, ca, cb)
+    nb, br, w = m.cols.shape
+    want = ell_spmm_cheb_ref(x, m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w), prev,
+                             ca, cb) + ca * spmm_coo(m.tail, x)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,k,d", [(1, 1, 1), (129, 65, 17), (1000, 37, 90), (513, 500, 33)])
+def test_kmeans_assign(n, k, d):
+    gen = torch.Generator().manual_seed(k + 1)
+    c = torch.randn(k, d, generator=gen)
+    x = c[torch.randint(k, (n,), generator=gen)] + 0.05 * torch.randn(n, d, generator=gen)
+    x, c = x.cuda(), c.cuda()
+    gl, gd = kmeans_assign(x, c)
+    wl, wd = kmeans_assign_ref(x, c)
+    assert torch.equal(gl, wl)
+    scale = float((x * x).sum(1).max() + (c * c).sum(1).max())
+    torch.testing.assert_close(gd, wd, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("which", ["assign", "iter"])
+@pytest.mark.parametrize("n,k,d", [(700, 130, 16), (2000, 300, 90)])
+def test_kmeans_assign_ties_across_tiles(n, k, d, which):
+    """Every centroid twice, in different tiles of the kernels' sweep (shared
+    by the assignment and the fused iteration): each point ties exactly
+    between j and j + k, and the lower index must win whichever tile a block
+    sweeps first."""
+    gen = torch.Generator().manual_seed(n)
+    c = torch.randn(k, d, generator=gen)
+    x = c[torch.randint(k, (n,), generator=gen)] + 0.05 * torch.randn(n, d, generator=gen)
+    x, c2 = x.cuda(), torch.cat([c, c]).cuda()
+    if which == "assign":
+        gl, _ = kmeans_assign(x, c2)
+        wl, _ = kmeans_assign_ref(x, c2)
+    else:
+        gl, _, gs, gn = kmeans_iter(x, c2)
+        wl, _, ws, wn = kmeans_iter_ref(x, c2)
+        assert torch.equal(gn, wn)
+        torch.testing.assert_close(gs, ws, rtol=1e-5, atol=1e-4)
+    assert int(gl.max()) < k
+    assert torch.equal(gl, wl)
+
+
+@pytest.mark.parametrize("n,d,t,b", [(1000, 3, 16, 16), (300, 8, 4, 24), (77, 20, 3, 1)])
+def test_hash_codes(n, d, t, b):
+    gen = torch.Generator().manual_seed(n)
+    x = (torch.rand(n, d, generator=gen) * 50).cuda()
+    planes = torch.randn(t, d, b + 1, generator=gen).cuda()
+    gc, gt = hash_codes(x, planes)
+    wc, wt = hash_codes_ref(x, planes)
+    proj = torch.einsum("nd,tdb->tnb", x.double(), planes.double())[..., :-1]
+    clear = (proj.abs() >= 1e-4).all(-1)  # [T, n]
+    assert clear.float().mean() > 0.9
+    assert torch.equal(gc[clear], wc[clear])
+    torch.testing.assert_close(gt, wt, rtol=1e-5, atol=1e-5)
+
+
+def test_scalable_path_card_matches_cpu():
+    """LSH graph → Chebyshev embedding → two-pass k-means at n = 2000 on the
+    card and on the CPU from one seed: the same partition."""
+    pos, prof, _, _ = dti_like_pointcloud(2000, 90, 4, eps=1.8, seed=0, neighbors="none")
+    pipe = SpectralPipeline(
+        n_clusters=8,
+        graph=GraphConfig(knn_k=16, measure="cross_correlation", method="lsh"),
+        eig=EigConfig(tol=1e-4, solver="chebyshev", representation="blockell"),
+        kmeans=KMeansConfig(iter="two_pass"))
+    card = pipe.run(prof, torch.Generator().manual_seed(0), points=pos)
+    cpu = pipe.run(prof.cpu(), torch.Generator().manual_seed(0), points=pos.cpu(), device="cpu")
+    assert adjusted_rand_index(card.labels, cpu.labels) >= 0.99
+    torch.testing.assert_close(card.eigenvalues.cpu(), cpu.eigenvalues, rtol=0, atol=1e-3)
 
 
 def test_block_lanczos_on_card_matches_float64_reference():

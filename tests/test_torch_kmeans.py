@@ -118,9 +118,18 @@ def test_seeding_is_deterministic_and_recovers_blobs(init):
 
 
 def test_two_pass_and_unset_k_raise():
+    """Two-pass k-means runs (it raised before kernel B6 was ported) and
+    reaches the fused engine's partition from the same seeds; an unset k
+    still raises."""
+    x, _ = _blobs(n=300, k=4, seed=9, spread=0.3)
+    init = torch.as_tensor(x[:4] + 0.0)
+    two = tkm.kmeans(torch.as_tensor(x), tkm.KMeansConfig(k=4, iter="two_pass"),
+                     init_centroids=init)
+    fused = tkm.kmeans(torch.as_tensor(x), tkm.KMeansConfig(k=4), init_centroids=init)
+    np.testing.assert_array_equal(to_np(two.labels), to_np(fused.labels))
+    np.testing.assert_allclose(to_np(two.centroids), to_np(fused.centroids), **TOL)
+    assert two.iterations == fused.iterations
     x = torch.zeros(10, 2)
-    with pytest.raises(NotImplementedError, match="B6"):
-        tkm.kmeans(x, tkm.KMeansConfig(k=2, iter="two_pass"))
     with pytest.raises(ValueError, match="unset"):
         tkm.kmeans(x, tkm.KMeansConfig())
     with pytest.raises(ValueError, match="iter"):

@@ -137,5 +137,14 @@ def test_edge_similarities_and_host_builders(measure):
 
 
 def test_lsh_method_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A7"):
-        ts.build_knn_graph(torch.zeros(10, 3), 3, method="lsh")
+    """``method="lsh"`` now builds the graph (it raised before ROADMAP A7):
+    with a candidate budget that covers every point, the exact rerank finds
+    the exact neighbours, so the graph equals the exact method's."""
+    x = _tie_free(60, 3, 5, seed=4)
+    exact = ts.build_knn_graph(torch.as_tensor(x), 5)
+    lsh = ts.build_knn_graph(torch.as_tensor(x), 5, method="lsh", n_tables=2, candidates=120)
+    np.testing.assert_array_equal(to_np(exact.row), to_np(lsh.row))
+    np.testing.assert_array_equal(to_np(exact.col), to_np(lsh.col))
+    np.testing.assert_allclose(to_np(exact.val), to_np(lsh.val), **DIST)
+    with pytest.raises(ValueError, match="unknown method"):
+        ts.build_knn_graph(torch.as_tensor(x), 5, method="ann")

@@ -148,10 +148,22 @@ def test_accounting_helpers_match(b):
 
 
 def test_streamed_nnz_and_chebyshev_not_ported(graph):
+    """Stream accounting, and ``eigsh`` dispatching a ``ChebConfig`` to the
+    Chebyshev solver (it raised before ROADMAP A6): its Ritz values lie
+    within the filter's accuracy of the Lanczos eigenvalues."""
     _, top = _ops(graph, "blockell")
     cfg = tlz.LanczosConfig(k=K, m=24, block_size=4)
     assert tlz.streamed_nnz(top, cfg, 2) == tlz.operator_passes(cfg, 2) * top.nnz
-    from repro.core.chebyshev import ChebConfig
+    from repro.core import chebyshev as jch
+    from repro.core import lanczos as jlz
+    from repro_torch.core.chebyshev import ChebConfig
 
-    with pytest.raises(NotImplementedError, match="A6"):
-        tlz.eigsh(top, ChebConfig(k=K))
+    ccfg = ChebConfig(k=K)
+    assert tlz.solver_streams(ccfg) == jlz.solver_streams(jch.ChebConfig(k=K)) == 12 + 2 * 64 + 1
+    assert tlz.streamed_nnz(top, ccfg) == tlz.solver_streams(ccfg) * top.nnz
+    cheb = tlz.eigsh(top, ccfg)
+    exact = tlz.eigsh(top, tlz.LanczosConfig(k=K, m=24, block_size=4, tol=1e-6))
+    assert cheb.restarts == 0 and cheb.converged
+    np.testing.assert_allclose(to_np(cheb.eigenvalues), to_np(exact.eigenvalues), atol=5e-3)
+    with pytest.raises(TypeError, match="LanczosConfig or ChebConfig"):
+        tlz.eigsh(top, object())

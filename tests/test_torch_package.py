@@ -14,8 +14,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ell_spmm import kernel as ell_kernel
+from repro_torch.kernels.ell_spmv import kernel as spmv_kernel
+from repro_torch.kernels.kmeans_assign import kernel as ka_kernel
 from repro_torch.kernels.kmeans_iter import kernel as km_kernel
 from repro_torch.kernels.knn_topk import kernel as knn_kernel
+from repro_torch.kernels.lsh_candidates import kernel as lsh_kernel
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 needs_cuda = pytest.mark.skipif(
@@ -68,6 +71,15 @@ def test_raw_kernel_entries_refuse_cpu_tensors():
         ell_kernel.ell_spmm_cuda(x, torch.zeros(8, 2, dtype=torch.int32), torch.zeros(8, 2))
     with pytest.raises(ValueError, match="CUDA tensor"):
         km_kernel.kmeans_iter_cuda(x, x[:2], torch.zeros(2))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ka_kernel.kmeans_assign_cuda(x, x[:2], torch.zeros(2))
+    cols, vals = torch.zeros(8, 2, dtype=torch.int32), torch.zeros(8, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        spmv_kernel.ell_spmv_cuda(x[:, 0].contiguous(), cols, vals)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ell_kernel.ell_spmm_cheb_cuda(x, cols, vals, x, torch.zeros(2))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lsh_kernel.hash_codes_cuda(x, torch.zeros(2, 4, 5))
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -83,11 +95,24 @@ def test_failed_build_raises(tmp_path, monkeypatch):
 
 
 def test_library_path_tracks_the_source(tmp_path, monkeypatch):
+    """The library's name follows the source and every local header it
+    includes, recursively — an edited shared header never loads a stale
+    build — and every kernel the package builds has its source."""
     monkeypatch.setattr(_build, "CSRC", tmp_path)
-    (tmp_path / "k.cu").write_text("a")
-    first = _build.library_path("k")
-    (tmp_path / "k.cu").write_text("b")
-    assert _build.library_path("k") != first
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\nint a;\n')
+    (tmp_path / "h.cuh").write_text('#pragma once\n#include "g.cuh"\n#include <cuda_runtime.h>\n')
+    (tmp_path / "g.cuh").write_text("int g;\n")
+    seen = {_build.library_path("k")}
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\nint b;\n')
+    seen.add(_build.library_path("k"))
+    (tmp_path / "g.cuh").write_text("int g2;\n")
+    seen.add(_build.library_path("k"))
+    assert len(seen) == 3
+    assert [p.name for p in _build._sources("k")] == ["k.cu", "h.cuh", "g.cuh"]
+    monkeypatch.undo()
+    for name in _build.KERNELS:
+        assert (_build.CSRC / f"{name}.cu").exists()
+    assert "kmeans_tile.cuh" in [p.name for p in _build._sources("kmeans_assign")]
 
 
 @needs_cuda
@@ -95,28 +120,38 @@ def test_cuda_wrappers_never_reach_the_plain_versions(monkeypatch):
     """On the card every wrapper launches its kernel: the plain versions are
     replaced by tripwires, and each launch counter moves."""
     from repro_torch.kernels.ell_spmm import ops as ell_ops
+    from repro_torch.kernels.ell_spmv import ops as spmv_ops
+    from repro_torch.kernels.kmeans_assign import ops as ka_ops
     from repro_torch.kernels.kmeans_iter import ops as km_ops
     from repro_torch.kernels.knn_topk import ops as knn_ops
+    from repro_torch.kernels.lsh_candidates import ops as lsh_ops
     from repro_torch.sparse import formats as tf
 
     def tripwire(*a, **k):
         raise AssertionError("a CUDA tensor reached the plain version")
 
-    monkeypatch.setattr(knn_ops, "knn_topk_ref", tripwire)
-    monkeypatch.setattr(ell_ops, "ell_spmm_ref", tripwire)
-    monkeypatch.setattr(km_ops, "kmeans_iter_ref", tripwire)
+    for mod, name in ((knn_ops, "knn_topk_ref"), (ell_ops, "ell_spmm_ref"),
+                      (ell_ops, "ell_spmm_cheb_ref"), (km_ops, "kmeans_iter_ref"),
+                      (spmv_ops, "ell_spmv_ref"), (ka_ops, "kmeans_assign_ref"),
+                      (lsh_ops, "hash_codes_ref")):
+        monkeypatch.setattr(mod, name, tripwire)
+    wrappers = (knn_ops.knn_topk, ell_ops.ell_spmm, ell_ops.ell_spmm_cheb_step,
+                km_ops.kmeans_iter, spmv_ops.ell_spmv, ka_ops.kmeans_assign,
+                lsh_ops.hash_codes)
     dev = torch.device("cuda")
     x = torch.randn(100, 3, device=dev)
-    before = (knn_ops.knn_topk.launches, ell_ops.ell_spmm.launches,
-              km_ops.kmeans_iter.launches)
+    before = [w.launches for w in wrappers]
     knn_ops.knn_topk(x, 5)
     rng = np.random.default_rng(0)
     r, c = rng.integers(0, 100, 600), rng.integers(0, 100, 600)
     m = tf.csr_to_blockell(tf.coo_to_csr(
         tf.coo_from_edges(r, c, np.ones(600, np.float32), (100, 100), device=dev)))
-    ell_ops.ell_spmm(m, torch.randn(100, 4, device=dev))
+    y = torch.randn(100, 4, device=dev)
+    ell_ops.ell_spmm(m, y)
+    ell_ops.ell_spmm_cheb_step(m, y, y, 1.0, 0.5)
     km_ops.kmeans_iter(x, x[:7])
+    spmv_ops.ell_spmv(m, y[:, 0])
+    ka_ops.kmeans_assign(x, x[:7])
+    lsh_ops.hash_codes(x, torch.randn(4, 3, 9, device=dev))
     torch.cuda.synchronize()
-    after = (knn_ops.knn_topk.launches, ell_ops.ell_spmm.launches,
-             km_ops.kmeans_iter.launches)
-    assert all(a == b + 1 for a, b in zip(after, before))
+    assert [w.launches for w in wrappers] == [b + 1 for b in before]

@@ -135,16 +135,25 @@ def test_escalation_ladders_and_guards():
                                                device=CPU)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(eig=tsp.EigConfig(solver="chebyshev")), "A6"),
-    (dict(graph=tsp.GraphConfig(method="lsh")), "A7"),
-    (dict(plan=tsp.Plan(device="sharded")), "A12"),
-    (dict(stages=("prepare", "sparsify", "embed", "cluster")), "A8"),
+_COARSEN = ("prepare", "coarsen", "embed", "refine", "cluster")
+
+
+@pytest.mark.parametrize("kw,item,done", [
+    (dict(stages=_COARSEN), "coarsen stage.*A8", ()),
+    (dict(stages=_COARSEN), "refine stage.*A8", ("prepare", "coarsen", "embed")),
+    (dict(plan=tsp.Plan(device="sharded")), "A12", ()),
+    (dict(stages=("prepare", "sparsify", "embed", "cluster")), "A8", ()),
 ])
-def test_unported_features_raise(kw, item):
+def test_unported_features_raise(kw, item, done):
+    """Each unported feature raises naming its ROADMAP item; ``done`` marks
+    stages as already run, to reach the refine stage past coarsen."""
     x = np.random.default_rng(0).normal(size=(60, 3)).astype(np.float32)
+    pipe = tsp.SpectralPipeline(n_clusters=2, **kw)
     with pytest.raises(NotImplementedError, match=item):
-        tsp.SpectralPipeline(n_clusters=2, **kw).run(x, _gen(), device=CPU)
+        if done:
+            pipe.run_stages(tsp.PipelineState(provenance=done, device=torch.device(CPU)))
+        else:
+            pipe.run(x, _gen(), device=CPU)
 
 
 def test_label_metric_matches_reference():
