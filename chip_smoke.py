@@ -37,6 +37,7 @@ table as JSON (each kernel's launches from its own path); the last line is
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -52,6 +53,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch.core.chebyshev as cheb  # noqa: E402
+import repro_torch.core.kmeans as tkm  # noqa: E402
 from repro_torch.core.spectral import (EigConfig, GraphConfig, KMeansConfig,  # noqa: E402
                                        SpectralPipeline)
 from repro_torch.data.pointcloud import dti_like_pointcloud  # noqa: E402
@@ -78,8 +80,9 @@ from repro_torch.sparse.ops import spmm_coo, spmv_coo  # noqa: E402
 from repro_torch.serve.metrics import adjusted_rand_index  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): fp32 outside the tensor
-# cores and HBM bandwidth.
+# cores, TF32 on the tensor cores, and HBM bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 N_FULL, D_PROFILE, N_REGIONS, K_FULL, KNN_K = 142541, 90, 250, 500, 16
@@ -114,11 +117,47 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, peak: float = PEAK_FP32_FLOPS):
     """(bound_ms, bound_by): the larger of bytes / HBM rate and operations /
-    fp32 peak."""
-    t_bytes, t_ops = n_bytes / PEAK_HBM_BYTES * 1e3, n_ops / PEAK_FP32_FLOPS * 1e3
+    ``peak`` (the fp32 SIMT peak unless the work runs on the tensor cores)."""
+    t_bytes, t_ops = n_bytes / PEAK_HBM_BYTES * 1e3, n_ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kmeans_bound(n_bytes: float):
+    """The k-means distance products at fp32 accuracy on the tensor cores:
+    three TF32 products (3xTF32) of 2·n·k·d flops each."""
+    return bound(n_bytes, 3 * 2.0 * N_FULL * K_FULL * K_FULL, PEAK_TF32_FLOPS)
+
+
+def launch_ms(fn, copies, iters: int):
+    """Each of ``iters`` launches of ``fn(*copy)`` (rotating over ``copies``)
+    timed alone between its own events, sorted: the spread of single
+    launches, where ``cuda_ms`` gives their mean."""
+    it = itertools.cycle(copies)
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    for _ in range(len(copies)):
+        fn(*next(it))
+    for start, end in pairs:
+        start.record()
+        fn(*next(it))
+        end.record()
+    torch.cuda.synchronize()
+    return sorted(start.elapsed_time(end) for start, end in pairs)
+
+
+def sm_clock() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def cold_ms(fn, copies, iters: int) -> float:
+    """``cuda_ms`` of ``fn(*copy)`` rotating over ``copies`` of its inputs,
+    enough bytes that no launch finds its operands in the 50 MB L2."""
+    it = itertools.cycle(copies)
+    return cuda_ms(lambda: fn(*next(it)), iters=iters, warmup=len(copies))
 
 
 def near_tie_swaps(x, got_idx, want_idx, want_d) -> int:
@@ -263,15 +302,14 @@ def kmeans_phase() -> dict:
         return sums
 
     library_ms = cuda_ms(library, iters=3)
-    n_ops = 2.0 * N_FULL * K_FULL * K_FULL
     n_bytes = (N_FULL * K_FULL + K_FULL * K_FULL + K_FULL) * 4 + N_FULL * 8 \
         + K_FULL * (K_FULL + 1) * 4
-    bms, by = bound(n_bytes, n_ops)
+    bms, by = kmeans_bound(n_bytes)
     log(f"[kernel] kmeans_iter (tol: labels and counts exact, sums rtol 1e-5 atol 1e-4, "
         f"dmin atol 1e-5·(‖x‖²+‖c‖²)): n={N_FULL} k={K_FULL} d={K_FULL} labels and counts equal, "
         f"max|Δ| sums/dmin={err:.2e}; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
         f"library_ms={library_ms:.3f} (a composition: chunked cdist + argmin + index_add_) "
-        f"bound_ms={bms:.3f} ({by})")
+        f"bound_ms={bms:.3f} ({by}, 3×TF32)")
     return dict(name="kmeans_iter", route="cuda", source="src/repro_torch/csrc/kmeans_iter.cu",
                 replaces="src/repro/kernels/kmeans_iter/kernel.py:98", max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
@@ -379,7 +417,15 @@ def hash_phase(pos) -> dict:
 
 def spmv_phase(state, op) -> dict:
     """``ell_spmv`` through ``BlockEllOperator.mv`` on the scalable path's
-    BlockELL graph, against the plain gather plus the COO tail."""
+    BlockELL graph, against the plain gather plus the COO tail; widths 8, 12,
+    24 and 40 at a row count that leaves the kernel a ragged last block.
+
+    Timed warm (back to back on one copy of the slots, which nearly fill the
+    L2) and cold (rotating over three copies, 137 MB), in four turns that
+    alternate the kernel, ``torch.sparse.mm`` and a device copy of the same
+    slot bytes (the card's streaming rate at this size, as a yardstick).
+    The record's ``ms`` and ``library_ms`` are the cold means — the slot
+    stream from HBM, as the bound counts it."""
     dev = torch.device("cuda")
     from repro_torch.sparse import formats as tf
 
@@ -393,7 +439,7 @@ def spmv_phase(state, op) -> dict:
 
     rng = np.random.default_rng(5)
     before = spmv_ops.ell_spmv.launches
-    for n, width in ((100, None), (257, 8), (3001, 40)):
+    for n, width in ((100, None), (257, 8), (3001, 8), (3001, 12), (3001, 24), (3001, 40)):
         r, c = rng.integers(0, n, 12 * n), rng.integers(0, n, 12 * n)
         v = rng.random(12 * n).astype(np.float32)
         compare(tf.csr_to_blockell(tf.coo_to_csr(tf.coo_from_edges(r, c, v, (n, n), device=dev)),
@@ -403,21 +449,54 @@ def spmv_phase(state, op) -> dict:
     err = compare(m, x)
     # the same function (the tail's index-add sums in a varying order)
     torch.testing.assert_close(op.mv(x), spmv_ops.ell_spmv(m, x), rtol=1e-6, atol=1e-7)
-    check(spmv_ops.ell_spmv.launches == before + 6, "ell_spmv wrapper did not launch its kernel")
+    check(spmv_ops.ell_spmv.launches == before + 9, "ell_spmv wrapper did not launch its kernel")
     nb, br, w = m.cols.shape
     cols, vals = m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w)
-    ms = cuda_ms(lambda: ell_spmv_cuda(x, cols, vals), iters=100)
     plain_ms = cuda_ms(lambda: ell_spmv_ref(x, cols, vals), iters=20)
     csr, xc = _csr(state.adj), x[:, None]
-    library_ms = cuda_ms(lambda: torch.sparse.mm(csr, xc), iters=100)
+    slots = [(x, cols.clone(), vals.clone()) for _ in range(3)]
+    csrs = [(_csr(state.adj), xc) for _ in range(3)]
+    dst = (torch.empty_like(cols), torch.empty_like(vals))
+
+    def copy(_, c, v):  # reads and writes the slot bytes once
+        dst[0].copy_(c)
+        dst[1].copy_(v)
+
+    turns = dict(warm=[], cold=[], library_warm=[], library_cold=[], copy=[])
+    for turn in range(4):
+        for who in ("kernel", "library", "copy")[::1 if turn % 2 == 0 else -1]:
+            if who == "library":
+                turns["library_warm"].append(cuda_ms(lambda: torch.sparse.mm(csr, xc),
+                                                     iters=100))
+                turns["library_cold"].append(cold_ms(torch.sparse.mm, csrs, iters=99))
+            elif who == "copy":
+                turns["copy"].append(cold_ms(copy, slots, iters=99))
+            else:
+                turns["warm"].append(cuda_ms(lambda: ell_spmv_cuda(x, cols, vals), iters=100))
+                turns["cold"].append(cold_ms(ell_spmv_cuda, slots, iters=99))
+    clock = sm_clock()
+    single = launch_ms(ell_spmv_cuda, slots, iters=300)
+    del slots, csrs, dst
+    mean = {key: sum(v) / len(v) for key, v in turns.items()}
+    q = {f"p{p}": single[min(len(single) - 1, len(single) * p // 100)] for p in (0, 10, 50, 90)}
+    q["max"] = single[-1]
     rows = nb * br
     bms, by = bound(rows * w * 8 + N_FULL * 4 + rows * 4, 2.0 * rows * w)
     log(f"[kernel] ell_spmv (tol: rtol 1e-5 atol 1e-6): rows={rows} W={w} tail={m.tail.nnz} "
-        f"max|Δy|={err:.2e}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} (torch.sparse.mm, CSR) bound_ms={bms:.4f} ({by})")
+        f"max|Δy|={err:.2e}; kernel_ms cold={mean['cold']:.4f} warm={mean['warm']:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms (torch.sparse.mm, CSR) cold="
+        f"{mean['library_cold']:.4f} warm={mean['library_warm']:.4f} bound_ms={bms:.4f} ({by})")
+    for key, ts in turns.items():
+        log(f"[kernel] ell_spmv turns, {key}: " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
+            + (f" ({2 * rows * w * 8 / (sum(ts) / len(ts)) / 1e9:.2f} TB/s)"
+               if key == "copy" else ""))
+    log(f"[kernel] ell_spmv single cold launches (300, each between its own events): "
+        + " ".join(f"{key}={v:.4f}" for key, v in q.items()) + f" ms; clocks.sm, power.draw "
+        f"after the turns: {clock}")
     return dict(name="ell_spmv", route="cuda", source="src/repro_torch/csrc/ell_spmv.cu",
                 replaces="src/repro/kernels/ell_spmv/kernel.py:37", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+                ms=mean["cold"], plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=mean["library_cold"], turns=turns, single_cold=q)
 
 
 def cheb_step_phase(state, op) -> dict:
@@ -476,8 +555,10 @@ def cheb_step_phase(state, op) -> dict:
 
 
 def assign_phase() -> dict:
-    """``kmeans_assign`` on tie-free blobs at the embedding's shape
-    (n = 142,541 rows of width 500, 500 centroids)."""
+    """``kmeans_assign`` on tie-free blobs: ragged shapes (d not a multiple
+    of 4, k not a multiple of the 128-wide centroid tile, n = 1), every
+    centroid duplicated across tiles, and the embedding's shape (n = 142,541
+    rows of width 500, 500 centroids)."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(8)
 
@@ -495,13 +576,15 @@ def assign_phase() -> dict:
         return float((gd - wd).abs().max())
 
     before = ka_ops.kmeans_assign.launches
-    for n, k, d in ((1, 1, 1), (1000, 37, 90), (513, 500, 33), (4097, 129, 257)):
+    for n, k, d in ((1, 1, 1), (1000, 37, 90), (513, 500, 33), (4097, 129, 257),
+                    (1, 130, 500), (700, 65, 17), (3000, 130, 500)):
         compare(*blobs(n, k, d, 0.05), f"n={n} k={k} d={d}")
-    x, c = blobs(2000, 300, 90, 0.05)  # every centroid twice: exact ties across tiles
-    compare(x, torch.cat([c, c]), "duplicated centroids")
+    for n, k, d in ((2000, 300, 90), (3000, K_FULL, K_FULL)):
+        x, c = blobs(n, k, d, 0.05)  # every centroid twice: exact ties across tiles
+        compare(x, torch.cat([c, c]), f"duplicated centroids k={k} d={d}")
     x, c = blobs(N_FULL, K_FULL, K_FULL, 0.02)
     err = compare(x, c, "main shape")
-    check(ka_ops.kmeans_assign.launches == before + 6,
+    check(ka_ops.kmeans_assign.launches == before + 10,
           "kmeans_assign wrapper did not launch its kernel")
     cn = (c * c).sum(1)
     # the assignment and the fused iteration (its superset) on these inputs,
@@ -517,16 +600,43 @@ def assign_phase() -> dict:
 
     library_ms = cuda_ms(library, iters=3)
     n_bytes = (N_FULL * K_FULL + K_FULL * K_FULL + K_FULL) * 4 + N_FULL * 8
-    bms, by = bound(n_bytes, 2.0 * N_FULL * K_FULL * K_FULL)
+    bms, by = kmeans_bound(n_bytes)
+    flops = 2.0 * N_FULL * K_FULL * K_FULL
     log(f"[kernel] kmeans_assign (tol: labels exact, dmin atol 1e-5·(‖x‖²+‖c‖²)): n={N_FULL} "
-        f"k={K_FULL} d={K_FULL} labels equal, max|Δdmin|={err:.2e}; kernel_ms={ms:.3f} "
+        f"k={K_FULL} d={K_FULL} labels equal, max|Δdmin|={err:.2e}; kernel_ms={ms:.4f} "
+        f"({flops / ms / 1e9:.1f} TFLOP/s of fp32-accurate products, "
+        f"{3 * flops / ms / 1e9:.1f} TFLOP/s on the tensor cores) "
         f"plain_ms={plain_ms:.3f} library_ms={library_ms:.3f} (chunked cdist + min) "
-        f"bound_ms={bms:.3f} ({by}); in turns assign/iter/iter/assign on these inputs: "
-        + " / ".join(f"{t:.3f}" for t in turns) + " ms")
+        f"bound_ms={bms:.4f} ({by}, 3×TF32); in turns assign/iter/iter/assign on these inputs: "
+        + " / ".join(f"{t:.4f}" for t in turns) + " ms")
     return dict(name="kmeans_assign", route="cuda",
                 source="src/repro_torch/csrc/kmeans_assign.cu",
                 replaces="src/repro/kernels/kmeans_assign/kernel.py:61", max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+
+
+def assign_on_embedding(emb, labels) -> dict:
+    """``kmeans_assign`` against its plain version on real data: the
+    scalable path's final embedding and the centroids of its final labels.
+    A label may differ only at a near-tie: the two centroids' float64
+    distances to the row agree within 1e-5·(‖x‖²+‖c‖²), the dmin gate."""
+    x = emb.float().contiguous()
+    c = tkm.update_centroids(x, labels, K_FULL, torch.zeros(K_FULL, x.shape[1], device=x.device))
+    gl, gd = ka_ops.kmeans_assign(x, c)
+    wl, wd = kmeans_assign_ref(x, c)
+    scale = float((x * x).sum(1).max() + (c * c).sum(1).max())
+    torch.testing.assert_close(gd, wd, rtol=0, atol=1e-5 * scale)
+    rows = torch.nonzero(gl != wl)[:, 0]
+    x64, c64 = x[rows].double(), c.double()
+    d_got = ((x64 - c64[gl[rows].long()]) ** 2).sum(1)
+    d_want = ((x64 - c64[wl[rows].long()]) ** 2).sum(1)
+    gap = float((d_got - d_want).abs().max()) if rows.numel() else 0.0
+    check(gap <= 1e-5 * scale, f"kmeans_assign on the embedding: a differing label is not a "
+                               f"near-tie (float64 gap {gap:.3e})")
+    log(f"[kernel] kmeans_assign on the scalable path's embedding [{x.shape[0]} × {x.shape[1]}] "
+        f"and final centroids: {rows.numel()} labels differ from the plain version, each a "
+        f"near-tie in float64 (largest gap {gap:.3e}, gate {1e-5 * scale:.3e})")
+    return dict(differing=int(rows.numel()), max_gap=gap)
 
 
 # ---------------------------------------------------------------------------
@@ -642,6 +752,8 @@ def scalable_path(pos, prof, region, exact, first) -> dict:
     pipe = scalable_pipeline(K_FULL)
     with CutSpy() as spy:
         res, rec = drive(pipe, pos, prof, region, "scalable", SCALABLE_KERNELS)
+    rec["assign_on_embedding"] = assign_on_embedding(res.embedding, res.labels)
+    np.save(ROOT / "chiprun_out" / "scalable_labels.npy", res.labels.cpu().numpy())
     emb = rec["reports"][1]
     lam_cut = spy.laplacian_cut()
     fell_back = "fallback_lanczos" in emb["escalations"]
@@ -724,6 +836,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -767,7 +880,6 @@ def main() -> int:
     e2e = dict(main=end_to_end(main_pipeline, "e2e", 1e-4),
                scalable=end_to_end(scalable_pipeline, "e2e-scalable", 1e-4))
     t_done = time.perf_counter()
-    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     profiled = None
     if "--profile" in sys.argv[1:]:
         profiled = dict(main=profile_path(main_pipeline(K_FULL), pos, prof, "main"),

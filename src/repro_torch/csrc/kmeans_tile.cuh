@@ -1,6 +1,7 @@
-// The online (min, argmin) sweep shared by the k-means kernels
-// (kmeans_iter.cu and kmeans_assign.cu): for the BM point rows starting at
-// row0, min_j (‖c_j‖² − 2 x_i·c_j) and the lowest j attaining it.
+// The online (min, argmin) sweep of the fused k-means iteration
+// (kmeans_iter.cu): for the BM point rows starting at row0,
+// min_j (‖c_j‖² − 2 x_i·c_j) and the lowest j attaining it.  (The
+// assignment kernel, kmeans_assign.cu, has its own tensor-core tile.)
 //
 // A block of kThreads = 256 threads owns BM = 64 rows and sweeps the
 // centroids in tiles of BN = 64, staging BK = 16-wide slices of the row

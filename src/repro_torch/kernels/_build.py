@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
 ``build/repro_torch/`` at the repo root, named by a hash of the source, of
 every ``csrc`` header it includes (``#include "x.cuh"``, followed
-recursively: ``kmeans_iter.cu`` and ``kmeans_assign.cu`` share
-``kmeans_tile.cuh``) and of the flags, then loaded with ``ctypes``.  A
+recursively: ``kmeans_iter.cu`` includes ``kmeans_tile.cuh``) and of the
+flags, then loaded with ``ctypes``.  A
 build takes seconds (no PyTorch headers); the result is reused while none
 of those inputs changes.  Only sources
 in this package are built.  A failed build raises with the compiler's

@@ -10,6 +10,8 @@ import torch
 
 from repro_torch.kernels import _build
 
+MAX_W = 8192  # four rows of products, 128 KB of shared memory
+
 
 def _lib():
     fn = _build.load("ell_spmv").ell_spmv_f32
@@ -22,7 +24,8 @@ def _lib():
 
 def ell_spmv_cuda(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Raw kernel entry: ``x [n]`` fp32, ``cols [R, W]`` int32 (every id in
-    ``[0, n)``), ``vals [R, W]`` fp32, all contiguous on one CUDA device.
+    ``[0, n)``), ``vals [R, W]`` fp32, all contiguous on one CUDA device,
+    ``cols`` and ``vals`` 16-byte aligned, ``W <= MAX_W``.
     Returns ``y [R]`` fp32 for the ELL body; launches on the current stream
     and does not synchronise."""
     for name, t, dt, nd in (("x", x, torch.float32, 1), ("cols", cols, torch.int32, 2),
@@ -41,6 +44,14 @@ def ell_spmv_cuda(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor) -> to
     n_rows, w = cols.shape
     if n_rows * w >= 2**31:
         raise ValueError("ell_spmv_cuda: rows·W must fit in int32")
+    if w > MAX_W:
+        raise ValueError(f"ell_spmv_cuda: W = {w} slots a row; the kernel keeps four rows' "
+                         f"products in shared memory and takes W <= {MAX_W}")
+    if cols.data_ptr() % 16 or vals.data_ptr() % 16:
+        raise ValueError("ell_spmv_cuda: cols and vals must start 16-byte aligned "
+                         "(the kernel streams them as int4 / float4)")
+    if w == 0:
+        return torch.zeros(n_rows, dtype=torch.float32, device=x.device)
     y = torch.empty(n_rows, dtype=torch.float32, device=x.device)
     if n_rows == 0:
         return y

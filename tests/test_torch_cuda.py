@@ -25,6 +25,7 @@ from repro_torch.core.spectral import EigConfig, GraphConfig, KMeansConfig, Spec
 from repro_torch.data.pointcloud import dti_like_pointcloud
 from repro_torch.kernels.ell_spmm.ops import ell_spmm, ell_spmm_cheb_step
 from repro_torch.kernels.ell_spmm.ref import ell_spmm_cheb_ref, ell_spmm_ref
+from repro_torch.kernels.ell_spmv.kernel import ell_spmv_cuda
 from repro_torch.kernels.ell_spmv.ops import ell_spmv
 from repro_torch.kernels.ell_spmv.ref import ell_spmv_ref
 from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
@@ -123,7 +124,8 @@ def _random_blockell(n, width):
                               width=width)
 
 
-@pytest.mark.parametrize("n,width", [(100, None), (257, 8), (1000, 16), (3001, 40)])
+@pytest.mark.parametrize("n,width", [(100, None), (257, 8), (1000, 16), (3001, 40), (3001, 8),
+                                     (3001, 12), (3001, 24), (1000, 40)])
 def test_ell_spmv(n, width):
     m = _random_blockell(n, width)
     x = torch.randn(n, device="cuda")
@@ -131,6 +133,40 @@ def test_ell_spmv(n, width):
     nb, br, w = m.cols.shape
     want = ell_spmv_ref(x, m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w))[:n]
     torch.testing.assert_close(got, want + spmv_coo(m.tail, x), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("rows,w", [(1, 8), (1001, 8), (1003, 12), (4999, 24), (3001, 40),
+                                    (777, 5), (513, 13), (100, 600)])
+def test_ell_spmv_kernel_any_width(rows, w):
+    """The raw kernel on [rows, W] slots: a block takes a run of whole rows
+    (a multiple of 4, about 2048 slots), so these row counts leave a ragged
+    last block, and W = 5, 13 leave runs whose length is not a multiple of
+    the 4-slot chunks it streams.  Tolerance: rtol 1e-5, plus 1e-6 of the
+    row's Σ|vals·x| — the two sum W rounded products in different orders,
+    and at W = 600 a row that cancels to near 0 carries that error."""
+    rng = np.random.default_rng(rows + w)
+    n = max(rows, 10)
+    cols = torch.as_tensor(rng.integers(0, n, (rows, w)), dtype=torch.int32, device="cuda")
+    vals = torch.as_tensor(rng.random((rows, w)), dtype=torch.float32, device="cuda")
+    x = torch.randn(n, device="cuda")
+    got, want = ell_spmv_cuda(x, cols, vals), ell_spmv_ref(x, cols, vals)
+    mag = (vals * x[cols.long()]).abs().sum(1)
+    assert bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-6 * mag + 1e-6).all())
+
+
+def test_ell_spmv_kernel_refuses_what_it_cannot_stream():
+    """The kernel streams 16-byte chunks of slots and keeps four rows'
+    products in shared memory: a misaligned view or W > MAX_W raises."""
+    from repro_torch.kernels.ell_spmv.kernel import MAX_W
+
+    x = torch.randn(10, device="cuda")
+    cols = torch.zeros(9 * 8 + 1, dtype=torch.int32, device="cuda")[1:].view(9, 8)
+    vals = torch.zeros(9, 8, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ell_spmv_cuda(x, cols, vals)
+    wide = torch.zeros(1, MAX_W + 1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="W <="):
+        ell_spmv_cuda(x, wide, wide.float())
 
 
 @pytest.mark.parametrize("n,b,width", [(100, 4, None), (257, 3, 8), (1000, 12, 16),
@@ -147,10 +183,14 @@ def test_ell_spmm_cheb_step(n, b, width):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("n,k,d", [(1, 1, 1), (129, 65, 17), (1000, 37, 90), (513, 500, 33)])
+@pytest.mark.parametrize("n,k,d", [(1, 1, 1), (129, 65, 17), (1000, 37, 90), (513, 500, 33),
+                                   (1, 130, 500), (700, 65, 1), (300, 130, 257),
+                                   (2000, 500, 500), (1000, 130, 92)])
 def test_kmeans_assign(n, k, d):
     gen = torch.Generator().manual_seed(k + 1)
     c = torch.randn(k, d, generator=gen)
+    if d == 1 and k > 1:  # random centroids crowd a line: space them 1 apart (tie-free)
+        c = torch.randperm(k, generator=gen).float()[:, None]
     x = c[torch.randint(k, (n,), generator=gen)] + 0.05 * torch.randn(n, d, generator=gen)
     x, c = x.cuda(), c.cuda()
     gl, gd = kmeans_assign(x, c)
@@ -160,8 +200,24 @@ def test_kmeans_assign(n, k, d):
     torch.testing.assert_close(gd, wd, rtol=0, atol=1e-5 * scale)
 
 
+def test_kmeans_assign_misaligned_rows():
+    """x at an offset of one float: rows are not 16-byte aligned, so the
+    kernel takes its 4-byte copies (d = 92 would otherwise take 16-byte)."""
+    gen = torch.Generator().manual_seed(3)
+    c = torch.randn(37, 92, generator=gen)
+    x = c[torch.randint(37, (1001,), generator=gen)] + 0.05 * torch.randn(1001, 92, generator=gen)
+    x, c = x.cuda(), c.cuda()
+    xv = x.reshape(-1)[1:1 + 1000 * 92].view(1000, 92)
+    assert xv.data_ptr() % 16 != 0
+    gl, gd = kmeans_assign(xv, c)
+    wl, wd = kmeans_assign_ref(xv, c)
+    assert torch.equal(gl, wl)
+    scale = float((xv * xv).sum(1).max() + (c * c).sum(1).max())
+    torch.testing.assert_close(gd, wd, rtol=0, atol=1e-5 * scale)
+
+
 @pytest.mark.parametrize("which", ["assign", "iter"])
-@pytest.mark.parametrize("n,k,d", [(700, 130, 16), (2000, 300, 90)])
+@pytest.mark.parametrize("n,k,d", [(700, 130, 16), (2000, 300, 90), (1000, 500, 500)])
 def test_kmeans_assign_ties_across_tiles(n, k, d, which):
     """Every centroid twice, in different tiles of the kernels' sweep (shared
     by the assignment and the fused iteration): each point ties exactly

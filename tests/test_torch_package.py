@@ -112,7 +112,7 @@ def test_library_path_tracks_the_source(tmp_path, monkeypatch):
     monkeypatch.undo()
     for name in _build.KERNELS:
         assert (_build.CSRC / f"{name}.cu").exists()
-    assert "kmeans_tile.cuh" in [p.name for p in _build._sources("kmeans_assign")]
+    assert "kmeans_tile.cuh" in [p.name for p in _build._sources("kmeans_iter")]
 
 
 @needs_cuda
