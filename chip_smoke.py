@@ -25,7 +25,9 @@ result line):
    the same function where one exists, and the least time the card could
    take (``bound_ms``);
 4. each path at full size, with every kernel's launch counter zeroed just
-   before and read just after;
+   before and read just after; then each path's k-means kernel once more on
+   that path's final embedding against its plain version (differing labels
+   must be float64 near-ties), and the labels to ``chiprun_out/``;
 5. end to end at the example's default size (n = 4000, 12 clusters), each
    path: the card against the CPU from one seed.
 
@@ -160,6 +162,25 @@ def cold_ms(fn, copies, iters: int) -> float:
     return cuda_ms(lambda: fn(*next(it)), iters=iters, warmup=len(copies))
 
 
+def device_ms(fn, copies, iters: int) -> float:
+    """Device milliseconds per call of ``fn(*copy)``, rotating over
+    ``copies``: the summed durations of the kernels (and copies) the calls
+    launch, from ``torch.profiler``'s device records.  Unlike ``cuda_ms`` it
+    leaves out the idle gaps a host slower than the card opens between short
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    it = itertools.cycle(copies)
+    for _ in range(len(copies)):
+        fn(*next(it))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn(*next(it))
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / iters
+
+
 def near_tie_swaps(x, got_idx, want_idx, want_d) -> int:
     """Count of neighbour slots whose ids differ; raises unless each differing
     id is as near (float64, rtol 1e-5) as the plain version's id at that rank
@@ -281,13 +302,18 @@ def kmeans_phase() -> dict:
         return x.to(dev), c.to(dev)
 
     before = km_ops.kmeans_iter.launches
-    for n, k, d in ((1, 1, 1), (1000, 37, 90), (513, 500, 33), (4097, 129, 257)):
+    # kmeans_assign's shapes: d not a multiple of 4, k not a multiple of the
+    # 128-wide centroid tile, n = 1; the tile is shared, the epilogue is not
+    for n, k, d in ((1, 1, 1), (1000, 37, 90), (513, 500, 33), (4097, 129, 257),
+                    (1, 130, 500), (700, 65, 17), (3000, 130, 500)):
         compare(*blobs(n, k, d, 0.05), f"n={n} k={k} d={d}")
-    x, c = blobs(2000, 300, 90, 0.05)  # every centroid twice: exact ties across tiles
-    compare(x, torch.cat([c, c]), "duplicated centroids")
+    for n, k, d in ((2000, 300, 90), (3000, K_FULL, K_FULL)):
+        x, c = blobs(n, k, d, 0.05)  # every centroid twice: exact ties across tiles
+        compare(x, torch.cat([c, c]), f"duplicated centroids k={k} d={d}")
     x, c = blobs(N_FULL, K_FULL, K_FULL, 0.02)
     err = compare(x, c, "main shape")
-    check(km_ops.kmeans_iter.launches == before + 6, "kmeans_iter wrapper did not launch its kernel")
+    check(km_ops.kmeans_iter.launches == before + 10,
+          "kmeans_iter wrapper did not launch its kernel")
     cn = (c * c).sum(1)
     ms = cuda_ms(lambda: kmeans_iter_cuda(x, c, cn), iters=10)
     plain_ms = cuda_ms(lambda: kmeans_iter_ref(x, c), iters=3)
@@ -316,6 +342,16 @@ def kmeans_phase() -> dict:
 
 
 def ell_phase(pos, prof) -> dict:
+    """``ell_spmm`` through its wrapper against the plain gather plus the COO
+    tail: ragged small graphs, then the first path's BlockELL graph at
+    b = 4 (Lanczos), 8 (the scalable path's moments) and 508 (its
+    Rayleigh-Ritz product).  Timed at b = 4 and 8 warm (back to back on one
+    copy of the slots) and cold (rotating over three copies, 137 MB, so that
+    no launch finds its slots in the 50 MB L2, as the Lanczos loop meets
+    them between its Gram-Schmidt GEMMs), in four turns that alternate the
+    kernel and ``torch.sparse.mm`` (cold over three CSR copies), each with
+    CUDA events and as device time (``device_ms``).  The record's ``ms`` and
+    ``library_ms`` are the device-time cold means at b = 4."""
     dev = torch.device("cuda")
     from repro_torch.sparse import formats as tf
 
@@ -338,30 +374,51 @@ def ell_phase(pos, prof) -> dict:
     # main path: the normalized DTI kNN graph in the pipeline's BlockELL layout
     pipe = main_pipeline(K_FULL)
     state = pipe.build_graph(prof, points=pos)
-    op = pipe.operator(state)
-    m = op.a
-    x = torch.randn(N_FULL, 4, device=dev)
-    err = compare(m, x)
-    check(ell_ops.ell_spmm.launches == before + 4, "ell_spmm wrapper did not launch its kernel")
+    m = pipe.operator(state).a
+    xs = {b: torch.randn(N_FULL, b, device=dev) for b in (4, 8)}
+    err = {b: compare(m, x) for b, x in xs.items()}
+    err[508] = compare(m, torch.randn(N_FULL, K_FULL + 8, device=dev))
+    check(ell_ops.ell_spmm.launches == before + 6, "ell_spmm wrapper did not launch its kernel")
     nb, br, w = m.cols.shape
     cols, vals = m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w)
-    ms = cuda_ms(lambda: ell_spmm_cuda(x, cols, vals), iters=50)
-    plain_ms = cuda_ms(lambda: ell_spmm_ref(x, cols, vals), iters=10)
-    a = state.adj
-    csr = torch.sparse_coo_tensor(torch.stack([a.row, a.col]), a.val, a.shape).coalesce() \
-        .to_sparse_csr()
-    library_ms = cuda_ms(lambda: torch.sparse.mm(csr, x), iters=50)
+    plain_ms = cuda_ms(lambda: ell_spmm_ref(xs[4], cols, vals), iters=10)
+    csrs = [_csr(state.adj) for _ in range(3)]
+    copies = [(cols.clone(), vals.clone()) for _ in range(3)]
     rows = nb * br
-    n_bytes = rows * w * 8 + N_FULL * 4 * 4 + rows * 4 * 4
-    n_ops = 2.0 * rows * w * 4
-    bms, by = bound(n_bytes, n_ops)
-    log(f"[kernel] ell_spmm (tol: rtol 1e-5 atol 1e-6): rows={rows} W={w} b=4 "
-        f"tail={m.tail.nnz} max|Δy|={err:.2e}; "
-        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} library_ms={library_ms:.4f} "
-        f"bound_ms={bms:.4f} ({by})")
+    out = {}
+    for b, x in xs.items():
+        calls = dict(kernel=(ell_spmm_cuda, [(x, cols, vals)], [(x, *cv) for cv in copies]),
+                     library=(torch.sparse.mm, [(csrs[0], x)], [(csr, x) for csr in csrs]))
+        turns = {f"{who} {how}": [] for who in calls
+                 for how in ("warm", "cold", "device warm", "device cold")}
+        for turn in range(4):
+            for who in tuple(calls)[::1 if turn % 2 == 0 else -1]:
+                fn, one, three = calls[who]
+                turns[f"{who} warm"].append(cold_ms(fn, one, iters=100))
+                turns[f"{who} cold"].append(cold_ms(fn, three, iters=99))
+                turns[f"{who} device warm"].append(device_ms(fn, one, iters=100))
+                turns[f"{who} device cold"].append(device_ms(fn, three, iters=99))
+        mean = {key: sum(v) / len(v) for key, v in turns.items()}
+        bms, by = bound(rows * w * 8 + N_FULL * b * 4 + rows * b * 4, 2.0 * rows * w * b)
+        out[b] = dict(turns=turns, mean=mean, bound_ms=bms, bound_by=by)
+        log(f"[kernel] ell_spmm (tol: rtol 1e-5 atol 1e-6): rows={rows} W={w} b={b} "
+            f"tail={m.tail.nnz} max|Δy|={err[b]:.2e}; kernel_ms device cold="
+            f"{mean['kernel device cold']:.4f} warm={mean['kernel device warm']:.4f} (events: "
+            f"cold {mean['kernel cold']:.4f}, warm {mean['kernel warm']:.4f}) library_ms "
+            f"(torch.sparse.mm, CSR) device cold={mean['library device cold']:.4f} warm="
+            f"{mean['library device warm']:.4f} (events: cold {mean['library cold']:.4f}, warm "
+            f"{mean['library warm']:.4f}) bound_ms={bms:.4f} ({by})")
+        for key, ts in turns.items():
+            log(f"[kernel] ell_spmm b={b} turns, {key}: " + " / ".join(f"{t:.4f}" for t in ts)
+                + " ms")
+    del csrs, copies, calls
+    log(f"[kernel] ell_spmm b={K_FULL + 8}: max|Δy|={err[508]:.2e} against the plain version; "
+        f"plain_ms (b=4)={plain_ms:.3f}")
     return dict(name="ell_spmm", route="cuda", source="src/repro_torch/csrc/ell_spmm.cu",
-                replaces="src/repro/kernels/ell_spmm/kernel.py:53", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+                replaces="src/repro/kernels/ell_spmm/kernel.py:53", max_abs_err=max(err.values()),
+                ms=out[4]["mean"]["kernel device cold"], plain_ms=plain_ms,
+                bound_ms=out[4]["bound_ms"], bound_by=out[4]["bound_by"],
+                library_ms=out[4]["mean"]["library device cold"], widths=out)
 
 
 def _csr(adj):
@@ -424,8 +481,9 @@ def spmv_phase(state, op) -> dict:
     L2) and cold (rotating over three copies, 137 MB), in four turns that
     alternate the kernel, ``torch.sparse.mm`` and a device copy of the same
     slot bytes (the card's streaming rate at this size, as a yardstick).
-    The record's ``ms`` and ``library_ms`` are the cold means — the slot
-    stream from HBM, as the bound counts it."""
+    The record's ``ms`` and ``library_ms`` are the cold means of device time
+    (``device_ms``) — the slot stream from HBM, as the bound counts it,
+    without the gaps a slow host leaves between launches of this length."""
     dev = torch.device("cuda")
     from repro_torch.sparse import formats as tf
 
@@ -462,18 +520,21 @@ def spmv_phase(state, op) -> dict:
         dst[0].copy_(c)
         dst[1].copy_(v)
 
-    turns = dict(warm=[], cold=[], library_warm=[], library_cold=[], copy=[])
+    turns = dict(warm=[], cold=[], device_cold=[], library_warm=[], library_cold=[],
+                 library_device_cold=[], copy=[])
     for turn in range(4):
         for who in ("kernel", "library", "copy")[::1 if turn % 2 == 0 else -1]:
             if who == "library":
                 turns["library_warm"].append(cuda_ms(lambda: torch.sparse.mm(csr, xc),
                                                      iters=100))
                 turns["library_cold"].append(cold_ms(torch.sparse.mm, csrs, iters=99))
+                turns["library_device_cold"].append(device_ms(torch.sparse.mm, csrs, iters=99))
             elif who == "copy":
                 turns["copy"].append(cold_ms(copy, slots, iters=99))
             else:
                 turns["warm"].append(cuda_ms(lambda: ell_spmv_cuda(x, cols, vals), iters=100))
                 turns["cold"].append(cold_ms(ell_spmv_cuda, slots, iters=99))
+                turns["device_cold"].append(device_ms(ell_spmv_cuda, slots, iters=99))
     clock = sm_clock()
     single = launch_ms(ell_spmv_cuda, slots, iters=300)
     del slots, csrs, dst
@@ -483,9 +544,11 @@ def spmv_phase(state, op) -> dict:
     rows = nb * br
     bms, by = bound(rows * w * 8 + N_FULL * 4 + rows * 4, 2.0 * rows * w)
     log(f"[kernel] ell_spmv (tol: rtol 1e-5 atol 1e-6): rows={rows} W={w} tail={m.tail.nnz} "
-        f"max|Δy|={err:.2e}; kernel_ms cold={mean['cold']:.4f} warm={mean['warm']:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms (torch.sparse.mm, CSR) cold="
-        f"{mean['library_cold']:.4f} warm={mean['library_warm']:.4f} bound_ms={bms:.4f} ({by})")
+        f"max|Δy|={err:.2e}; kernel_ms device cold={mean['device_cold']:.4f} (events: cold "
+        f"{mean['cold']:.4f}, warm {mean['warm']:.4f}) plain_ms={plain_ms:.4f} library_ms "
+        f"(torch.sparse.mm, CSR) device cold={mean['library_device_cold']:.4f} (events: cold "
+        f"{mean['library_cold']:.4f}, warm {mean['library_warm']:.4f}) bound_ms={bms:.4f} "
+        f"({by})")
     for key, ts in turns.items():
         log(f"[kernel] ell_spmv turns, {key}: " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
             + (f" ({2 * rows * w * 8 / (sum(ts) / len(ts)) / 1e9:.2f} TB/s)"
@@ -495,8 +558,8 @@ def spmv_phase(state, op) -> dict:
         f"after the turns: {clock}")
     return dict(name="ell_spmv", route="cuda", source="src/repro_torch/csrc/ell_spmv.cu",
                 replaces="src/repro/kernels/ell_spmv/kernel.py:37", max_abs_err=err,
-                ms=mean["cold"], plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=mean["library_cold"], turns=turns, single_cold=q)
+                ms=mean["device_cold"], plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=mean["library_device_cold"], turns=turns, single_cold=q)
 
 
 def cheb_step_phase(state, op) -> dict:
@@ -608,11 +671,50 @@ def assign_phase() -> dict:
         f"{3 * flops / ms / 1e9:.1f} TFLOP/s on the tensor cores) "
         f"plain_ms={plain_ms:.3f} library_ms={library_ms:.3f} (chunked cdist + min) "
         f"bound_ms={bms:.4f} ({by}, 3×TF32); in turns assign/iter/iter/assign on these inputs: "
-        + " / ".join(f"{t:.4f}" for t in turns) + " ms")
+        + " / ".join(f"{t:.4f}" for t in turns) + f" ms (iter − assign "
+        f"{0.5 * (turns[1] + turns[2]) - ms:.4f} ms: the accumulation epilogue and its zero fill)")
     return dict(name="kmeans_assign", route="cuda",
                 source="src/repro_torch/csrc/kmeans_assign.cu",
                 replaces="src/repro/kernels/kmeans_assign/kernel.py:61", max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+
+
+def iter_on_embedding(emb, labels) -> dict:
+    """``kmeans_iter`` against its plain version on real data: the first
+    path's final embedding and the centroids of its final labels.  A label
+    may differ only at a near-tie (as for ``kmeans_assign``); counts and
+    sums are those of the kernel's own labels.  Then the iteration and the
+    assignment in turns on these inputs (iter, assign, assign, iter): the
+    difference is the accumulation epilogue's exposed time, here on rows in
+    voxel order, where neighbouring rows often share a label."""
+    x = emb.float().contiguous()
+    c = tkm.update_centroids(x, labels, K_FULL, torch.zeros(K_FULL, x.shape[1], device=x.device))
+    gl, gd, gs, gn = km_ops.kmeans_iter(x, c)
+    wl, wd, _, _ = kmeans_iter_ref(x, c)
+    scale = float((x * x).sum(1).max() + (c * c).sum(1).max())
+    torch.testing.assert_close(gd, wd, rtol=0, atol=1e-5 * scale)
+    rows = torch.nonzero(gl != wl)[:, 0]
+    x64, c64 = x[rows].double(), c.double()
+    d_got = ((x64 - c64[gl[rows].long()]) ** 2).sum(1)
+    d_want = ((x64 - c64[wl[rows].long()]) ** 2).sum(1)
+    gap = float((d_got - d_want).abs().max()) if rows.numel() else 0.0
+    check(gap <= 1e-5 * scale, f"kmeans_iter on the embedding: a differing label is not a "
+                               f"near-tie (float64 gap {gap:.3e})")
+    own = gl.long()
+    check(torch.equal(gn, torch.bincount(own, minlength=K_FULL).float()),
+          "kmeans_iter on the embedding: counts are not those of its labels")
+    torch.testing.assert_close(gs, torch.zeros_like(gs).index_add_(0, own, x), rtol=1e-5,
+                               atol=1e-4)
+    cn = (c * c).sum(1)
+    turns = [cuda_ms(lambda: fn(x, c, cn), iters=10)
+             for fn in (kmeans_iter_cuda, kmeans_assign_cuda, kmeans_assign_cuda,
+                        kmeans_iter_cuda)]
+    log(f"[kernel] kmeans_iter on the first path's embedding [{x.shape[0]} × {x.shape[1]}] and "
+        f"final centroids: {rows.numel()} labels differ from the plain version, each a near-tie "
+        f"in float64 (largest gap {gap:.3e}, gate {1e-5 * scale:.3e}); counts and sums those "
+        f"of its labels; in turns iter/assign/assign/iter: "
+        + " / ".join(f"{t:.4f}" for t in turns) + " ms")
+    return dict(differing=int(rows.numel()), max_gap=gap, turns=turns)
 
 
 def assign_on_embedding(emb, labels) -> dict:
@@ -715,6 +817,8 @@ def main_path(pos, prof, region):
         f"residual_max={emb['residual_max']:.3e} attempts={emb['attempts']} "
         f"escalations={emb['escalations']}")
     rec["restarts"] = res.lanczos_restarts
+    rec["iter_on_embedding"] = iter_on_embedding(res.embedding, res.labels)
+    np.save(ROOT / "chiprun_out" / "main_labels.npy", res.labels.cpu().numpy())
     return res, rec
 
 

@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
 ``build/repro_torch/`` at the repo root, named by a hash of the source, of
 every ``csrc`` header it includes (``#include "x.cuh"``, followed
-recursively: ``kmeans_iter.cu`` includes ``kmeans_tile.cuh``) and of the
+recursively: both k-means kernels include ``kmeans_tile.cuh``) and of the
 flags, then loaded with ``ctypes``.  A
 build takes seconds (no PyTorch headers); the result is reused while none
 of those inputs changes.  Only sources

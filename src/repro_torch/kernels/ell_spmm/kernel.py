@@ -53,17 +53,21 @@ def _check_operands(what, operands, cols, vals):
 
 def ell_spmm_cuda(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Raw kernel entry: ``x [n, b]`` fp32 with ``b % 4 == 0``, ``cols [R, W]`` int32 (every id
-    in ``[0, n)``), ``vals [R, W]`` fp32, all contiguous on one CUDA device.
-    Returns ``y [R, b]`` fp32 for the ELL body; launches on the current
-    stream and does not synchronise."""
+    in ``[0, n)``), ``vals [R, W]`` fp32, all contiguous on one CUDA device,
+    ``cols`` and ``vals`` 16-byte aligned (the streamed slot pass reads them
+    as int4 / float4).  Returns ``y [R, b]`` fp32 for the ELL body; launches
+    on the current stream and does not synchronise."""
     _check_operands("ell_spmm_cuda", (("x", x, torch.float32),), cols, vals)
+    if cols.data_ptr() % 16 or vals.data_ptr() % 16:
+        raise ValueError("ell_spmm_cuda: cols and vals must start 16-byte aligned "
+                         "(the kernel streams them as int4 / float4)")
     n, b = x.shape
     n_rows, w = cols.shape
+    if n_rows * max(b, w) >= 2**31:
+        raise ValueError("ell_spmm_cuda: rows·b and rows·W must fit in int32")
     y = torch.empty((n_rows, b), dtype=torch.float32, device=x.device)
     if n_rows == 0 or b == 0:
         return y
-    if n_rows * b >= 2**31:
-        raise ValueError("ell_spmm_cuda: rows·b must fit in int32")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib()(x.data_ptr(), cols.data_ptr(), vals.data_ptr(), n, n_rows, w, b,

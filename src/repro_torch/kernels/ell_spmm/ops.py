@@ -5,8 +5,8 @@ Chebyshev step (mirrors :mod:`repro.kernels.ell_spmm.ops`).
 eigensolver; ``ell_spmm_cheb_step(m, x, prev, ca, cb)`` — one three-term
 step ``ca·(A x) + cb·x − prev`` of the Chebyshev filter.  A CUDA input
 launches the kernel in ``csrc/ell_spmm.cu`` for the ELL body (or raises); a
-CPU input runs the plain version in :mod:`.ref`.  The COO overflow tail goes
-through the plain index-add product either way.
+CPU input runs the plain version in :mod:`.ref`.  The COO overflow tail is
+index-added into the body's rows either way.
 """
 from __future__ import annotations
 
@@ -16,7 +16,6 @@ from repro_torch.kernels._util import pad_to, round_up
 from repro_torch.kernels.ell_spmm.kernel import ell_spmm_cheb_cuda, ell_spmm_cuda
 from repro_torch.kernels.ell_spmm.ref import ell_spmm_cheb_ref, ell_spmm_ref
 from repro_torch.sparse.formats import BlockELL
-from repro_torch.sparse.ops import spmm_coo
 
 
 def _float4_ready(a: torch.Tensor) -> torch.Tensor:
@@ -45,7 +44,11 @@ def ell_spmm(m: BlockELL, x: torch.Tensor) -> torch.Tensor:
         body = ell_spmm_ref(x, cols2d, vals2d)
     else:
         raise ValueError(f"ell_spmm: unsupported device {x.device}")
-    y = body[: m.shape[0]] + spmm_coo(m.tail, x).float()
+    # the tail touches few rows: add val·x[col] into them in place rather
+    # than adding a dense [n, b] tail product to the body
+    y = body[: m.shape[0]]
+    t = m.tail
+    y.index_add_(0, t.row, x[t.col].float() * t.val.float()[:, None])
     return y.to(x.dtype)
 
 

@@ -8,7 +8,8 @@ float64 distance of each differing id must match within rtol 1e-5 (both sum
 fp32 squares, in different orders); k-means labels equal on tie-free data, counts exact,
 sums at rtol 1e-5 / atol 1e-4 (atomics add in a varying order), min distances
 at 1e-5 of ‖x‖² + ‖c‖² (the terms they cancel); ELL SpMM at
-rtol 1e-5 / atol 1e-6 (fused multiply-adds against a plain reduction),
+rtol 1e-5 / atol 1e-6 (fused multiply-adds against a plain reduction), and
+its raw kernel on any width at rtol 1e-5 plus 1e-6 of the row's Σ|vals·x|,
 and so the ELL SpMV and the fused Chebyshev step, whose epilogue adds two
 more roundings; the k-means assignment as the fused iteration's labels and
 distances; LSH codes equal wherever every projection is at least 1e-4 from
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.core.spectral import EigConfig, GraphConfig, KMeansConfig, SpectralPipeline
 from repro_torch.data.pointcloud import dti_like_pointcloud
+from repro_torch.kernels.ell_spmm.kernel import ell_spmm_cuda
 from repro_torch.kernels.ell_spmm.ops import ell_spmm, ell_spmm_cheb_step
 from repro_torch.kernels.ell_spmm.ref import ell_spmm_cheb_ref, ell_spmm_ref
 from repro_torch.kernels.ell_spmv.kernel import ell_spmv_cuda
@@ -84,14 +86,19 @@ def test_knn_random(n, d, k, off):
     knn_ids_equal_up_to_near_ties(x if q is None else q, x, got[1], want[1], want[0])
 
 
-@pytest.mark.parametrize("n,k,d", [(1, 1, 1), (129, 65, 17), (1000, 37, 90), (513, 500, 33)])
-def test_kmeans_iter(n, k, d):
+def _kmeans_blobs(n, k, d, seed):
     """Blobs around the centroids: every point's nearest centroid is clear by
-    far more than fp32 rounding, so labels are defined."""
-    gen = torch.Generator().manual_seed(k)
+    far more than fp32 rounding, so labels are defined.  At d = 1 random
+    centroids crowd a line: they are spaced 1 apart instead (tie-free)."""
+    gen = torch.Generator().manual_seed(seed)
     c = torch.randn(k, d, generator=gen)
+    if d == 1 and k > 1:
+        c = torch.randperm(k, generator=gen).float()[:, None]
     x = c[torch.randint(k, (n,), generator=gen)] + 0.05 * torch.randn(n, d, generator=gen)
-    x, c = x.cuda(), c.cuda()
+    return x.cuda(), c.cuda()
+
+
+def _check_kmeans_iter(x, c):
     gl, gd, gs, gn = kmeans_iter(x, c)
     wl, wd, ws, wn = kmeans_iter_ref(x, c)
     assert torch.equal(gl, wl)
@@ -101,9 +108,45 @@ def test_kmeans_iter(n, k, d):
     torch.testing.assert_close(gs, ws, rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("n,b,width", [(100, 4, None), (257, 3, 8), (1000, 8, 16)])
+@pytest.mark.parametrize("n,k,d", [(1, 1, 1), (129, 65, 17), (1000, 37, 90), (513, 500, 33),
+                                   (1, 130, 500), (700, 65, 1), (300, 130, 257),
+                                   (2000, 500, 500), (1000, 130, 92)])
+def test_kmeans_iter(n, k, d):
+    """The kmeans_assign grid: d not a multiple of 4 (4-byte copies and
+    one-column REDs), k not a multiple of the 128-wide centroid tile, n = 1,
+    and the embedding's width (16-byte copies and REDs)."""
+    _check_kmeans_iter(*_kmeans_blobs(n, k, d, k))
+
+
+def test_kmeans_iter_misaligned_rows():
+    """x at an offset of one float: rows are not 16-byte aligned, so the
+    kernel takes its 4-byte copies and one-column REDs (d = 92 would
+    otherwise take 16-byte ones)."""
+    x, c = _kmeans_blobs(1001, 37, 92, 3)
+    xv = x.reshape(-1)[1:1 + 1000 * 92].view(1000, 92)
+    assert xv.data_ptr() % 16 != 0
+    _check_kmeans_iter(xv, c)
+
+
+def test_kmeans_iter_runs_of_equal_labels():
+    """Rows sorted by their blob, as an embedding in voxel order comes: long
+    runs of one label within and across the kernel's 128-row blocks, each
+    added as one run."""
+    x, c = _kmeans_blobs(5000, 40, 64, 11)
+    order = torch.argmin(torch.cdist(x, c), dim=1).argsort(stable=True)
+    _check_kmeans_iter(x[order].contiguous(), c)
+
+
+@pytest.mark.parametrize("n,b,width", [(100, 4, None), (257, 3, 8), (1000, 8, 16),
+                                       (1000, 1, None), (513, 5, 24), (777, 9, 12),
+                                       (300, 508, 40), (3001, 4, 8), (3001, 4, 12),
+                                       (3001, 8, 24), (3001, 4, 40), (3001, 8, 40)])
 def test_ell_spmm(n, b, width):
-    rng = np.random.default_rng(n)
+    """Through the wrapper: b = 1, 3, 5, 9 padded to a multiple of 4, b = 4
+    and 8 on the streamed slot pass, b = 508 on a thread per (row, column
+    group); widths 8/12/24/40 at a row count that leaves the streamed pass a
+    ragged last block."""
+    rng = np.random.default_rng(n + b)
     r, c = rng.integers(0, n, 12 * n), rng.integers(0, n, 12 * n)
     v = rng.random(12 * n).astype(np.float32)
     m = tf.csr_to_blockell(tf.coo_to_csr(tf.coo_from_edges(r, c, v, (n, n), device="cuda")),
@@ -114,6 +157,42 @@ def test_ell_spmm(n, b, width):
     want = ell_spmm_ref(x, m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w))[:n]
     want = want + spmm_coo(m.tail, x)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("rows,w,b", [(1, 8, 4), (1001, 8, 4), (1003, 12, 8), (4999, 24, 4),
+                                      (3001, 40, 8), (777, 5, 4), (513, 13, 8), (100, 600, 4),
+                                      (301, 40, 16), (9, 6145, 4), (1003, 12, 12)])
+def test_ell_spmm_kernel_any_width(rows, w, b):
+    """The raw kernel on [rows, W] slots.  At b <= 8 the streamed slot pass
+    takes a run of whole rows (a multiple of 4, about 2048 slots), so these
+    row counts leave a ragged last block; W = 5, 13 (not a multiple of 4)
+    keep every slot's product apart and leave runs whose length is not a
+    multiple of the 4-slot chunks it streams.  At b = 12, 16, and at W =
+    6145, where not even four rows fit the streamed pass's shared memory, a
+    thread per (row, column group) takes them.  Tolerance as for ell_spmv:
+    rtol 1e-5, plus 1e-6 of the row's Σ|vals·x| per column."""
+    rng = np.random.default_rng(rows + w + b)
+    n = max(rows, 10)
+    cols = torch.as_tensor(rng.integers(0, n, (rows, w)), dtype=torch.int32, device="cuda")
+    vals = torch.as_tensor(rng.random((rows, w)), dtype=torch.float32, device="cuda")
+    x = torch.randn(n, b, device="cuda")
+    got, want = ell_spmm_cuda(x, cols, vals), ell_spmm_ref(x, cols, vals)
+    mag = (vals[:, :, None] * x[cols.long()]).abs().sum(1)
+    assert bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-6 * mag + 1e-6).all())
+
+
+def test_ell_spmm_kernel_refuses_what_it_cannot_stream():
+    """The streamed pass reads 16-byte chunks of slots and float4 rows of x:
+    a misaligned view of the slots and b not a multiple of 4 raise."""
+    x = torch.randn(10, 4, device="cuda")
+    cols = torch.zeros(9 * 8 + 1, dtype=torch.int32, device="cuda")[1:].view(9, 8)
+    vals = torch.zeros(9, 8, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ell_spmm_cuda(x, cols, vals)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ell_spmm_cuda(x, cols.clone(), torch.zeros(73, device="cuda")[1:].view(9, 8))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ell_spmm_cuda(torch.randn(10, 3, device="cuda"), cols.clone(), vals)
 
 
 def _random_blockell(n, width):

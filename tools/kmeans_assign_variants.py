@@ -1,10 +1,11 @@
 """The design choices of the tensor-core k-means assignment
-(``src/repro_torch/csrc/kmeans_assign.cu``), measured against the forms they
+(``src/repro_torch/csrc/kmeans_assign.cu`` and the tile it shares with the
+fused iteration, ``kmeans_tile.cuh``), measured against the forms they
 replaced, in turns on one card.
 
     python3 tools/kmeans_assign_variants.py
 
-Builds the kernel as committed and two variants made from its source:
+Builds the kernel as committed and two variants made from its sources:
 
 * ``direct`` — the mma products accumulate straight into the running sums
   (no fresh partial per 32-deep slice), 8-deep fragments, two blocks per SM:
@@ -108,17 +109,18 @@ CVT_SPLIT = '''  uint32_t h, l;
 def substitute(src: str, *pairs) -> str:
     for old, new in pairs:
         if src.count(old) != 1:
-            raise SystemExit(f"kmeans_assign.cu no longer holds the text this variant replaces:\n"
-                             f"{old[:200]}")
+            raise SystemExit(f"the k-means sources no longer hold the text this variant "
+                             f"replaces:\n{old[:200]}")
         src = src.replace(old, new)
     return src
 
 
-def build(name: str, src: str):
-    out = ROOT / "build" / "variants"
+def build(name: str, cu_src: str, tile_src: str):
+    out = ROOT / "build" / "variants" / name
     out.mkdir(parents=True, exist_ok=True)
-    cu, so = out / f"{name}.cu", out / f"{name}.so"
-    cu.write_text(src)
+    (out / "kmeans_tile.cuh").write_text(tile_src)
+    cu, so = out / "kmeans_assign.cu", out / "kmeans_assign.so"
+    cu.write_text(cu_src)
     log = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so),
                           str(cu)], capture_output=True, text=True)
     if log.returncode:
@@ -137,16 +139,18 @@ def main() -> int:
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
-    src = (ROOT / "src/repro_torch/csrc/kmeans_assign.cu").read_text()
+    src = (_build.CSRC / "kmeans_assign.cu").read_text()
+    tile = (_build.CSRC / "kmeans_tile.cuh").read_text()
     variants = {
-        "kernel": src,
-        "direct": substitute(src, (SLICE_PARTIAL, DIRECT),
-                             ("__launch_bounds__(kThreads, 1)", "__launch_bounds__(kThreads, 2)")),
-        "cvt": substitute(src, (INT_SPLIT, CVT_SPLIT)),
+        "kernel": (src, tile),
+        "direct": (substitute(src, ("__launch_bounds__(kThreads, 1)",
+                                    "__launch_bounds__(kThreads, 2)")),
+                   substitute(tile, (SLICE_PARTIAL, DIRECT))),
+        "cvt": (src, substitute(tile, (INT_SPLIT, CVT_SPLIT))),
     }
     fns = {}
-    for name, text in variants.items():
-        fns[name], regs = build(f"kmeans_assign_{name}", text)
+    for name, (text, tile_text) in variants.items():
+        fns[name], regs = build(f"kmeans_assign_{name}", text, tile_text)
         print(f"[build] {name}: " + " | ".join(regs))
 
     gen = torch.Generator().manual_seed(8)
