@@ -155,6 +155,17 @@ def sm_clock() -> str:
                           check=True).stdout.strip()
 
 
+def issue_ms(lane_ops: float) -> float:
+    """Milliseconds for ``lane_ops`` fp32 instructions (a multiply-add
+    counts one): one a lane a clock, 128 lanes an SM, at the card's maximum
+    SM clock."""
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return lane_ops / (sms * 128 * mhz * 1e6) * 1e3
+
+
 def cold_ms(fn, copies, iters: int) -> float:
     """``cuda_ms`` of ``fn(*copy)`` rotating over ``copies`` of its inputs,
     enough bytes that no launch finds its operands in the 50 MB L2."""
@@ -253,9 +264,11 @@ def knn_phase():
     torch.testing.assert_close(rd, pd, rtol=1e-5, atol=1e-6)
     swaps = near_tie_swaps(u, ri, pi, pd)
     check(knn_ops.knn_topk.launches == before + 8, "knn_topk wrapper did not launch its kernel")
-    # the kernel alone, on the wrapper's zero-padded input
+    # the kernel alone, on the wrapper's zero-padded input (3 real coordinates)
     xp = torch.nn.functional.pad(x, (0, 1)).contiguous()
-    ms = cuda_ms(lambda: knn_topk_cuda(xp, xp, KNN_K), iters=10)
+    up = torch.nn.functional.pad(u, (0, 1)).contiguous()
+    ms = cuda_ms(lambda: knn_topk_cuda(xp, xp, KNN_K, d=3), iters=10)
+    random_ms = cuda_ms(lambda: knn_topk_cuda(up, up, KNN_K, d=3), iters=10)
 
     def library():  # cdist + topk, chunked so one [chunk, n] tile is live
         out = []
@@ -267,18 +280,23 @@ def knn_phase():
         return out
 
     library_ms = cuda_ms(library, iters=2)
-    n_ops = 2.0 * N_FULL * N_FULL * 3  # one subtract and one fma per pair and coordinate
+    # bound in issue slots: the function needs d multiply-adds a pair
+    # (‖c‖² − 2q·c, ‖c‖² in the padding lane, −2q formed once); the kernel's
+    # direct form Σ (q − c)², d subtracts and d multiply-adds, is a choice
+    # of this kernel (exact on the lattice) and takes twice that
     n_bytes = 2 * N_FULL * 3 * 4 + N_FULL * KNN_K * 8
-    bms, by = bound(n_bytes, n_ops)
+    t_ops, t_bytes = issue_ms(float(N_FULL) * N_FULL * 3), n_bytes / PEAK_HBM_BYTES * 1e3
+    bms, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
     log(f"[kernel] knn_topk (tol: lattice exact; random rtol 1e-5, ids equal up to near-ties): "
         f"lattice n={N_FULL} k={KNN_K} ids equal, max|Δd|=0 "
         f"({ties} tied neighbour pairs); random: {swaps} ids swapped at "
-        f"near-ties; kernel_ms={ms:.3f} plain_ms={plain_ms:.1f} library_ms={library_ms:.1f} "
-        f"bound_ms={bms:.3f} ({by})")
+        f"near-ties; kernel_ms={ms:.3f} (random points {random_ms:.3f}) plain_ms={plain_ms:.1f} "
+        f"library_ms={library_ms:.1f} bound_ms={bms:.3f} ({by}, in fp32 issue slots; the "
+        f"direct form's {2 * t_ops:.3f})")
     return dict(name="knn_topk", route="cuda", source="src/repro_torch/csrc/knn_topk.cu",
                 replaces="src/repro/kernels/knn_topk/kernel.py:91", max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=library_ms), (wi, wd)
+                library_ms=library_ms, random_ms=random_ms), (wi, wd)
 
 
 def kmeans_phase() -> dict:
@@ -583,7 +601,10 @@ def cheb_step_phase(state, op) -> dict:
     from repro_torch.sparse import formats as tf
     rng = np.random.default_rng(7)
     before = ell_ops.ell_spmm_cheb_step.launches
-    for n, b, width in ((100, 4, None), (257, 3, 8), (1000, 12, 16)):
+    # b = 4 (one lane a row), 3 and 515 (padded; a last slab of one column
+    # group), and W = 600, too wide to stage a band's slots in shared memory
+    for n, b, width in ((100, 4, None), (257, 3, 8), (1000, 12, 16), (301, 515, 24),
+                        (300, 508, 600)):
         rr, c = rng.integers(0, n, 12 * n), rng.integers(0, n, 12 * n)
         v = rng.random(12 * n).astype(np.float32)
         m = tf.csr_to_blockell(tf.coo_to_csr(tf.coo_from_edges(rr, c, v, (n, n), device=dev)),
@@ -596,7 +617,7 @@ def cheb_step_phase(state, op) -> dict:
     torch.testing.assert_close(op.cheb_step(x, prev, ca, cb),
                                ell_ops.ell_spmm_cheb_step(m, x, prev, ca, cb),
                                rtol=1e-6, atol=1e-6)
-    check(ell_ops.ell_spmm_cheb_step.launches == before + 6,
+    check(ell_ops.ell_spmm_cheb_step.launches == before + 8,
           "ell_spmm_cheb_step wrapper did not launch its kernel")
     nb, br, w = m.cols.shape
     cols, vals = m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w)

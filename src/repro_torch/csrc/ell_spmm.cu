@@ -16,7 +16,7 @@
 // stream and the gathers.  b must be a multiple of 4 (the wrapper pads
 // other blocks with zero columns): every gather is one 16-byte float4 of
 // x[col, 4g:4g+4], one load for four columns.  Two mappings:
-//   * the streamed slot pass (ell_spmm_stream, small b): a block owns a run
+//   * the streamed slot pass (ell_spmm_stream, b <= 8): a block owns a run
 //     of whole rows, a multiple of 4 (so its run of slots starts 16-byte
 //     aligned for any W), sized to about 2048 slots, and reads that run as
 //     one flat, coalesced stream of int4 / float4 with the streaming hint
@@ -26,21 +26,23 @@
 //     thread).  The products go to shared memory — where W % 4 == 0, as the
 //     BlockELL layout makes it, each thread's 4 slots lie in one row and go
 //     as their sum — and 8 lanes sum each (row, column group) there.
-//   * a thread per (row, column group) (ell_spmm_vec4, large b): the thread
-//     walks its row's W slots in order with fused multiply-adds.  At b = 4
-//     neighbouring threads read slots 160 bytes apart, uncoalesced; at large
-//     b the b/4 threads of a row read the same slot (one broadcast load) and
-//     gather one contiguous row of x together, coalesced, with no shared
-//     memory — the better mapping there.
-// The C entry takes the streamed pass for b <= kStreamMaxB and the other
-// above it (and for rows too wide for the streamed pass's shared memory).
-// The cut-over, measured as device time on an H100 80GB HBM3 at 700 W
-// (tools/ell_spmm_variants.py, the first DTI path's graph, R = 142,544,
-// W = 40, slots cold): streamed 0.027 / 0.042 / 0.101 ms at b = 4 / 8 / 16,
-// a thread per (row, column group) 0.067 / 0.067 / 0.049 ms, and 0.92 ms
-// against 9.2 at b = 508.  The plain version reduces in another order,
-// hence a stated tolerance rather than bit equality.  Padding slots (col 0,
-// val 0) add 0.
+//   * the row-band × column-slab pass (ell_spmm_band, wider b, and the
+//     Chebyshev step below): a block of 1024 threads owns a band of 128
+//     consecutive rows, stages their slots in shared memory with cp.async,
+//     and walks the column groups in slabs of 16 (64 columns), a lane a
+//     (row, column group), 64 rows at a time, each lane summing over the
+//     row's slots in slot order with fused multiply-adds.  The neighbours of
+//     a band of consecutive voxels fall in a few narrow windows of ids, so
+//     the band's rows gather the same neighbour rows within one slab, from
+//     L1 after the first; a thread per (row, column group) gathered a 2 KB
+//     row of x from L2 for every slot at b = 508.  One block an SM
+//     (registers for 64 a thread) leaves L1 the most room for that reuse.
+// The C entry takes the streamed pass for b <= kStreamMaxB and the band
+// pass above it (and for rows too wide for the streamed pass's shared
+// memory).  The plain version reduces in another order, hence a stated
+// tolerance rather than bit equality.  Padding slots (col 0, val 0) add 0.
+// Times (tools/ell_spmm_variants.py, tools/ell_spmm_cheb_variants.py) are
+// in PERF.md.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,6 +54,12 @@ constexpr int kLanes = 8;    // lanes per (row, column group) in the row sums
 constexpr int kTargetSlots = kThreads * 4 * kChunks;  // 2048 slots a block
 constexpr int kStreamMaxB = 8;            // widest b the streamed pass takes
 constexpr int kStreamSmem = 96 * 1024;    // most shared memory its products take
+// the band pass's shape: rows a band, lanes a row (a slab of that many
+// column groups), threads a block, blocks an SM its registers must allow,
+// and slots a lane unrolls
+constexpr int kBandRows = 128, kBandLanes = 16, kBandThreads = 1024, kBandBlocks = 1,
+              kSlotUnroll = 8;
+constexpr int kStageSmem = 64 * 1024;     // most shared memory a band's staged slots take
 
 __device__ __forceinline__ float4 axpy4(float a, float4 x, float4 y) {
   return make_float4(fmaf(a, x.x, y.x), fmaf(a, x.y, y.y), fmaf(a, x.z, y.z),
@@ -180,56 +188,121 @@ cudaError_t launch_stream(const float* x, const int* cols, const float* vals, in
   return cudaGetLastError();
 }
 
-// A thread per (row, column group), for large b.
-__global__ void __launch_bounds__(kThreads)
-ell_spmm_vec4(const float4* __restrict__ x, const int* __restrict__ cols,
-              const float* __restrict__ vals, int n_rows, int w, int groups,
-              float4* __restrict__ y) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (long long)n_rows * groups) return;
-  const int r = (int)(t / groups);
-  const int g = (int)(t % groups);
-  const int* cr = cols + (long long)r * w;
-  const float* vr = vals + (long long)r * w;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s = 0; s < w; ++s) {
-    const float v = vr[s];
-    const float4 xv = x[(long long)cr[s] * groups + g];
-    acc.x = fmaf(v, xv.x, acc.x);
-    acc.y = fmaf(v, xv.y, acc.y);
-    acc.z = fmaf(v, xv.z, acc.z);
-    acc.w = fmaf(v, xv.w, acc.w);
-  }
-  y[t] = acc;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// The Chebyshev step: the same gather loop, then the epilogue
-// y[r] = ca·acc + cb·x[r] − prev[r] with (ca, cb) read from device memory,
-// so the filter never reads its scalars back to the host.
-__global__ void __launch_bounds__(kThreads)
-ell_spmm_cheb_vec4(const float4* __restrict__ x, const int* __restrict__ cols,
-                   const float* __restrict__ vals, const float4* __restrict__ prev,
-                   const float* __restrict__ coef, int n_out, int w, int groups,
-                   float4* __restrict__ y) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (long long)n_out * groups) return;
-  const int r = (int)(t / groups);
-  const int g = (int)(t % groups);
-  const int* cr = cols + (long long)r * w;
-  const float* vr = vals + (long long)r * w;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s = 0; s < w; ++s) {
-    const float v = vr[s];
-    const float4 xv = x[(long long)cr[s] * groups + g];
-    acc.x = fmaf(v, xv.x, acc.x);
-    acc.y = fmaf(v, xv.y, acc.y);
-    acc.z = fmaf(v, xv.z, acc.z);
-    acc.w = fmaf(v, xv.w, acc.w);
+// Stage a band's run of slots, [rows·W] column ids then [rows·W] values, into
+// shared memory with cp.async: 16-byte copies where W % 4 == 0 and the run
+// starts 16-byte aligned (the BlockELL layout), else 4-byte ones.
+__device__ __forceinline__ void stage_slots(const int* cols, const float* vals, int len,
+                                            int w, int* sc, float* sv) {
+  const bool wide = w % 4 == 0 && reinterpret_cast<uintptr_t>(cols) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(vals) % 16 == 0;
+  if (wide) {
+    for (int q = threadIdx.x; q < len / 4; q += kBandThreads) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(sc + 4 * q)),
+                   "l"(cols + 4 * q));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(sv + 4 * q)),
+                   "l"(vals + 4 * q));
+    }
+  } else {
+    for (int e = threadIdx.x; e < len; e += kBandThreads) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(sc + e)),
+                   "l"(cols + e));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(sv + e)),
+                   "l"(vals + e));
+    }
   }
-  const float ca = coef[0], cb = coef[1];
-  const float4 xr = x[t], pr = prev[t];
-  y[t] = make_float4(ca * acc.x + cb * xr.x - pr.x, ca * acc.y + cb * xr.y - pr.y,
-                     ca * acc.z + cb * xr.z - pr.z, ca * acc.w + cb * xr.w - pr.w);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// The row-band × column-slab pass, for the Chebyshev step (kCheb: the
+// epilogue y = ca·acc + cb·x[r] − prev[r]) and for b above kStreamMaxB.
+// A block owns a band of `band` consecutive rows (kStaged: its
+// slots in shared memory; else read from device memory, for rows too wide
+// to stage) and walks the column groups in slabs of `lanes`: a lane a
+// (row, column group), summing it over the row's slots in slot order with
+// fused multiply-adds.  A neighbour row that several rows of the band name
+// is gathered from L2 once a slab and from L1 after that.
+template <bool kCheb, bool kStaged>
+__global__ void __launch_bounds__(kBandThreads, kBandBlocks)
+ell_spmm_band(const float4* __restrict__ x, const int* __restrict__ cols,
+              const float* __restrict__ vals, const float4* __restrict__ prev,
+              const float* __restrict__ coef, int n_out, int w, int groups, int band,
+              int lanes, float4* __restrict__ y) {
+  extern __shared__ __align__(16) int slots[];
+  const int row0 = blockIdx.x * band;
+  const int rows = min(band, n_out - row0);
+  const long long s0 = (long long)row0 * w;
+  const int* sc = cols + s0;
+  const float* sv = vals + s0;
+  if constexpr (kStaged) {
+    int* c_sh = slots;
+    float* v_sh = reinterpret_cast<float*>(slots + band * w);
+    stage_slots(sc, sv, rows * w, w, c_sh, v_sh);
+    sc = c_sh;
+    sv = v_sh;
+  }
+  float ca = 0.f, cb = 0.f;
+  if constexpr (kCheb) {
+    ca = coef[0];
+    cb = coef[1];
+  }
+  const int lane = threadIdx.x % lanes;
+  const int step = kBandThreads / lanes;  // rows at a time
+  if ((int)threadIdx.x >= step * lanes) return;
+  for (int g = lane; g - lane < groups; g += lanes) {  // one slab per pass
+    if (g >= groups) continue;                          // the last slab's spare lanes
+    for (int r = threadIdx.x / lanes; r < rows; r += step) {
+      const int* cr = sc + r * w;
+      const float* vr = sv + r * w;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll kSlotUnroll
+      for (int s = 0; s < w; ++s)
+        acc = axpy4(vr[s], __ldg(x + (long long)cr[s] * groups + g), acc);
+      const long long t = (long long)(row0 + r) * groups + g;
+      if constexpr (kCheb) {
+        const float4 xr = __ldg(x + t), pr = __ldcs(prev + t);
+        y[t] = make_float4(ca * acc.x + cb * xr.x - pr.x, ca * acc.y + cb * xr.y - pr.y,
+                           ca * acc.z + cb * xr.z - pr.z, ca * acc.w + cb * xr.w - pr.w);
+      } else {
+        y[t] = acc;
+      }
+    }
+  }
+}
+
+// Launch the band pass over the first n_out rows: lanes = min(kBandLanes,
+// groups) lanes a row; the band is kBandRows rounded up to a whole number of
+// row passes (so a small b still fills the block), its slots staged when
+// they fit kStageSmem, else read from device memory (a mapping any W can
+// take).
+template <bool kCheb>
+cudaError_t launch_band(const float* x, const int* cols, const float* vals, const float* prev,
+                        const float* coef, int n_out, int w, int groups, float* y,
+                        cudaStream_t st) {
+  if (n_out <= 0 || groups <= 0) return cudaSuccess;
+  const int lanes = min(kBandLanes, groups);
+  const int step = kBandThreads / lanes;
+  const int band = (kBandRows + step - 1) / step * step;
+  const long long stage = (long long)band * w * 8;
+  const dim3 grid((unsigned)((n_out + band - 1) / band));
+  const auto* x4 = reinterpret_cast<const float4*>(x);
+  const auto* p4 = reinterpret_cast<const float4*>(prev);
+  auto* y4 = reinterpret_cast<float4*>(y);
+  if (stage <= kStageSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ell_spmm_band<kCheb, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)stage);
+    if (err != cudaSuccess) return err;
+    ell_spmm_band<kCheb, true><<<grid, kBandThreads, (size_t)stage, st>>>(
+        x4, cols, vals, p4, coef, n_out, w, groups, band, lanes, y4);
+  } else {
+    ell_spmm_band<kCheb, false><<<grid, kBandThreads, 0, st>>>(
+        x4, cols, vals, p4, coef, n_out, w, groups, band, lanes, y4);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -251,12 +324,7 @@ extern "C" int ell_spmm_f32(const float* x, const int* cols, const float* vals,
                      ? launch_stream<true>(x, cols, vals, n_rows, w, groups, rows_pb, y, st)
                      : launch_stream<false>(x, cols, vals, n_rows, w, groups, rows_pb, y, st));
   }
-  const long long threads = (long long)n_rows * groups;
-  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
-  ell_spmm_vec4<<<grid, kThreads, 0, st>>>(reinterpret_cast<const float4*>(x), cols,
-                                           vals, n_rows, w, groups,
-                                           reinterpret_cast<float4*>(y));
-  return (int)cudaGetLastError();
+  return (int)launch_band<false>(x, cols, vals, nullptr, nullptr, n_rows, w, groups, y, st);
 }
 
 // The fused Chebyshev step over the ELL body:
@@ -267,23 +335,19 @@ extern "C" int ell_spmm_f32(const float* x, const int* cols, const float* vals,
 // src/repro/kernels/ell_spmm/kernel.py.  x, prev [n, b], y [n_out, b];
 // coef = (ca, cb) in device memory; b % 4 == 0; x, prev, y 16-byte aligned.
 //
-// What bounds it: bytes.  At the Chebyshev filter's width (b = 508) the
-// iterate x is 290 MB and no longer fits in the 50 MB L2, so the gathers
-// of neighbour rows miss; each is a contiguous 2 KB row, read as 127
-// coalesced float4 loads by neighbouring threads.  The epilogue saves the
-// three elementwise passes (and their [n, b] temporaries) that an unfused
-// step would stream through memory.
+// What bounds it: bytes, and where they come from.  At the Chebyshev
+// filter's width (b = 508) the iterate x is 290 MB and no longer fits in the
+// 50 MB L2.  Gathered a row at a time, each slot pulls a 2 KB row of x
+// through L2 (about 5 GB a step on the DTI graph); in the band pass the rows
+// of a band of consecutive voxels, which name neighbours in a few narrow
+// windows of ids, share each neighbour row's slab in L1.  The epilogue saves
+// the three elementwise passes (and their [n, b] temporaries) that an
+// unfused step would stream through memory.
 extern "C" int ell_spmm_cheb_f32(const float* x, const int* cols, const float* vals,
                                  const float* prev, const float* coef, int n,
                                  int n_out, int w, int b, float* y, void* stream) {
   (void)n;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaGetLastError();
-  const int groups = b / 4;
-  const long long threads = (long long)n_out * groups;
-  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
-  ell_spmm_cheb_vec4<<<grid, kThreads, 0, st>>>(
-      reinterpret_cast<const float4*>(x), cols, vals, reinterpret_cast<const float4*>(prev),
-      coef, n_out, w, groups, reinterpret_cast<float4*>(y));
-  return (int)cudaGetLastError();
+  return (int)launch_band<true>(x, cols, vals, prev, coef, n_out, w, b / 4, y, st);
 }

@@ -5,6 +5,7 @@ replaces the TPU kernel ``knn_topk_pallas`` in
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -17,16 +18,17 @@ def _lib():
     fn = _build.load("knn_topk").knn_topk_f32
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def knn_topk_cuda(xq: torch.Tensor, xc: torch.Tensor, k: int, *,
-                  query_offset: int = 0):
+                  query_offset: int = 0, d: Optional[int] = None):
     """Raw kernel entry on padded inputs: ``xq [nq, dp]``, ``xc [nc, dp]``
-    fp32, contiguous, on one CUDA device, ``dp % 4 == 0``.  Returns
+    fp32, contiguous, 16-byte aligned, on one CUDA device, ``dp % 4 == 0``,
+    the columns past the first ``d`` (default ``dp``) zero.  Returns
     ``(dist [nq, k] fp32, idx [nq, k] int32)``; launches on the current
     stream and does not synchronise."""
     for name, t in (("xq", xq), ("xc", xc)):
@@ -43,6 +45,12 @@ def knn_topk_cuda(xq: torch.Tensor, xc: torch.Tensor, k: int, *,
     if xc.shape[1] != dp or dp % 4:
         raise ValueError(f"knn_topk_cuda: widths must agree and be a multiple of 4, "
                          f"got {xq.shape} and {xc.shape}")
+    d = dp if d is None else d
+    if not 1 <= d <= dp:
+        raise ValueError(f"knn_topk_cuda: d must be in [1, {dp}], got {d}")
+    if xq.data_ptr() % 16 or xc.data_ptr() % 16:
+        raise ValueError("knn_topk_cuda: xq and xc must be 16-byte aligned (the kernel "
+                         "loads rows as float4)")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"knn_topk_cuda supports 1 <= k <= {MAX_K}, got k={k}")
     if max(nq, nc) >= 2**31:
@@ -53,7 +61,7 @@ def knn_topk_cuda(xq: torch.Tensor, xc: torch.Tensor, k: int, *,
         return dist, idx
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()(xq.data_ptr(), xc.data_ptr(), nq, nc, dp, k, int(query_offset),
+        err = _lib()(xq.data_ptr(), xc.data_ptr(), nq, nc, dp, d, k, int(query_offset),
                      dist.data_ptr(), idx.data_ptr(), stream)
     _build.check(err, "knn_topk")
     return dist, idx

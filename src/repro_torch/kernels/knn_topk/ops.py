@@ -24,6 +24,13 @@ from repro_torch.kernels.knn_topk.kernel import MAX_K, knn_topk_cuda
 from repro_torch.kernels.knn_topk.ref import knn_topk_ref
 
 
+def _float4_rows(a: torch.Tensor, dp: int) -> torch.Tensor:
+    """``a`` as a contiguous fp32 [n, dp] block, zero columns past its own,
+    16-byte aligned."""
+    ac = pad_to(a.float(), dp, 1).contiguous()
+    return ac.clone() if ac.data_ptr() % 16 else ac  # a view at an odd offset
+
+
 def knn_topk(
     x: torch.Tensor,  # [n, d] candidate points
     k: int,
@@ -40,12 +47,14 @@ def knn_topk(
         raise ValueError(f"knn_topk supports 1 <= k <= {MAX_K}, got k={k}")
     q = x if queries is None else queries
     if x.device.type == "cuda":
-        # zero columns up to a multiple of 4 add exactly 0 to every distance;
-        # the kernel keeps a query's coordinates in registers when d ≤ 4
-        dp = round_up(x.shape[1], 4)
-        xc = pad_to(x.float(), dp, 1).contiguous()
-        xq = xc if queries is None else pad_to(q.float(), dp, 1).contiguous()
-        dist, idx = knn_topk_cuda(xq, xc, k, query_offset=query_offset)
+        # zero columns up to a multiple of 4 for the kernel's float4 loads
+        # (they add exactly 0); it computes only the d real ones, and keeps a
+        # query's coordinates in registers when d ≤ 4
+        d = x.shape[1]
+        dp = round_up(d, 4)
+        xc = _float4_rows(x, dp)
+        xq = xc if queries is None else _float4_rows(q, dp)
+        dist, idx = knn_topk_cuda(xq, xc, k, query_offset=query_offset, d=d)
         knn_topk.launches += 1
     elif x.device.type == "cpu":
         dist, idx = knn_topk_ref(x, k, queries=queries, query_offset=query_offset)

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core.spectral import EigConfig, GraphConfig, KMeansConfig, SpectralPipeline
 from repro_torch.data.pointcloud import dti_like_pointcloud
-from repro_torch.kernels.ell_spmm.kernel import ell_spmm_cuda
+from repro_torch.kernels.ell_spmm.kernel import ell_spmm_cheb_cuda, ell_spmm_cuda
 from repro_torch.kernels.ell_spmm.ops import ell_spmm, ell_spmm_cheb_step
 from repro_torch.kernels.ell_spmm.ref import ell_spmm_cheb_ref, ell_spmm_ref
 from repro_torch.kernels.ell_spmv.kernel import ell_spmv_cuda
@@ -65,18 +65,38 @@ def knn_ids_equal_up_to_near_ties(queries, x, got_idx, want_idx, want_d,
     return int(rows.size)
 
 
-@pytest.mark.parametrize("side,k", [(5, 16), (7, 8), (6, 33), (4, 63)])
-def test_knn_lattice_exact(side, k):
+# the kernel stages tiles of 1024 candidates at d <= 4: n below one tile,
+# one more than a tile, and query sets whose start tile is in the middle, the
+# last one, or clamped (ids past every candidate)
+@pytest.mark.parametrize("side,n,k,lo,hi,off", [
+    (5, None, 16, 0, None, 0), (7, None, 8, 0, None, 0), (6, None, 33, 0, None, 0),
+    (4, None, 63, 0, None, 0), (11, 1025, 16, 0, None, 0), (11, 1025, 33, 0, None, 0),
+    (11, 1025, 16, 600, 900, 600), (13, 2197, 16, 1024, 2197, 1024),
+    (11, 1025, 16, 0, 300, 1025)])
+def test_knn_lattice_exact(side, n, k, lo, hi, off):
+    """On an integer lattice most neighbour shells tie, so the (distance, id)
+    insertion rule alone decides the ids: equal to the plain version's, with
+    exact distances.  ``off`` past the candidates: the queries are the
+    lattice shifted by half a step (ties stay exact, no query is a
+    candidate)."""
     g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)
-    x = torch.as_tensor(g.astype(np.float32), device="cuda")
-    d, i = knn_topk(x, k)
-    rd, ri = knn_topk_ref(x, k)
+    x = torch.as_tensor(g[:n].astype(np.float32), device="cuda")
+    q = None
+    if hi is not None:
+        q = x[lo:hi] if off == lo else x[lo:hi] + 0.5
+    d, i = knn_topk(x, k, queries=q, query_offset=off)
+    rd, ri = knn_topk_ref(x, k, queries=q, query_offset=off)
     assert torch.equal(i, ri) and torch.equal(d, rd)
 
 
 @pytest.mark.parametrize("n,d,k,off", [(1000, 3, 16, 0), (333, 7, 5, 0), (257, 20, 128, 0),
-                                       (300, 90, 10, 40)])
+                                       (300, 90, 10, 40), (1025, 3, 16, 0), (1025, 3, 16, 900),
+                                       (700, 3, 8, 0), (2049, 3, 16, 1024), (1000, 4, 16, 0),
+                                       (500, 2, 5, 0), (129, 1, 3, 0), (1025, 3, 64, 0)])
 def test_knn_random(n, d, k, off):
+    """d = 3 (the coordinates the kernel computes alone), d = 1, 2, 4 (the
+    zero padding computed too) and wider d read through L1; n below one
+    1024-candidate tile and one more than a tile; offset query sets."""
     gen = torch.Generator().manual_seed(n)
     x = torch.randn(n, d, generator=gen).cuda()
     q = x[off:off + 100] if off else None
@@ -143,8 +163,8 @@ def test_kmeans_iter_runs_of_equal_labels():
                                        (3001, 8, 24), (3001, 4, 40), (3001, 8, 40)])
 def test_ell_spmm(n, b, width):
     """Through the wrapper: b = 1, 3, 5, 9 padded to a multiple of 4, b = 4
-    and 8 on the streamed slot pass, b = 508 on a thread per (row, column
-    group); widths 8/12/24/40 at a row count that leaves the streamed pass a
+    and 8 on the streamed slot pass, b = 12 and 508 on the row-band ×
+    column-slab pass; widths 8/12/24/40 at a row count that leaves the streamed pass a
     ragged last block."""
     rng = np.random.default_rng(n + b)
     r, c = rng.integers(0, n, 12 * n), rng.integers(0, n, 12 * n)
@@ -161,15 +181,19 @@ def test_ell_spmm(n, b, width):
 
 @pytest.mark.parametrize("rows,w,b", [(1, 8, 4), (1001, 8, 4), (1003, 12, 8), (4999, 24, 4),
                                       (3001, 40, 8), (777, 5, 4), (513, 13, 8), (100, 600, 4),
-                                      (301, 40, 16), (9, 6145, 4), (1003, 12, 12)])
+                                      (301, 40, 16), (9, 6145, 4), (1003, 12, 12),
+                                      (777, 5, 16), (1001, 8, 508)])
 def test_ell_spmm_kernel_any_width(rows, w, b):
     """The raw kernel on [rows, W] slots.  At b <= 8 the streamed slot pass
     takes a run of whole rows (a multiple of 4, about 2048 slots), so these
     row counts leave a ragged last block; W = 5, 13 (not a multiple of 4)
     keep every slot's product apart and leave runs whose length is not a
-    multiple of the 4-slot chunks it streams.  At b = 12, 16, and at W =
-    6145, where not even four rows fit the streamed pass's shared memory, a
-    thread per (row, column group) takes them.  Tolerance as for ell_spmv:
+    multiple of the 4-slot chunks it streams.  At b = 12, 16 and 508, and
+    at W = 6145, where not even four rows fit the streamed pass's shared
+    memory, the row-band × column-slab pass takes them: it stages a band's
+    slots with 16-byte copies (W = 8, 12), 4-byte ones (W = 5) or, where
+    they exceed its shared memory (W = 40 at b = 16: 256-row bands; W =
+    6145), reads them from device memory.  Tolerance as for ell_spmv:
     rtol 1e-5, plus 1e-6 of the row's Σ|vals·x| per column."""
     rng = np.random.default_rng(rows + w + b)
     n = max(rows, 10)
@@ -248,10 +272,44 @@ def test_ell_spmv_kernel_refuses_what_it_cannot_stream():
         ell_spmv_cuda(x, wide, wide.float())
 
 
-@pytest.mark.parametrize("n,b,width", [(100, 4, None), (257, 3, 8), (1000, 12, 16),
-                                       (513, 508, 24)])
-def test_ell_spmm_cheb_step(n, b, width):
-    m = _random_blockell(n, width)
+def _lattice_blockell(side, width, permute):
+    """The graph of a raster-ordered lattice (each voxel joined to the
+    voxels within √2), whose rows name neighbours in a few narrow windows
+    of ids as the DTI graph's do; with ``permute``, the same graph with its
+    ids shuffled."""
+    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    d2 = ((g[:, None] - g[None]) ** 2).sum(-1)
+    r, c = np.nonzero((d2 > 0) & (d2 <= 2))
+    n = g.shape[0]
+    if permute:
+        perm = np.random.default_rng(side).permutation(n)
+        r, c = perm[r], perm[c]
+        order = np.lexsort((c, r))
+        r, c = r[order], c[order]
+    v = np.random.default_rng(side + 1).random(r.size).astype(np.float32)
+    return tf.csr_to_blockell(tf.coo_to_csr(tf.coo_from_edges(r, c, v, (n, n), device="cuda")),
+                              width=width)
+
+
+@pytest.mark.parametrize("graph,n,b,width", [
+    ("random", 100, 4, None), ("random", 257, 3, 8), ("random", 1000, 12, 16),
+    ("random", 513, 508, 24), ("lattice", 1000, 508, None), ("permuted", 1000, 508, None),
+    ("lattice", 1331, 516, None), ("lattice", 1331, 4, None), ("permuted", 1331, 12, None),
+    ("lattice", 1000, 508, 8), ("random", 300, 508, 600), ("random", 3001, 16, 40),
+    ("random", 12000, 508, None)])
+def test_ell_spmm_cheb_step(graph, n, b, width):
+    """Through the wrapper, on the band × slab pass: random graphs and a
+    raster-ordered lattice's (n not a multiple of the band), its
+    row-permuted copy, b = 4 (one lane a row, a band of 1024 rows), 12, 508 and 516
+    (a last slab of one column group); width 8 on the lattice leaves a COO
+    tail; width 600 is too wide to stage a band's slots in shared memory and
+    takes the pass that reads them from device memory; 12,000 nodes make
+    many bands of scattered ids."""
+    m = (_random_blockell(n, width) if graph == "random"
+         else _lattice_blockell(round(n ** (1 / 3)), width, graph == "permuted"))
+    assert m.shape[0] == n
+    if width == 8 and graph == "lattice":
+        assert m.tail.nnz > 0
     x, prev = torch.randn(n, b, device="cuda"), torch.randn(n, b, device="cuda")
     ca = torch.tensor(0.37, device="cuda")
     cb = torch.tensor(-1.25, device="cuda")
@@ -260,6 +318,28 @@ def test_ell_spmm_cheb_step(n, b, width):
     want = ell_spmm_cheb_ref(x, m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w), prev,
                              ca, cb) + ca * spmm_coo(m.tail, x)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows,w,b", [(1, 8, 4), (1001, 8, 508), (777, 5, 12), (513, 13, 16),
+                                      (300, 40, 516), (5000, 40, 16), (100, 600, 508),
+                                      (9, 6145, 4)])
+def test_ell_spmm_cheb_kernel_any_width(rows, w, b):
+    """The raw fused step on [rows, W] slots: W = 5, 13 (not a multiple of 4)
+    stage the band's slots with 4-byte copies; at b = 16 a row takes 4
+    lanes, so a band grows to 256 rows: 5000 rows of 40 random columns make
+    20 bands, the last ragged, whose 80 KB of slots exceed the staging
+    limit and are read from device memory, as at W = 600 and 6145.  Tolerance: rtol 1e-5, plus 1e-6
+    of Σ|vals·x| (as for the SpMM) and of |cb·x| + |prev| (the epilogue's
+    two more roundings)."""
+    rng = np.random.default_rng(rows + w + b)
+    cols = torch.as_tensor(rng.integers(0, rows, (rows, w)), dtype=torch.int32, device="cuda")
+    vals = torch.as_tensor(rng.random((rows, w)), dtype=torch.float32, device="cuda")
+    x, prev = torch.randn(rows, b, device="cuda"), torch.randn(rows, b, device="cuda")
+    coef = torch.tensor([0.37, -1.25], device="cuda")
+    got = ell_spmm_cheb_cuda(x, cols, vals, prev, coef)
+    want = ell_spmm_cheb_ref(x, cols, vals, prev, coef[0], coef[1])
+    mag = 0.37 * (vals[:, :, None] * x[cols.long()]).abs().sum(1) + 1.25 * x.abs() + prev.abs()
+    assert bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-6 * mag + 1e-6).all())
 
 
 @pytest.mark.parametrize("n,k,d", [(1, 1, 1), (129, 65, 17), (1000, 37, 90), (513, 500, 33),

@@ -148,3 +148,114 @@ def test_lsh_method_is_not_ported_yet():
     np.testing.assert_allclose(to_np(exact.val), to_np(lsh.val), **DIST)
     with pytest.raises(ValueError, match="unknown method"):
         ts.build_knn_graph(torch.as_tensor(x), 5, method="ann")
+
+
+def _kernel_width(k):
+    """The register top-k the CUDA kernel keeps for k: 8, 16, 32, 64 or 128."""
+    return next(kp for kp in (8, 16, 32, 64, 128) if k <= kp)
+
+
+def _tile_order(t0, nt, near_first):
+    """Tiles in the kernel's visit order: from ``t0`` outward (−1, +1, −2,
+    +2, …) when ``near_first``, else ascending."""
+    if not near_first:
+        return list(range(nt))
+    order, j = [], 0
+    while len(order) < nt:
+        t = t0 - (j + 1) // 2 if j % 2 else t0 + j // 2
+        if 0 <= t < nt:
+            order.append(t)
+        j += 1
+    return order
+
+
+def _sweep_topk(x, k, tile, block, queries=None, query_offset=0, near_first=True):
+    """A numpy model of the sweep of ``csrc/knn_topk.cu``.  Queries go in
+    blocks of ``block``; a block starts at the tile of ``tile`` candidates
+    that holds its first query's global id (clamped to the last tile) and
+    visits the others outward.  Each query keeps the kernel's sorted list
+    of kp ≥ k (distance, id) pairs; a candidate other than the query itself
+    enters when its pair comes before the last one's, and the shift keeps
+    the (distance, id) order.  Distances are float32 sums of squares (exact
+    on the integer and half-integer lattices used here).  Returns (dist,
+    idx, insertions per query)."""
+    q = x if queries is None else queries
+    n, nq, kp = x.shape[0], q.shape[0], _kernel_width(k)
+    nt = -(-n // tile)
+    dist = np.full((nq, kp), np.inf, np.float32)
+    idx = np.full((nq, kp), -1, np.int64)
+    inserts = np.zeros(nq, np.int64)
+    ar = np.arange(kp)
+    for b0 in range(0, nq, block):
+        rows = np.arange(b0, min(nq, b0 + block))
+        self_ids = query_offset + rows
+        t0 = min((query_offset + b0) // tile, nt - 1)
+        bd, bi = dist[rows], idx[rows]
+        for t in _tile_order(t0, nt, near_first):
+            for c in range(t * tile, min(n, (t + 1) * tile)):
+                d = ((q[rows] - x[c]) ** 2).sum(1, dtype=np.float32)
+                enter = ((d < bd[:, -1]) | ((d == bd[:, -1]) & (c < bi[:, -1]))) \
+                    & (self_ids != c)
+                if not enter.any():
+                    continue
+                inserts[rows[enter]] += 1
+                e = np.nonzero(enter)[0]
+                de, be, ie = d[e, None], bd[e], bi[e]
+                p = ((be < de) | ((be == de) & (ie < c))).sum(1, keepdims=True)
+                sd = np.concatenate([be[:, :1], be[:, :-1]], 1)
+                si = np.concatenate([ie[:, :1], ie[:, :-1]], 1)
+                bd[e] = np.where(ar < p, be, np.where(ar == p, de, sd))
+                bi[e] = np.where(ar < p, ie, np.where(ar == p, c, si))
+        dist[rows], idx[rows] = bd, bi
+    return dist[:, :k], idx[:, :k].astype(np.int32), inserts
+
+
+@pytest.mark.parametrize("side,k,tile,block", [
+    (5, 16, 7, 4), (6, 1, 50, 16), (7, 33, 64, 32), (8, 16, 37, 8), (9, 63, 100, 64),
+    (9, 16, 128, 256), (6, 63, 216, 8), (7, 1, 13, 128)])
+def test_near_first_sweep_model_matches_ref_on_lattices(side, k, tile, block):
+    """The kernel's sweep, modelled on the CPU (the kernel itself runs only on
+    the card): tiles that leave a ragged last one, a start tile in the
+    middle of the candidates, and k below, at and above the kernel's 16.
+    On a lattice most neighbour shells tie, so the (distance, id) insertion
+    rule alone decides the ids, and they must equal the plain version's
+    (a stable sort) and the JAX reference's exactly."""
+    x = _lattice(side)
+    gd, gi, _ = _sweep_topk(x, k, tile, block)
+    wd, wi = knn_topk_ref(torch.as_tensor(x), k)
+    np.testing.assert_array_equal(gi, to_np(wi))
+    np.testing.assert_array_equal(gd, to_np(wd))
+    jd, ji = j_knn(jnp.asarray(x), k, impl="ref")
+    np.testing.assert_array_equal(gi, np.asarray(ji))
+
+
+@pytest.mark.parametrize("side,k,tile,block,lo,hi,offset", [
+    (7, 16, 30, 16, 100, 200, 100),      # a query set inside the candidates
+    (8, 33, 50, 32, 400, 512, 400),      # the last queries: the start tile is the last
+    (6, 16, 20, 8, 0, 216, 216),         # ids past every candidate: start clamped
+    (9, 63, 90, 64, 0, 300, 729)])
+def test_near_first_sweep_model_with_query_offset(side, k, tile, block, lo, hi, offset):
+    """``queries=`` with ``query_offset``: the start tile follows the global
+    query ids and is clamped to the last tile when they lie past the
+    candidates (out-of-sample queries, here the lattice shifted by half a
+    step, so that ties stay exact and no candidate is the query itself)."""
+    x = _lattice(side)
+    q = x[lo:hi] if offset == lo else x[lo:hi] + np.float32(0.5)
+    gd, gi, _ = _sweep_topk(x, k, tile, block, queries=q, query_offset=offset)
+    wd, wi = knn_topk_ref(torch.as_tensor(x), k, queries=torch.as_tensor(q),
+                          query_offset=offset)
+    np.testing.assert_array_equal(gi, to_np(wi))
+    np.testing.assert_array_equal(gd, to_np(wd))
+
+
+def test_near_first_sweep_inserts_less_on_a_raster_lattice():
+    """The diagnosis behind the near-first order, in the model: on a lattice
+    in raster order an ascending sweep keeps finding nearer slices and
+    rebuilds the top-k; starting at the query's own tile it is final early.
+    Both orders give the same neighbours."""
+    x = _lattice(9)
+    nd, ni, near = _sweep_topk(x, 16, 81, 16)
+    ad, ai, asc = _sweep_topk(x, 16, 81, 16, near_first=False)
+    np.testing.assert_array_equal(ni, ai)
+    np.testing.assert_array_equal(nd, ad)
+    assert near.mean() < asc.mean()

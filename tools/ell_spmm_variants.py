@@ -1,21 +1,24 @@
-"""The two mappings of the BlockELL SpMM kernel (``src/repro_torch/csrc/
-ell_spmm.cu``) against each other at the widths the paths use, and the
-device launches of one ``ell_spmm`` call, on one card.
+"""The mappings of the BlockELL SpMM kernel (``src/repro_torch/csrc/
+ell_spmm.cu``) against each other and against another tree's at the widths
+the paths use, and the device launches of one ``ell_spmm`` call, on one
+card.
 
     python3 tools/ell_spmm_variants.py [OTHER_SRC_DIR ...]
 
 On the first DTI path's normalized kNN graph in its BlockELL layout (R =
 142,544 rows, W = 40, 142,541 voxels, seed 0) and for b = 4, 8, 16, 32, 64
 and 508 right-hand sides: each mapping (``stream``, the streamed slot pass;
-``rows``, a thread per row and column group; each built from the source
-with the cut-over ``kStreamMaxB`` set so that the C entry always takes it)
-is held to the plain version
-(rtol 1e-5, atol 1e-6) and timed in turns (stream, rows, rows, stream),
+``band``, the row-band × column-slab pass; each built from the source with
+the cut-over ``kStreamMaxB`` set so that the C entry always takes it; and,
+given ``OTHER_SRC_DIR``, ``other``: the first such tree's source with
+``kStreamMaxB`` = 0, the mapping it takes above its cut-over) is held to
+the plain version (rtol 1e-5, atol 1e-6) and timed in turns (the list, then
+the list reversed),
 warm (one copy of the slots, back to back) and cold (rotating over three
 copies, 137 MB, so that no launch finds its slots in the 50 MB L2), as
 device time from ``torch.profiler``'s kernel records: with CUDA events a
-launch of a few tens of µs measures the host's launch rate instead.  The cut-over the C entry uses (``kStreamMaxB``) is read
-from these times.
+launch of a few tens of µs measures the host's launch rate instead.  The
+cut-over the C entry uses (``kStreamMaxB``) is read from these times.
 
 Then the device kernels (and memsets) that one ``ell_spmm(m, x)`` call
 launches at b = 4, counted with ``torch.profiler``, for this tree and for
@@ -35,7 +38,8 @@ ROOT = Path(__file__).resolve().parents[1]
 N = 142541
 WIDTHS = (4, 8, 16, 32, 64, 508)
 CUT = "constexpr int kStreamMaxB = 8; "
-MAPPINGS = {"stream": "constexpr int kStreamMaxB = 1 << 30; ", "rows": "constexpr int kStreamMaxB = 0; "}
+MAPPINGS = {"stream": "constexpr int kStreamMaxB = 1 << 30; ",
+            "band": "constexpr int kStreamMaxB = 0; "}
 
 
 def build(name: str, src: str):
@@ -103,6 +107,11 @@ def main(argv) -> int:
     if src.count(CUT) != 1:
         raise SystemExit(f"ell_spmm.cu no longer holds {CUT!r}")
     fns = {name: build(name, src.replace(CUT, line)) for name, line in MAPPINGS.items()}
+    if argv:
+        other = (Path(argv[0]) / "repro_torch" / "csrc" / "ell_spmm.cu").read_text()
+        if other.count(CUT) != 1:
+            raise SystemExit(f"{argv[0]}'s ell_spmm.cu does not hold {CUT!r}")
+        fns["other"] = build("other", other.replace(CUT, MAPPINGS["band"]))
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
@@ -139,13 +148,13 @@ def main(argv) -> int:
                 raise SystemExit(f"{mapping}: launch failed with cudaError_t {err}")
 
         want = ell_spmm_ref(x, cols, vals)
-        for mapping in MAPPINGS:
+        for mapping in fns:
             run(mapping, cols, vals)
             torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-6)
         del want
-        times = {f"{mp} {how}": [] for mp in MAPPINGS for how in ("warm", "cold")}
+        times = {f"{mp} {how}": [] for mp in fns for how in ("warm", "cold")}
         iters = 100 if b <= 64 else 10
-        for mapping in ("stream", "rows", "rows", "stream"):
+        for mapping in [*fns, *list(fns)[::-1]]:
             times[f"{mapping} warm"].append(ms(lambda: run(mapping, cols, vals), iters))
             it = itertools.cycle(slots)
             times[f"{mapping} cold"].append(ms(lambda: run(mapping, *next(it)), iters - iters % 3))
