@@ -19,11 +19,16 @@ result line):
 1. environment — torch/CUDA versions, the card's name and power limit;
 2. build — the CUDA kernels from ``src/repro_torch/csrc``, one nvcc per
    source, all started together;
+   random — the counter-based stream (``repro_torch._random``) on the card:
+   Philox's known answers, the card's bits against the CPU's, the paths'
+   draws made with no host → device copy, and their times;
 3. each kernel against its plain PyTorch version on the card, on a ragged
    small grid and at its path's shapes, through the wrapper its path calls,
-   with timings (CUDA events), the time of a PyTorch library call computing
-   the same function where one exists, and the least time the card could
-   take (``bound_ms``);
+   with timings (CUDA events; ``torch.profiler`` device time, cold, for the
+   short kernels and beside the events for ``knn_topk`` and
+   ``ell_spmm_cheb``), the time of a PyTorch library call computing the same
+   function where one exists, and the least time the card could take
+   (``bound_ms``);
 4. each path at full size, with every kernel's launch counter zeroed just
    before and read just after; then each path's k-means kernel once more on
    that path's final embedding against its plain version (differing labels
@@ -32,7 +37,9 @@ result line):
    path: the card against the CPU from one seed.
 
 With ``--profile`` each path runs once more under ``torch.profiler``
-(device busy share, top kernels).  The line before the last is the kernel
+(device busy share, top kernels, host → device copies) and once more under
+the host clocks of ``tools/host_clock.py`` (the draws, the host assembly,
+the host reads).  The line before the last is the kernel
 table as JSON (each kernel's launches from its own path); the last line is
 ``{"ok": true, "device": {...}}``.  A copy of the numbers goes to
 ``chiprun_out/chip_smoke.json``.
@@ -55,6 +62,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch.core.chebyshev as cheb  # noqa: E402
+from repro_torch import _random  # noqa: E402
 import repro_torch.core.kmeans as tkm  # noqa: E402
 from repro_torch.core.spectral import (EigConfig, GraphConfig, KMeansConfig,  # noqa: E402
                                        SpectralPipeline)
@@ -185,11 +193,15 @@ def device_ms(fn, copies, iters: int) -> float:
     for _ in range(len(copies)):
         fn(*next(it))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn(*next(it))
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / iters
+    for _ in range(3):  # the profiler now and then returns no device records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn(*next(it))
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages())
+        if total > 0:
+            return total / 1e3 / iters
+    raise SmokeFailure("torch.profiler recorded no device time in three tries")
 
 
 def near_tie_swaps(x, got_idx, want_idx, want_d) -> int:
@@ -220,6 +232,101 @@ def purity(labels, truth) -> float:
 def lattice(n: int) -> torch.Tensor:
     pos, _, _, _ = dti_like_pointcloud(n, 1, 1, neighbors="none", seed=0)
     return pos
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the random stream
+# ---------------------------------------------------------------------------
+
+PHILOX_KNOWN = (  # Random123's known answers of Philox4x32-10: counter, key, output
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)))
+
+
+def h2d_copies(fn) -> tuple:
+    """(count, device ms) of the host → device copies ``fn()`` makes, from
+    ``torch.profiler``'s device records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if "HtoD" in e.key]
+    return sum(e.count for e in hits), sum(e.self_device_time_total for e in hits) / 1e3
+
+
+def random_phase() -> dict:
+    """The counter-based stream on the card: Philox's known answers; the
+    card's raw words equal to the CPU's on 2²⁰ random counters under 16
+    random keys (a quarter of the words within 3 of 2³² − 1); the filter's
+    draws at the scalable path's shape (normal [n], Rademacher [n, 8] and
+    [n, 508]) and a 64-row k-means++ Gumbel block bitwise (words, signs) or
+    within rtol 1e-6 / atol 2e-6 (after ``log``/``cos``/``sin``) of the
+    same call on the CPU; no host → device copy in ``draw_signals`` or
+    ``kmeanspp_init``; and the draws' times on the card."""
+    dev = torch.device("cuda")
+    for ctr, key, want in PHILOX_KNOWN:
+        got = _random.philox4x32(torch.tensor(ctr, dtype=torch.int64, device=dev)[:, None], key)
+        check(got[:, 0].tolist() == list(want), f"Philox known answer for counter {ctr}")
+    rng = np.random.default_rng(21)
+    for _ in range(16):
+        key = tuple(int(v) for v in rng.integers(0, 1 << 32, 2))
+        ctr = rng.integers(0, 1 << 32, (4, 1 << 16), dtype=np.int64)
+        near = rng.random(ctr.shape) < 0.25
+        ctr[near] = 0xFFFFFFFF - rng.integers(0, 4, int(near.sum()))
+        c = torch.from_numpy(ctr)
+        check(torch.equal(_random.philox4x32(c.to(dev), key).cpu(), _random.philox4x32(c, key)),
+              "Philox words differ between the card and the CPU")
+    r = K_FULL + 8
+
+    def signals(device):
+        return cheb.draw_signals(torch.Generator().manual_seed(3), N_FULL, 8, r, device)
+
+    card, cpu = signals(dev), signals("cpu")
+    check(torch.equal(card[1].cpu(), cpu[1]) and torch.equal(card[2].cpu(), cpu[2]),
+          "draw_signals: Rademacher draws differ between the card and the CPU")
+    normal_err = float((card[0].cpu() - cpu[0]).abs().max())
+    torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=1e-6, atol=2e-6)
+    sketch = card[2]
+    balance = float(sketch.mean())
+    check(abs(balance) < 1e-3 and abs(float(card[0].var()) - 1.0) < 0.02,
+          "draw_signals: moments off")
+    del card, cpu, sketch
+    key = (31337, 4242)
+    gd, gc = _random.gumbel(key, 1, (64, N_FULL), dev), _random.gumbel(key, 1, (64, N_FULL), "cpu")
+    gumbel_err = float((gd.cpu() - gc).abs().max())
+    torch.testing.assert_close(gd.cpu(), gc, rtol=1e-6, atol=2e-6)
+    del gd, gc
+    # copies and times at the paths' shapes: k-means++ at k = 500 on a
+    # [n, 16] block (the seeding's draws are the same at any width)
+    x = torch.randn(N_FULL, 16, generator=torch.Generator().manual_seed(5)).to(dev)
+    copies = dict(draw_signals=h2d_copies(lambda: signals(dev)),
+                  kmeanspp_init=h2d_copies(
+                      lambda: tkm.kmeanspp_init(x, K_FULL, torch.Generator().manual_seed(5))))
+    for name, (count, _) in copies.items():
+        check(count == 0, f"{name} copied {count} tensors from the host to the card")
+    signals_ms = cuda_ms(lambda: signals(dev), iters=5)
+    gumbel_ms = cuda_ms(lambda: [_random.gumbel(key, 1, (min(64, K_FULL - 1 - s), N_FULL), dev,
+                                                row0=s) for s in range(0, K_FULL - 1, 64)],
+                        iters=5)
+    seed_ms = cuda_ms(lambda: tkm.kmeanspp_init(x, K_FULL, torch.Generator().manual_seed(5)),
+                      iters=3)
+    del x
+    log(f"[random] Philox4x32-10 known answers hold on the card; 2^20 blocks under 16 keys "
+        f"equal to the CPU's; draw_signals n={N_FULL} R={r}: Rademacher bitwise equal, normal "
+        f"max|Δ|={normal_err:.2e}, sketch mean {balance:+.2e}; Gumbel [64 × {N_FULL}] "
+        f"max|Δ|={gumbel_err:.2e}; host→device copies: draw_signals "
+        f"{copies['draw_signals'][0]}, "
+        f"kmeanspp_init {copies['kmeanspp_init'][0]}")
+    log(f"[random] on the card: draw_signals {signals_ms:.3f} ms; the {K_FULL - 1} Gumbel rows "
+        f"of k-means++ in chunks of 64 {gumbel_ms:.3f} ms; kmeanspp_init k={K_FULL} on "
+        f"[{N_FULL} × 16] {seed_ms:.2f} ms (events)")
+    return dict(normal_err=normal_err, gumbel_err=gumbel_err, sketch_mean=balance,
+                h2d_copies={k: v[0] for k, v in copies.items()}, draw_signals_ms=signals_ms,
+                gumbel_rows_ms=gumbel_ms, kmeanspp_init_ms=seed_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +374,14 @@ def knn_phase():
     # the kernel alone, on the wrapper's zero-padded input (3 real coordinates)
     xp = torch.nn.functional.pad(x, (0, 1)).contiguous()
     up = torch.nn.functional.pad(u, (0, 1)).contiguous()
-    ms = cuda_ms(lambda: knn_topk_cuda(xp, xp, KNN_K, d=3), iters=10)
+    # warm events and cold device time (rotating over 24 copies of the padded
+    # lattice, 55 MB) in turns: events, device, device, events
+    copies = [(xp.clone(),) for _ in range(24)]
+    turns = [cuda_ms(lambda: knn_topk_cuda(xp, xp, KNN_K, d=3), iters=10) if i in (0, 3) else
+             device_ms(lambda q: knn_topk_cuda(q, q, KNN_K, d=3), copies, iters=5)
+             for i in range(4)]
+    del copies
+    ms, cold_ms = 0.5 * (turns[0] + turns[3]), 0.5 * (turns[1] + turns[2])
     random_ms = cuda_ms(lambda: knn_topk_cuda(up, up, KNN_K, d=3), iters=10)
 
     def library():  # cdist + topk, chunked so one [chunk, n] tile is live
@@ -290,13 +404,15 @@ def knn_phase():
     log(f"[kernel] knn_topk (tol: lattice exact; random rtol 1e-5, ids equal up to near-ties): "
         f"lattice n={N_FULL} k={KNN_K} ids equal, max|Δd|=0 "
         f"({ties} tied neighbour pairs); random: {swaps} ids swapped at "
-        f"near-ties; kernel_ms={ms:.3f} (random points {random_ms:.3f}) plain_ms={plain_ms:.1f} "
+        f"near-ties; kernel_ms={ms:.3f} (random points {random_ms:.3f}; device cold "
+        f"{cold_ms:.3f}; in turns events/device/device/events "
+        + " / ".join(f"{t:.3f}" for t in turns) + f") plain_ms={plain_ms:.1f} "
         f"library_ms={library_ms:.1f} bound_ms={bms:.3f} ({by}, in fp32 issue slots; the "
         f"direct form's {2 * t_ops:.3f})")
     return dict(name="knn_topk", route="cuda", source="src/repro_torch/csrc/knn_topk.cu",
                 replaces="src/repro/kernels/knn_topk/kernel.py:91", max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=library_ms, random_ms=random_ms), (wi, wd)
+                library_ms=library_ms, random_ms=random_ms, device_cold_ms=cold_ms), (wi, wd)
 
 
 def kmeans_phase() -> dict:
@@ -446,9 +562,16 @@ def _csr(adj):
 
 def hash_phase(pos) -> dict:
     """``hash_codes`` on the lattice positions with the scalable path's planes
-    (16 tables of 16 bits, seed 0).  Codes are compared exactly wherever every
-    projection is at least ``HASH_EPS`` from 0 in float64 (nearer, the two
-    summation orders may take different signs); tie-breaks at rtol 1e-5."""
+    (16 tables of 16 bits, seed 0), after a grid of random shapes (d ∈ {1,
+    3, 8, 9, 90}: the unrolled widths and the runtime-d form; 1 and 16
+    tables; 1, 16 and 24 bits; n ragged). Codes are compared exactly wherever
+    every projection is at least ``HASH_EPS`` from 0 in float64 (nearer, the
+    two summation orders may take different signs); tie-breaks at rtol 1e-5.
+    At d = 90 the difference two summation orders can make,
+    2(d + 1)·2⁻²⁴·Σ|x_j·p_j|, exceeds both: codes are compared where every
+    projection clears it, and tie-breaks must keep within it. Timed as device
+    time cold (rotating over 8 copies of x, each launch writing its own 18 MB
+    of outputs) and with events warm."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(4)
     before = lsh_ops.hash_codes.launches
@@ -456,38 +579,56 @@ def hash_phase(pos) -> dict:
     def compare(x, planes):
         gc, gt = lsh_ops.hash_codes(x, planes)
         wc, wt = hash_codes_ref(x, planes)
-        proj = torch.einsum("nd,tdb->tnb", x.double(), planes.double())[..., :-1]
-        clear = (proj.abs() >= HASH_EPS).all(-1)
+        proj = torch.einsum("nd,tdb->tnb", x.double(), planes.double())
+        d = x.shape[1]
+        if d <= 20:
+            clear = (proj.abs() >= HASH_EPS)[..., :-1].all(-1)
+            torch.testing.assert_close(gt, wt, rtol=1e-5, atol=1e-5)
+        else:  # two fp32 sums of d terms in different orders differ by at
+            # most 2(d + 1)·2⁻²⁴·Σ|terms|, above HASH_EPS at d = 90
+            slack = 2 * (d + 1) * 2.0 ** -24 * torch.einsum(
+                "nd,tdb->tnb", x.double().abs(), planes.double().abs())
+            clear = (proj.abs() >= torch.clamp(slack, min=HASH_EPS))[..., :-1].all(-1)
+            check(bool(((gt - wt).double().abs() <= slack[..., -1]).all()),
+                  "hash_codes: tie-breaks differ by more than two summation orders can")
         check(torch.equal(gc[clear], wc[clear]), "hash_codes: codes differ away from 0")
-        torch.testing.assert_close(gt, wt, rtol=1e-5, atol=1e-5)
         return int((~clear).sum()), int((gc != wc).sum()), float((gt - wt).abs().max())
 
-    for n, d, t, b in ((1000, 3, 16, 16), (300, 8, 4, 24), (77, 20, 3, 1)):
-        compare((torch.rand(n, d, generator=gen) * 50).to(dev),
+    grid = list(itertools.product((1, 3, 8, 9, 90), (1, 16), (1, 16, 24)))
+    for d, t, b in grid:
+        compare((torch.rand(1000 + 7 * d + t, d, generator=gen) * 50).to(dev),
                 torch.randn(t, d, b + 1, generator=gen).to(dev))
     planes = lsh_ops.make_planes(3, LSH_TABLES, LSH_BITS, 0).to(dev)
     near, differ, err = compare(pos, planes)
-    check(lsh_ops.hash_codes.launches == before + 4, "hash_codes wrapper did not launch its kernel")
-    ms = cuda_ms(lambda: hash_codes_cuda(pos, planes), iters=50)
+    check(lsh_ops.hash_codes.launches == before + len(grid) + 1,
+          "hash_codes wrapper did not launch its kernel")
+    copies = [(pos.clone(),) for _ in range(8)]
+    ms = device_ms(lambda x: hash_codes_cuda(x, planes), copies, iters=80)
+    warm_ms = cuda_ms(lambda: hash_codes_cuda(pos, planes), iters=50)
     plain_ms = cuda_ms(lambda: hash_codes_ref(pos, planes), iters=10)
     pows = 2 ** torch.arange(LSH_BITS, device=dev, dtype=torch.int32)
 
-    def library():  # x @ P, then the pack
-        proj = pos @ planes  # [T, n, n_bits + 1]
+    def library(x):  # x @ P, then the pack
+        proj = x @ planes  # [T, n, n_bits + 1]
         return ((proj[..., :-1] >= 0).int() * pows).sum(-1), proj[..., -1]
 
-    library_ms = cuda_ms(library, iters=50)
+    library_ms = device_ms(library, copies, iters=80)
+    library_warm_ms = cuda_ms(lambda: library(pos), iters=50)
     cols = LSH_BITS + 1
     n_bytes = N_FULL * 3 * 4 + LSH_TABLES * 3 * cols * 4 + LSH_TABLES * N_FULL * 8
     n_ops = 2.0 * N_FULL * LSH_TABLES * cols * 3
     bms, by = bound(n_bytes, n_ops)
     log(f"[kernel] hash_codes (tol: codes exact where every |proj| >= {HASH_EPS:g}, "
-        f"tie rtol 1e-5): n={N_FULL} d=3 T={LSH_TABLES} bits={LSH_BITS}: {near} (table, point) "
-        f"pairs near 0, {differ} codes differ; max|Δtie|={err:.2e}; kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bms:.4f} ({by})")
+        f"tie rtol 1e-5; at d = 90 the bound of two summation orders): {len(grid)} random "
+        f"shapes; n={N_FULL} d=3 T={LSH_TABLES} bits={LSH_BITS}: {near} (table, point) pairs "
+        f"near 0, {differ} codes differ; "
+        f"max|Δtie|={err:.2e}; kernel_ms device cold={ms:.4f} (events warm {warm_ms:.4f}) "
+        f"plain_ms={plain_ms:.4f} library_ms device cold={library_ms:.4f} (events warm "
+        f"{library_warm_ms:.4f}) bound_ms={bms:.4f} ({by})")
     return dict(name="hash_codes", route="cuda", source="src/repro_torch/csrc/hash_codes.cu",
                 replaces="src/repro/kernels/lsh_candidates/kernel.py:48", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
+                warm_events_ms=warm_ms)
 
 
 def spmv_phase(state, op) -> dict:
@@ -623,6 +764,10 @@ def cheb_step_phase(state, op) -> dict:
     cols, vals = m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w)
     coef = torch.stack([ca, cb])
     ms = cuda_ms(lambda: ell_spmm_cheb_cuda(x, cols, vals, prev, coef), iters=20)
+    # cold: device time rotating over three copies of the slots (x and prev,
+    # 290 MB each, are read from HBM at any rate)
+    cold_ms = device_ms(lambda c, v: ell_spmm_cheb_cuda(x, c, v, prev, coef),
+                        [(cols.clone(), vals.clone()) for _ in range(3)], iters=12)
     plain_ms = cuda_ms(lambda: ell_spmm_cheb_ref(x, cols, vals, prev, ca, cb), iters=3)
     csr = _csr(state.adj)
     library_ms = cuda_ms(lambda: ca * torch.sparse.mm(csr, x) + cb * x - prev, iters=10)
@@ -630,12 +775,14 @@ def cheb_step_phase(state, op) -> dict:
     n_bytes = rows * w * 8 + 3 * N_FULL * r * 4  # slots; x, prev read and y written once
     bms, by = bound(n_bytes, 2.0 * rows * w * r + 3.0 * N_FULL * r)
     log(f"[kernel] ell_spmm_cheb (tol: rtol 1e-5 atol 1e-5): rows={rows} W={w} b={r} "
-        f"tail={m.tail.nnz} max|Δy|={err:.2e}; kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+        f"tail={m.tail.nnz} max|Δy|={err:.2e}; kernel_ms={ms:.4f} (device cold "
+        f"{cold_ms:.4f}) plain_ms={plain_ms:.3f} "
         f"library_ms={library_ms:.4f} (torch.sparse.mm, CSR, + the AXPYs) "
         f"bound_ms={bms:.4f} ({by})")
     return dict(name="ell_spmm_cheb", route="cuda", source="src/repro_torch/csrc/ell_spmm.cu",
                 replaces="src/repro/kernels/ell_spmm/kernel.py:79", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
+                device_cold_ms=cold_ms)
 
 
 def assign_phase() -> dict:
@@ -932,9 +1079,14 @@ def end_to_end(make_pipe, tag: str, ev_tol: float) -> dict:
 
 def profile_path(pipe, pos, prof, tag: str) -> dict:
     """A path once more under ``torch.profiler`` (device activity only):
-    device busy share of the wall and the kernels that take the most device
-    time.  The table goes to ``chiprun_out/profile_<tag>.txt``."""
+    device busy share of the wall, the kernels that take the most device
+    time, and the host → device copies.  The table goes to
+    ``chiprun_out/profile_<tag>.txt``.  Then once more under the host clocks
+    of ``tools/host_clock.py``: the draws, the host assembly and the host
+    reads."""
     from torch.profiler import ProfilerActivity, profile
+
+    from tools.host_clock import breakdown, describe
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof_:
         t0 = time.perf_counter()
@@ -946,13 +1098,20 @@ def profile_path(pipe, pos, prof, tag: str) -> dict:
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     (ROOT / "chiprun_out" / f"profile_{tag}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=40))
+    h2d = [e for e in events if "HtoD" in e.key]
+    h2d_ms = sum(e.self_device_time_total for e in h2d) / 1e3
+    h2d_calls = sum(e.count for e in h2d)
     log(f"[profile] {tag} path {wall:.2f} s wall, device busy {busy:.2f} s "
-        f"({100 * busy / wall:.1f} %)")
+        f"({100 * busy / wall:.1f} %); host→device copies {h2d_ms:.1f} ms over {h2d_calls} calls")
     for e in top:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.1f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
-    return dict(wall_s=wall, device_busy_s=busy,
-                top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
+    clocks = breakdown(lambda: pipe.run_state(prof, torch.Generator().manual_seed(0),
+                                              points=pos))
+    log(describe(tag, clocks))
+    return dict(wall_s=wall, device_busy_s=busy, h2d_ms=h2d_ms, h2d_calls=h2d_calls,
+                top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top],
+                host_clock=clocks)
 
 
 def main() -> int:
@@ -980,6 +1139,7 @@ def main() -> int:
 
     pos, prof, _, region = dti_like_pointcloud(N_FULL, D_PROFILE, N_REGIONS, eps=1.8,
                                                seed=0, neighbors="none")
+    random_rec = random_phase()
     knn_rec, exact = knn_phase()
     kernels = [knn_rec, kmeans_phase(), ell_phase(pos, prof)]
     spipe = scalable_pipeline(K_FULL)
@@ -1013,7 +1173,8 @@ def main() -> int:
         rec = main_rec if kern["name"] in MAIN_KERNELS else scal_rec
         kern["launches"] = rec["launches"][kern["name"]]
     summary = dict(device=smi, torch=torch.__version__, cuda=torch.version.cuda,
-                   build_s=build_s, kernels=kernels, main=main_rec, scalable=scal_rec,
+                   build_s=build_s, random=random_rec, kernels=kernels, main=main_rec,
+                   scalable=scal_rec,
                    e2e=e2e, profile=profiled,
                    phase_s=dict(kernels=t_main - t_start, main=t_scal - t_main,
                                 scalable=t_e2e - t_scal, e2e=t_done - t_e2e,

@@ -1,7 +1,7 @@
 """Device resolution for the port's entry points."""
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
 import torch
 
@@ -30,9 +30,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def cpu_generator(seed: int) -> torch.Generator:
-    """A CPU generator: every random draw of the port comes from one, and is
-    moved to the compute device afterwards, so one seed gives the same
-    draws on the CPU and on the card."""
+    """A CPU generator: the port's entry points take one and draw from it only
+    the key of a counter-based stream (:mod:`repro_torch._random`), which
+    draws on the compute device and gives the same bits on the CPU and on
+    the card."""
     return torch.Generator(device="cpu").manual_seed(int(seed))
 
 
@@ -42,7 +43,3 @@ def fold_in(gen: torch.Generator, data: int) -> torch.Generator:
     has been consumed."""
     return cpu_generator((gen.initial_seed() * 1_000_003 + int(data)) % (1 << 63))
 
-
-def randn(shape, gen: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
-    """Standard normals drawn on the CPU from ``gen``, then moved."""
-    return torch.randn(shape, generator=gen, dtype=torch.float32).to(device)

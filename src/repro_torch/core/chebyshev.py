@@ -26,10 +26,11 @@ Cost: ``operator_streams(cfg)`` operator applications, fixed and
 independent of convergence behaviour.
 
 Random draws: the reference splits its key into three (bounds start vector,
-moment probes, sketch).  Here :func:`draw_signals` draws the same three
-from generators folded out of the caller's CPU generator and moves them to
-the device — one module-level helper, so a parity test can substitute the
-reference's draws.  The loops are Python loops over device tensors; the
+moment probes, sketch).  Here :func:`draw_signals` makes the same three as
+draws 0, 1, 2 of a counter-based stream (:mod:`repro_torch._random`) keyed
+from the caller's CPU generator, on the device, each in one pass — one
+module-level helper, so a parity test can substitute the reference's
+draws.  The loops are Python loops over device tensors; the
 spectral interval, the cut and the filter weights stay on the device, so
 the filter reads nothing back to the host.
 """
@@ -42,7 +43,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch._device import cpu_generator, fold_in
+from repro_torch import _random
+from repro_torch._device import cpu_generator
 from repro_torch.core.lanczos import LanczosResult, _op_device
 
 
@@ -149,20 +151,15 @@ def filter_response(lam: torch.Tensor, a, lo, hi, degree: int) -> torch.Tensor:
 # Random signals
 # ---------------------------------------------------------------------------
 
-def _rademacher(shape, gen: torch.Generator) -> torch.Tensor:
-    return torch.randint(0, 2, shape, generator=gen).to(torch.float32) * 2.0 - 1.0
-
-
 def draw_signals(gen: torch.Generator, n: int, n_probes: int, r: int,
                  device: torch.device):
     """The solver's three draws, as the reference's ``split(key, 3)``: the
     bounds estimator's start vector (normal ``[n]``), the moment probes
     (Rademacher ``[n, n_probes]``) and the sketch (Rademacher ``[n, r]``),
-    each from its own generator folded out of ``gen``, moved to ``device``."""
-    v = torch.randn(n, generator=fold_in(gen, 0), dtype=torch.float32)
-    z = _rademacher((n, n_probes), fold_in(gen, 1))
-    g = _rademacher((n, r), fold_in(gen, 2))
-    return v.to(device), z.to(device), g.to(device)
+    draws 0, 1, 2 of the stream keyed from ``gen``, made on ``device``."""
+    rng = _random.Stream.from_generator(gen)
+    return (rng.normal((n,), device), rng.rademacher((n, n_probes), device),
+            rng.rademacher((n, r), device))
 
 
 # ---------------------------------------------------------------------------
@@ -312,8 +309,9 @@ def chebyshev_eigsh(op, cfg: ChebConfig, *, v0: Optional[torch.Tensor] = None,
     rotate.  Returns min(k, R) Ritz pairs in descending order.  ``restarts``
     is 0 and ``converged`` True (a fixed-cost filter, not an iterative
     solver); ``residuals`` carries ‖A u − θ u‖ as the accuracy diagnostic.
-    Runs on the device of ``v0`` (else the operator's); the draws come from
-    the CPU ``generator`` (seed 0 by default) via :func:`draw_signals`.
+    Runs on the device of ``v0`` (else the operator's), where
+    :func:`draw_signals` makes the draws from a stream keyed by the CPU
+    ``generator`` (seed 0 by default).
     """
     n = op.shape[0]
     r = resolved_signals(cfg)

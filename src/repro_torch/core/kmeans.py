@@ -14,7 +14,8 @@ Two engines, as in the reference:
   and ``"fused"`` launch the kernel on the card and raise if it cannot.
 
 The reference's ``while_loop`` is a Python loop that reads the
-changed-label count once per iteration.  k-means++ draws its Gumbels
+changed-label count once per iteration.  The seedings draw on the device
+from a counter-based stream (:mod:`repro_torch._random`) keyed by one draw
 from the caller's CPU generator, so one seed gives the same seeding on the
 CPU and on the card.
 """
@@ -25,6 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import _random
 from repro_torch._device import cpu_generator
 from repro_torch.kernels._util import KMEANS_BLOCK_K, KMEANS_BLOCK_Q
 
@@ -163,19 +165,23 @@ def update_centroids(x: torch.Tensor, labels: torch.Tensor, k: int, prev: torch.
 # seeding
 # ---------------------------------------------------------------------------
 
-def _gumbel(n: int, gen: torch.Generator, device) -> torch.Tensor:
-    u = torch.rand(n, generator=gen, dtype=torch.float32)
-    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
-    return (-torch.log(-torch.log(u))).to(device)
+GUMBEL_CHUNK = 64  # k-means++ Gumbel rows drawn in one pass (36 MB at n = 142,541)
 
 
 def kmeanspp_init(x: torch.Tensor, k: int, generator: torch.Generator) -> torch.Tensor:
     """k-means++ seeding on the device of ``x``: the categorical draw
-    ``P_j ∝ Dist_j²`` is a Gumbel-max over ``log Dist²``.  O(nkd)."""
+    ``P_j ∝ Dist_j²`` is a Gumbel-max over ``log Dist²``.  O(nkd).
+
+    The first centroid is draw 0 of the stream keyed from ``generator``;
+    centroid i ≥ 1 takes row i − 1 of draw 1, a ``[k − 1, n]`` Gumbel block
+    made ``GUMBEL_CHUNK`` rows a pass (a row's values do not depend on the
+    chunking)."""
     n, d = x.shape
     xf = x.float()
     xn = (xf * xf).sum(1)
-    i0 = torch.randint(n, (1,), generator=generator).to(x.device)
+    rng = _random.Stream.from_generator(generator)
+    i0 = rng.index(n, x.device)
+    gumbels = rng.take()
     c0 = xf.index_select(0, i0)[0]
 
     def d2_to(c):
@@ -184,8 +190,13 @@ def kmeanspp_init(x: torch.Tensor, k: int, generator: torch.Generator) -> torch.
     dist2 = d2_to(c0)
     C = torch.zeros((k, d), dtype=torch.float32, device=x.device)
     C[0] = c0
+    chunk = GUMBEL_CHUNK
     for i in range(1, k):
-        g = _gumbel(n, generator, x.device)
+        row = (i - 1) % chunk
+        if row == 0:
+            block = _random.gumbel(rng.key, gumbels, (min(chunk, k - i), n), x.device,
+                                   row0=i - 1)
+        g = block[row]
         idx = torch.argmax(torch.log(torch.clamp(dist2, min=1e-30)) + g)
         c = xf.index_select(0, idx.view(1))[0]  # no host sync for the row
         C[i] = c
@@ -194,8 +205,11 @@ def kmeanspp_init(x: torch.Tensor, k: int, generator: torch.Generator) -> torch.
 
 
 def random_init(x: torch.Tensor, k: int, generator: torch.Generator) -> torch.Tensor:
-    """k distinct random rows."""
-    idx = torch.randperm(x.shape[0], generator=generator)[:k].to(x.device)
+    """k distinct random rows: those of the k smallest of n device uniforms
+    (32-bit words of the stream keyed from ``generator``), ties to the lower
+    row."""
+    w = _random.Stream.from_generator(generator).words(1, x.shape[0], x.device)[0]
+    idx = torch.sort(w, stable=True)[1][:k]
     return x[idx]
 
 
@@ -215,8 +229,8 @@ def kmeans(x: torch.Tensor, cfg: KMeansConfig,
            generator: Optional[torch.Generator] = None, *,
            init_centroids: Optional[torch.Tensor] = None) -> KMeansResult:
     """Lloyd's algorithm on the device of ``x``, from ``init_centroids`` or
-    the configured seeding (draws from the CPU ``generator``, seed 0 by
-    default)."""
+    the configured seeding (drawn there from a stream keyed by the CPU
+    ``generator``, seed 0 by default)."""
     if cfg.k is None:
         raise ValueError("KMeansConfig.k is unset — standalone kmeans() needs "
                          "an explicit k (use cfg.resolved(k))")

@@ -11,11 +11,13 @@ matrix is streamed m/b times per basis instead of m.
 The reference's ``lax`` loops are Python loops here.  The host reads the
 device once per restart cycle: whether any step of the cycle broke down
 (an invariant subspace was hit) together with the converged count.  A
-breakdown needs fresh random directions, which are drawn from the caller's
-CPU generator only when they are needed; a cycle that broke down is
-therefore replayed from its saved start with a host check after every
-step, and its draws then land exactly where a step-by-step run would have
-put them.  One seed thus gives the same draws on the CPU and on the card.
+breakdown needs fresh random directions, which are drawn only when they are
+needed, each the next draw of a counter-based stream
+(:mod:`repro_torch._random`) keyed from the caller's CPU generator; a
+cycle that broke down is therefore replayed from its saved start with a
+host check after every step, and its draws then land exactly where a
+step-by-step run would have put them.  The draws are made on the device,
+and one seed gives the same draws on the CPU and on the card.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch._device import cpu_generator, randn
+from repro_torch import _random
+from repro_torch._device import cpu_generator
 
 
 class LanczosResult(NamedTuple):
@@ -175,7 +178,8 @@ def eigsh(op, cfg, *, v0: Optional[torch.Tensor] = None,
     polynomial-filter embedding
     (:func:`repro_torch.core.chebyshev.chebyshev_eigsh`) under the same
     contract.  Runs on the device of ``v0`` (else the operator's); random
-    draws come from the CPU ``generator`` (seed 0 by default)."""
+    draws are made there, from a stream keyed by one draw from the CPU
+    ``generator`` (seed 0 by default)."""
     from repro_torch.core.chebyshev import ChebConfig, chebyshev_eigsh
 
     if isinstance(cfg, ChebConfig):
@@ -185,11 +189,11 @@ def eigsh(op, cfg, *, v0: Optional[torch.Tensor] = None,
             f"eigsh expects a LanczosConfig or ChebConfig, got {type(cfg).__name__}")
     n = op.shape[0]
     validate_basis(cfg, n)
-    gen = cpu_generator(0) if generator is None else generator
+    rng = _random.Stream.from_generator(cpu_generator(0) if generator is None else generator)
     dev = _op_device(op, v0)
     if cfg.block_size > 1:
-        return _lanczos_topk_block(op.mm, n, cfg, v0=v0, gen=gen, device=dev)
-    return _lanczos_topk_single(op.mv, n, cfg, v0=v0, gen=gen, device=dev)
+        return _lanczos_topk_block(op.mm, n, cfg, v0=v0, rng=rng, device=dev)
+    return _lanczos_topk_single(op.mv, n, cfg, v0=v0, rng=rng, device=dev)
 
 
 def lanczos_topk(matvec, n: int, cfg: LanczosConfig, *,
@@ -245,18 +249,18 @@ def _extract(cfg: LanczosConfig, out, sign: float, restarts: int, n_conv: int):
 # Single-vector thick-restart Lanczos
 # ---------------------------------------------------------------------------
 
-def _orthonormal_against(v, basis, gen):
+def _orthonormal_against(v, basis, rng):
     """Random unit vector orthogonal to the (zero-padded) basis rows."""
-    r = randn(v.shape, gen, v.device)
+    r = rng.normal(v.shape, v.device)
     r = r - basis.T @ (basis @ r)
     return r / torch.clamp(torch.linalg.norm(r), min=1e-30)
 
 
 def _lanczos_topk_single(matvec: Callable, n: int, cfg: LanczosConfig, *,
-                         v0, gen, device) -> LanczosResult:
+                         v0, rng, device) -> LanczosResult:
     k, m = cfg.k, cfg.m
     f32 = torch.float32
-    v0 = randn((n,), gen, device) if v0 is None else v0.to(device, f32)
+    v0 = rng.normal((n,), device) if v0 is None else v0.to(device, f32)
     v0 = v0 / torch.clamp(torch.linalg.norm(v0), min=1e-30)
     sign = 1.0 if cfg.which == "LA" else -1.0
     l_keep = restart_keep_size(cfg)
@@ -275,7 +279,7 @@ def _lanczos_topk_single(matvec: Callable, n: int, cfg: LanczosConfig, *,
         v_next = w / torch.clamp(beta, min=1e-30)
         if careful:
             if not bool(ok):
-                v_next = _orthonormal_against(w, V, gen)
+                v_next = _orthonormal_against(w, V, rng)
             ok = None
         V[j + 1] = v_next
         T[j + 1, j] = beta
@@ -326,23 +330,23 @@ def _lanczos_topk_single(matvec: Callable, n: int, cfg: LanczosConfig, *,
 # Block thick-restart Lanczos
 # ---------------------------------------------------------------------------
 
-def _orthonormal_block_against(W, basis, gen):
+def _orthonormal_block_against(W, basis, rng):
     """[n, b] random directions orthogonal to the basis rows and to each other."""
-    r = randn(W.shape, gen, W.device)
+    r = rng.normal(W.shape, W.device)
     r = r - basis.T @ (basis @ r)
     q, _ = torch.linalg.qr(r)
     return q
 
 
 def _lanczos_topk_block(matmat: Callable, n: int, cfg: LanczosConfig, *,
-                        v0, gen, device) -> LanczosResult:
+                        v0, rng, device) -> LanczosResult:
     """Block thick-restart Lanczos: one ``matmat`` streams the operator for
     b new columns; reorthogonalization is [m+b, n]·[n, b] GEMM pairs; the
     in-block factorization is a [n, b] QR whose R is the band coupling."""
     k, b = cfg.k, cfg.block_size
     m = effective_basis_size(cfg)
     f32 = torch.float32
-    X0 = randn((n, b), gen, device)
+    X0 = rng.normal((n, b), device)
     if v0 is not None:
         X0[:, 0] = v0.to(device, f32)
     Q0, _ = torch.linalg.qr(X0)  # column 0 keeps v0's direction
@@ -361,7 +365,7 @@ def _lanczos_topk_block(matmat: Callable, n: int, cfg: LanczosConfig, *,
         ok = torch.diagonal(R).abs() > 1e-10
         if careful:
             if not bool(ok.all()):  # escape deficient directions
-                E = _orthonormal_block_against(W.T, V, gen)
+                E = _orthonormal_block_against(W.T, V, rng)
                 Q = torch.where(ok[None, :], Q, E)
             ok = None
         else:

@@ -7,7 +7,8 @@
     out   = pipe.cluster(emb, gen2)    # Stage 3: k-means on the embedding
     out   = pipe.run(x_or_graph, gen)  # or all three at once
 
-Random draws come from CPU ``torch.Generator``s (the reference's PRNG keys);
+Random inputs are keyed by CPU ``torch.Generator``s (the reference's PRNG
+keys; the draws themselves are made on the device, :mod:`repro_torch._random`);
 ``run`` derives one per stage from the caller's, in the reference's split
 order.  Every entry point takes ``device=``: the card unless the caller asks
 for the CPU, raising when there is none.  ``Plan.device`` keeps the
@@ -628,9 +629,12 @@ class SpectralPipeline:
                                    reports=reports,
                                    provenance=st.provenance + ("cluster",))
 
-    def run_stages(self, state: PipelineState) -> PipelineState:
+    def run_stages(self, state: PipelineState, *, checkpoint_dir: Optional[str] = None,
+                   resume_from: Optional[str] = None) -> PipelineState:
         """Execute the configured stage DAG over a :class:`PipelineState`;
-        stages already in ``state.provenance`` are skipped."""
+        stages already in ``state.provenance`` are skipped.  Checkpointing
+        (``checkpoint_dir``, ``resume_from``) is not ported yet."""
+        _no_checkpoints(checkpoint_dir, resume_from)
         if state.device is None:
             state = dataclasses.replace(state, device=resolve_device(None))
         for name in self.stages:
@@ -643,17 +647,23 @@ class SpectralPipeline:
 
     def run(self, data, generator: Optional[torch.Generator] = None, *,
             points=None, operator: Optional[LinearOperator] = None,
+            checkpoint_dir: Optional[str] = None, resume_from: Optional[str] = None,
             device: DeviceLike = None) -> SpectralResult:
         """Points/graph in, labels out — the whole stage DAG under one call.
         ``data`` is raw points ([n, d] tensor or array → Stage 1 runs) or a
-        COO similarity graph; ``generator`` is a CPU ``torch.Generator``."""
+        COO similarity graph; ``generator`` is a CPU ``torch.Generator``.
+        ``checkpoint_dir`` and ``resume_from`` take the reference's places
+        and raise until checkpointing is ported (ROADMAP A9)."""
         return self.run_state(data, generator, points=points, operator=operator,
+                              checkpoint_dir=checkpoint_dir, resume_from=resume_from,
                               device=device).result
 
     def run_state(self, data, generator: Optional[torch.Generator] = None, *,
                   points=None, operator: Optional[LinearOperator] = None,
+                  checkpoint_dir: Optional[str] = None, resume_from: Optional[str] = None,
                   device: DeviceLike = None) -> PipelineState:
         """:meth:`run`, returning the final :class:`PipelineState`."""
+        _no_checkpoints(checkpoint_dir, resume_from)
         dev = resolve_device(device)
         if data is None:
             raise ValueError("run needs data (points or a COO graph)")
@@ -709,6 +719,12 @@ class SpectralPipeline:
             coarsen=CoarsenConfig(**d.get("coarsen", {})),
             health=HealthConfig(**d.get("health", {})),
         )
+
+
+def _no_checkpoints(checkpoint_dir, resume_from) -> None:
+    if checkpoint_dir is not None or resume_from is not None:
+        raise NotImplementedError(
+            "checkpointing (checkpoint_dir=, resume_from=) is not ported yet — ROADMAP A9")
 
 
 def _wall(t0: float, device: Optional[torch.device]) -> float:

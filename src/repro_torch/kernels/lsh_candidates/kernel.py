@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.kernels import _build
 
+MAX_TABLE_BYTES = 232448  # shared memory one block may use on the H100
+
 
 def _lib():
     fn = _build.load("hash_codes").hash_codes_f32
@@ -24,7 +26,8 @@ def _lib():
 
 def hash_codes_cuda(x: torch.Tensor, planes: torch.Tensor):
     """Raw kernel entry: ``x [n, d]`` and ``planes [T, d, n_bits + 1]`` fp32,
-    contiguous, on one CUDA device, 1 ≤ n_bits ≤ 24.  Returns ``(codes
+    contiguous, on one CUDA device, 1 ≤ n_bits ≤ 24, one table's planes
+    padded to a multiple of 4 columns within ``MAX_TABLE_BYTES``.  Returns ``(codes
     [T, n] int32, tie [T, n] f32)``; launches on the current stream and
     does not synchronise."""
     for name, t, nd in (("x", x, 2), ("planes", planes, 3)):
@@ -44,6 +47,10 @@ def hash_codes_cuda(x: torch.Tensor, planes: torch.Tensor):
                          f"[T, {d}, n_bits + 1] with 1 <= n_bits <= 24")
     if n * d >= 2**31 or n * n_tables >= 2**31:
         raise ValueError("hash_codes_cuda: n·d and n·T must fit in int32")
+    if d * 4 * ((cols + 3) // 4) * 4 > MAX_TABLE_BYTES:
+        raise ValueError(f"hash_codes_cuda: one table's planes (d={d}, n_bits={n_bits}, "
+                         f"padded to 4 columns) exceed the {MAX_TABLE_BYTES} bytes of shared "
+                         f"memory a block can stage")
     codes = torch.empty((n_tables, n), dtype=torch.int32, device=x.device)
     tie = torch.empty((n_tables, n), dtype=torch.float32, device=x.device)
     if n == 0 or n_tables == 0:

@@ -14,14 +14,26 @@ and so the ELL SpMV and the fused Chebyshev step, whose epilogue adds two
 more roundings; the k-means assignment as the fused iteration's labels and
 distances; LSH codes equal wherever every projection is at least 1e-4 from
 0 in float64 (nearer, the two summation orders may take different signs),
-tie-breaks at rtol 1e-5; block Lanczos eigenvalues within 1e-5 of a float64
-dense solve; the scalable path's labels ARI ≥ 0.99 between the card and the
-CPU from one seed.
+tie-breaks at rtol 1e-5 (at d = 90 within the bound 2(d + 1)·2⁻²⁴·Σ|x_j·p_j|
+of two summation orders, and codes compared where every projection clears
+it), and codes and tie-breaks bitwise equal to the kernel the hashing
+kernel replaced (the same fused multiply-adds in the same order); the
+random stream's raw words, uniforms and Rademacher signs bitwise equal on
+the card and the CPU, its normals and Gumbels within rtol 1e-6 / atol 2e-6
+(``log``, ``cos`` and ``sin`` round differently); block Lanczos
+eigenvalues within 1e-5 of a float64 dense solve; the scalable path's
+labels ARI ≥ 0.99 between the card and the CPU from one seed.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import _random
+from repro_torch.core import chebyshev as tch
+from repro_torch.core import kmeans as tkm
 from repro_torch.core.spectral import EigConfig, GraphConfig, KMeansConfig, SpectralPipeline
 from repro_torch.data.pointcloud import dti_like_pointcloud
 from repro_torch.kernels.ell_spmm.kernel import ell_spmm_cheb_cuda, ell_spmm_cuda
@@ -36,7 +48,7 @@ from repro_torch.kernels.kmeans_iter.ops import kmeans_iter
 from repro_torch.kernels.kmeans_iter.ref import kmeans_iter_ref
 from repro_torch.kernels.knn_topk.ops import knn_topk
 from repro_torch.kernels.knn_topk.ref import knn_topk_ref
-from repro_torch.kernels.lsh_candidates.ops import hash_codes
+from repro_torch.kernels.lsh_candidates.ops import hash_codes, make_planes
 from repro_torch.kernels.lsh_candidates.ref import hash_codes_ref
 from repro_torch.serve.metrics import adjusted_rand_index
 from repro_torch.sparse import formats as tf
@@ -410,6 +422,84 @@ def test_hash_codes(n, d, t, b):
     assert clear.float().mean() > 0.9
     assert torch.equal(gc[clear], wc[clear])
     torch.testing.assert_close(gt, wt, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [1, 3, 8, 9, 90])
+@pytest.mark.parametrize("t", [1, 16])
+@pytest.mark.parametrize("b", [1, 16, 24])
+def test_hash_codes_grid(d, t, b):
+    """Each unrolled width (d ≤ 8), the runtime-d form (9, 90; at d = 90 and
+    24 bits the planes are staged in chunks of tables), n ragged against the
+    128-point blocks."""
+    n = 1000 + 7 * d + t
+    gen = torch.Generator().manual_seed(100 * d + 10 * t + b)
+    x = (torch.rand(n, d, generator=gen) * 50 - 10).cuda()
+    planes = torch.randn(t, d, b + 1, generator=gen).cuda()
+    gc, gt = hash_codes(x, planes)
+    wc, wt = hash_codes_ref(x, planes)
+    proj = torch.einsum("nd,tdb->tnb", x.double(), planes.double())
+    if d <= 20:
+        clear = (proj.abs() >= 1e-4)[..., :-1].all(-1)
+        torch.testing.assert_close(gt, wt, rtol=1e-5, atol=1e-5)
+    else:  # two fp32 sums of d terms in different orders differ by at most
+        # 2(d + 1)·2⁻²⁴·Σ|terms|: codes compared where every projection
+        # clears that (and 1e-4), tie-breaks within it
+        slack = 2 * (d + 1) * 2.0 ** -24 * torch.einsum("nd,tdb->tnb", x.double().abs(),
+                                                         planes.double().abs())
+        clear = (proj.abs() >= torch.clamp(slack, min=1e-4))[..., :-1].all(-1)
+        assert bool(((gt - wt).double().abs() <= slack[..., -1]).all())
+    assert clear.float().mean() > 0.9
+    assert torch.equal(gc[clear], wc[clear])
+
+
+def _replaced_hash_codes():
+    path = Path(__file__).resolve().parents[1] / "tools" / "hash_codes_variants.py"
+    spec = importlib.util.spec_from_file_location("hash_codes_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.parent_hash_codes
+
+
+def test_hash_codes_bitwise_equal_to_the_replaced_kernel():
+    """The scalable path's shape (the 142,541-voxel lattice, d = 3, 16 tables
+    of 16 bits) and a random one: codes and tie-breaks bit for bit."""
+    parent = _replaced_hash_codes()
+    pos, _, _, _ = dti_like_pointcloud(142541, 1, 1, neighbors="none", seed=0)
+    gen = torch.Generator().manual_seed(3)
+    cases = [(pos, make_planes(3, 16, 16, 0).cuda()),
+             ((torch.rand(3001, 9, generator=gen) - 0.5).cuda(),
+              torch.randn(5, 9, 23, generator=gen).cuda())]
+    for x, planes in cases:
+        gc, gt = hash_codes(x, planes)
+        wc, wt = parent(x, planes)
+        assert torch.equal(gc, wc)
+        assert torch.equal(gt.view(torch.int32), wt.view(torch.int32))
+
+
+def test_random_stream_card_equals_cpu():
+    """Raw Philox words on 2²⁰ random counters under 16 random keys (a
+    quarter of the words within 3 of 2³² − 1), the filter's draws and a
+    k-means++ Gumbel block: the card's bits are the CPU's."""
+    rng = np.random.default_rng(21)
+    for _ in range(16):
+        key = tuple(int(v) for v in rng.integers(0, 1 << 32, 2))
+        ctr = rng.integers(0, 1 << 32, (4, 1 << 16), dtype=np.int64)
+        near = rng.random(ctr.shape) < 0.25
+        ctr[near] = 0xFFFFFFFF - rng.integers(0, 4, int(near.sum()))
+        c = torch.from_numpy(ctr)
+        assert torch.equal(_random.philox4x32(c.cuda(), key).cpu(), _random.philox4x32(c, key))
+    card = tch.draw_signals(torch.Generator().manual_seed(7), 20011, 8, 508, "cuda")
+    cpu = tch.draw_signals(torch.Generator().manual_seed(7), 20011, 8, 508, "cpu")
+    torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=1e-6, atol=2e-6)
+    assert torch.equal(card[1].cpu(), cpu[1]) and torch.equal(card[2].cpu(), cpu[2])
+    key = (31337, 4242)
+    assert torch.equal(_random.uniform(key, 1, (64, 20011), "cuda").cpu(),
+                       _random.uniform(key, 1, (64, 20011), "cpu"))
+    torch.testing.assert_close(_random.gumbel(key, 1, (64, 20011), "cuda").cpu(),
+                               _random.gumbel(key, 1, (64, 20011), "cpu"), rtol=1e-6, atol=2e-6)
+    x = torch.randn(3000, 5, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(tkm.random_init(x.cuda(), 40, torch.Generator().manual_seed(2)).cpu(),
+                       tkm.random_init(x, 40, torch.Generator().manual_seed(2)))
 
 
 def test_scalable_path_card_matches_cpu():

@@ -143,17 +143,24 @@ _COARSEN = ("prepare", "coarsen", "embed", "refine", "cluster")
     (dict(stages=_COARSEN), "refine stage.*A8", ("prepare", "coarsen", "embed")),
     (dict(plan=tsp.Plan(device="sharded")), "A12", ()),
     (dict(stages=("prepare", "sparsify", "embed", "cluster")), "A8", ()),
+    (dict(run=dict(checkpoint_dir="ckpt")), "checkpoint.*A9", ()),
+    (dict(run=dict(resume_from="ckpt")), "checkpoint.*A9", ()),
+    (dict(run=dict(checkpoint_dir="ckpt")), "checkpoint.*A9", ("prepare",)),
 ])
 def test_unported_features_raise(kw, item, done):
     """Each unported feature raises naming its ROADMAP item; ``done`` marks
-    stages as already run, to reach the refine stage past coarsen."""
+    stages as already run, to reach the refine stage past coarsen.  ``run``
+    holds keywords of ``run``/``run_stages`` (the checkpoint arguments take
+    the reference's names and raise, not ``TypeError``)."""
     x = np.random.default_rng(0).normal(size=(60, 3)).astype(np.float32)
-    pipe = tsp.SpectralPipeline(n_clusters=2, **kw)
+    run_kw = kw.get("run", {})
+    pipe = tsp.SpectralPipeline(n_clusters=2, **{k: v for k, v in kw.items() if k != "run"})
     with pytest.raises(NotImplementedError, match=item):
         if done:
-            pipe.run_stages(tsp.PipelineState(provenance=done, device=torch.device(CPU)))
+            pipe.run_stages(tsp.PipelineState(provenance=done, device=torch.device(CPU)),
+                            **run_kw)
         else:
-            pipe.run(x, _gen(), device=CPU)
+            pipe.run(x, _gen(), device=CPU, **run_kw)
 
 
 def test_label_metric_matches_reference():
