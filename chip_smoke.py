@@ -3,15 +3,20 @@ versions.
 
     python3 chip_smoke.py [--profile]
 
-Two paths of the DTI workflow (142,541 voxels, 90-d profiles, spatial kNN
-k = 16, cross-correlation weights, 500 clusters), both through
+Four paths of the DTI workflow (142,541 voxels, 90-d profiles, spatial kNN
+k = 16, cross-correlation weights, 500 clusters), all through
 ``SpectralPipeline.run_state``:
 
 * the first path — exact kNN graph → block Lanczos → fused k-means
   (kernels ``knn_topk``, ``ell_spmm``, ``kmeans_iter``);
 * the scalable path — LSH kNN graph → Chebyshev filter embedding →
   two-pass k-means (kernels ``hash_codes``, ``ell_spmv``,
-  ``ell_spmm_cheb``, ``kmeans_assign``, and ``ell_spmm``).
+  ``ell_spmm_cheb``, ``kmeans_assign``, and ``ell_spmm``);
+* the sparsify path — the first path with the graph sparsified to 40 % of
+  its entries before the eigensolve;
+* the coarsen path — the scalable path on the graph coarsened by one level
+  of heavy-edge matching, the embedding lifted back and refined on the
+  fine graph (``ell_spmm`` at b = 500 on 142,541 rows).
 
 Phases (any failure raises, so the script exits non-zero and prints no
 result line):
@@ -29,10 +34,21 @@ result line):
    ``ell_spmm_cheb``), the time of a PyTorch library call computing the same
    function where one exists, and the least time the card could take
    (``bound_ms``);
+   guard — the Stage-1 input guard ``health.check_points`` on the full
+   points: its time, no device → host copy above 1 KB, and its verdicts
+   equal to a host version's (full points, one NaN, duplicate rows);
+   blockell — both full graphs' BlockELL layouts built on the card,
+   bitwise equal to a numpy build of the reference's layout, both timed,
+   and no host → device copy in ``SpectralPipeline.operator``;
 4. each path at full size, with every kernel's launch counter zeroed just
-   before and read just after; then each path's k-means kernel once more on
-   that path's final embedding against its plain version (differing labels
-   must be float64 near-ties), and the labels to ``chiprun_out/``;
+   before and read just after, and every stage timed; then the first two
+   paths' k-means kernels once more on their final embeddings against
+   their plain versions (differing labels must be float64 near-ties), and
+   the labels to ``chiprun_out/``; the reduced paths held to their
+   unreduced paths (sizes, purity, ARI, eigenvalue drift);
+   resume — the first path stopped by a forced error after ``prepare``,
+   its checkpoint saved under ``build/``, resumed, held to the
+   uninterrupted run's labels;
 5. end to end at the example's default size (n = 4000, 12 clusters), each
    path: the card against the CPU from one seed.
 
@@ -46,6 +62,7 @@ table as JSON (each kernel's launches from its own path); the last line is
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import math
@@ -63,7 +80,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch.core.chebyshev as cheb  # noqa: E402
 from repro_torch import _random  # noqa: E402
+import repro_torch.core.health as health  # noqa: E402
 import repro_torch.core.kmeans as tkm  # noqa: E402
+import repro_torch.core.reduce as red  # noqa: E402
+from repro_torch.core.health import PipelineError  # noqa: E402
 from repro_torch.core.spectral import (EigConfig, GraphConfig, KMeansConfig,  # noqa: E402
                                        SpectralPipeline)
 from repro_torch.data.pointcloud import dti_like_pointcloud  # noqa: E402
@@ -327,6 +347,157 @@ def random_phase() -> dict:
     return dict(normal_err=normal_err, gumbel_err=gumbel_err, sketch_mean=balance,
                 h2d_copies={k: v[0] for k, v in copies.items()}, draw_signals_ms=signals_ms,
                 gumbel_rows_ms=gumbel_ms, kmeanspp_init_ms=seed_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 2c: the Stage-1 guard and the BlockELL build on the card
+# ---------------------------------------------------------------------------
+
+def d2h_copy_bytes(fn) -> list:
+    """Sizes in bytes of the device → host copies ``fn()`` makes, from the
+    memcpy records of ``torch.profiler``'s device trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = ROOT / "chiprun_out" / "d2h_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    check(all("bytes" in e.get("args", {}) for e in copies),
+          "the profiler's device → host copy records carry no byte counts")
+    return [int(e["args"]["bytes"]) for e in copies]
+
+
+def host_check_points(x, n_clusters: int):
+    """The reference's input guard (``src/repro/core/health.py``) in numpy on
+    a host copy of ``x``: the detail of the error it raises, or None."""
+    xnp = x.cpu().numpy()
+    bad = int(np.size(xnp) - np.isfinite(xnp).sum())
+    if bad:
+        return f"input points contain {bad} non-finite value(s)"
+    if xnp.shape[0] < n_clusters:
+        return f"n_clusters={n_clusters} exceeds the number of points n={xnp.shape[0]}"
+    distinct = np.unique(xnp, axis=0).shape[0]
+    if distinct < n_clusters:
+        return (f"n_clusters={n_clusters} exceeds the number of distinct points ({distinct} "
+                f"of {xnp.shape[0]} rows are unique)")
+    return None
+
+
+def guard_phase(prof) -> dict:
+    """``health.check_points`` on the full [n × 90] points: CUDA-event and
+    host-clock times, no device → host copy above 1 KB (the profiler must
+    see the 51 MB copy of the points that the host version makes), and its
+    verdicts equal to the host version's on the points, a copy with one NaN
+    and a copy of 300 distinct rows (signed zeros in the first column)."""
+    dev = prof.device
+    ms = cuda_ms(lambda: health.check_points(prof, K_FULL), iters=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    health.check_points(prof, K_FULL)
+    card_s = time.perf_counter() - t0
+    big = [b for b in d2h_copy_bytes(lambda: health.check_points(prof, K_FULL)) if b > 1024]
+    probe = sum(d2h_copy_bytes(lambda: prof.cpu()))
+    check(probe >= prof.numel() * 4, f"the profiler saw {probe} bytes of a 51 MB copy")
+    check(not big, f"check_points copied {big} bytes from the card to the host")
+    t0 = time.perf_counter()
+    host_check_points(prof, K_FULL)
+    host_s = time.perf_counter() - t0
+    nan = prof.clone()
+    nan[77, 5] = float("nan")
+    dup = prof[torch.arange(N_FULL, device=dev) % 300].clone()
+    dup[:, 0] = 0.0
+    dup[1::2, 0] = -0.0
+    verdicts = {}
+    for tag, x in (("points", prof), ("one NaN", nan), ("duplicate rows", dup)):
+        want = host_check_points(x, K_FULL)
+        try:
+            health.check_points(x, K_FULL)
+            got = None
+        except PipelineError as e:
+            got = e.detail
+        check(got == want, f"check_points on {tag}: {got!r}, the host version {want!r}")
+        verdicts[tag] = got
+    del nan, dup
+    log(f"[guard] check_points [{N_FULL} × {D_PROFILE}]: {ms:.2f} ms (events), {card_s:.4f} s "
+        f"host clock; host version (copy + np.isfinite + np.unique rows) {host_s:.3f} s; "
+        f"device→host copies above 1 KB: {len(big)} (the profiler saw the points' own copy: "
+        f"{probe} bytes); verdicts equal to the host version's: {verdicts}")
+    return dict(ms=ms, card_s=card_s, host_s=host_s, big_d2h=big, verdicts=verdicts)
+
+
+def host_blockell(adj, block_rows: int = 8, width_quantile: float = 0.95,
+                  lane_multiple: int = 8):
+    """The reference's BlockELL layout (``src/repro/sparse/formats.py``:
+    ``coo_to_csr`` then ``csr_to_blockell``) in numpy from a host copy of a
+    row-sorted COO: ``(width, cols, vals, (tail row, col, val))``."""
+    row, col, val = (a.cpu().numpy() for a in (adj.row, adj.col, adj.val))
+    n = adj.shape[0]
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(row, minlength=n), out=indptr[1:])
+    deg = np.diff(indptr)
+    q = int(np.quantile(deg, width_quantile)) if n else lane_multiple
+    width = max(lane_multiple, int(np.ceil(max(q, 1) / lane_multiple) * lane_multiple))
+    pad_rows = -(-n // block_rows) * block_rows
+    cols = np.zeros((pad_rows, width), np.int32)
+    vals = np.zeros((pad_rows, width), val.dtype)
+    nnz_row = np.repeat(np.arange(n, dtype=np.int64), deg)
+    slot = np.arange(col.size, dtype=np.int64) - np.repeat(indptr[:-1], deg)
+    body = slot < width
+    cols[nnz_row[body], slot[body]] = col[body]
+    vals[nnz_row[body], slot[body]] = val[body]
+    spill = ~body
+    if spill.any():
+        tail = (nnz_row[spill], col[spill].astype(np.int64), val[spill])
+    else:
+        tail = (np.zeros(1, np.int64), np.zeros(1, np.int64), np.zeros(1, val.dtype))
+    return width, cols, vals, tail
+
+
+def blockell_phase(pos, prof) -> dict:
+    """Both full graphs' BlockELL layouts: built on the card by
+    ``SpectralPipeline.operator`` and in numpy from a host copy (the
+    reference's host builder), held bitwise
+    (width, slots, tail); times of both (the numpy build with its upload);
+    host → device copies in ``operator`` (must be 0)."""
+    out = {}
+    for tag, make in (("first", main_pipeline), ("scalable", scalable_pipeline)):
+        pipe = make(K_FULL)
+        state = pipe.build_graph(prof, points=pos)
+        m = pipe.operator(state).a
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        width, cols, vals, tail = host_blockell(state.adj)
+        upload = (torch.from_numpy(cols).cuda(), torch.from_numpy(vals).cuda())
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        del upload
+        same = (m.width == width
+                and np.array_equal(m.cols.reshape(-1, m.width).cpu().numpy(), cols)
+                and np.array_equal(m.vals.reshape(-1, m.width).cpu().numpy(), vals)
+                and all(np.array_equal(a.cpu().numpy(), b)
+                        for a, b in zip((m.tail.row, m.tail.col, m.tail.val), tail)))
+        check(same, f"blockell ({tag} graph): the card's layout differs from the numpy build")
+        ms = cuda_ms(lambda: pipe.operator(state), iters=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.operator(state)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        copies, _ = h2d_copies(lambda: pipe.operator(state))
+        check(copies == 0, f"SpectralPipeline.operator copied {copies} tensors to the card")
+        log(f"[blockell] {tag} graph: nnz={state.adj.nnz} W={m.width} rows={m.cols.shape[0] * m.block_rows} "
+            f"tail={m.tail.nnz}: card build bitwise equal to the numpy build; card "
+            f"{ms:.2f} ms (events), {card_s:.4f} s host clock; numpy build + upload "
+            f"{host_s:.3f} s; host→device copies in operator: {copies}")
+        out[tag] = dict(nnz=state.adj.nnz, width=m.width, tail=m.tail.nnz, ms=ms,
+                        card_s=card_s, host_s=host_s, h2d_copies=copies)
+        del state, m
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -932,25 +1103,75 @@ def scalable_pipeline(n_clusters: int) -> SpectralPipeline:
         kmeans=KMeansConfig(iter="two_pass"))
 
 
+def sparsify_pipeline(n_clusters: int) -> SpectralPipeline:
+    """The first path with the sparsify stage: 40 % of the graph's entries."""
+    return dataclasses.replace(main_pipeline(n_clusters),
+                               stages=("prepare", "sparsify", "embed", "cluster"),
+                               sparsify=red.SparsifyConfig(target_nnz_ratio=0.4))
+
+
+def coarsen_pipeline(n_clusters: int) -> SpectralPipeline:
+    """The scalable path with coarsen and refine: one level of heavy-edge
+    matching (2 rounds), 2 smoothing products on the fine graph."""
+    return dataclasses.replace(scalable_pipeline(n_clusters),
+                               stages=("prepare", "coarsen", "embed", "refine", "cluster"),
+                               coarsen=red.CoarsenConfig())
+
+
+STAGES = ("prepare", "sparsify", "coarsen", "embed", "refine", "cluster")
+
+
+class StageClock:
+    """Times every stage of the pipelines run inside it (host clock between
+    synchronisations) and keeps the output state of the stages in ``keep``."""
+
+    def __init__(self, keep=()):
+        self.walls, self.states, self.keep = {}, {}, keep
+
+    def __enter__(self):
+        self.saved = {name: getattr(SpectralPipeline, f"_stage_{name}") for name in STAGES}
+        for name, fn in self.saved.items():
+            def timed(pipe, st, _fn=fn, _name=name):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(pipe, st)
+                torch.cuda.synchronize()
+                self.walls[_name] = time.perf_counter() - t0
+                if _name in self.keep:
+                    self.states[_name] = out
+                return out
+
+            setattr(SpectralPipeline, f"_stage_{name}", timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(SpectralPipeline, f"_stage_{name}", fn)
+
+
 COUNTERS = (("knn_topk", knn_ops.knn_topk), ("ell_spmm", ell_ops.ell_spmm),
             ("kmeans_iter", km_ops.kmeans_iter), ("ell_spmv", spmv_ops.ell_spmv),
             ("ell_spmm_cheb", ell_ops.ell_spmm_cheb_step),
             ("kmeans_assign", ka_ops.kmeans_assign), ("hash_codes", lsh_ops.hash_codes))
 MAIN_KERNELS = ("knn_topk", "ell_spmm", "kmeans_iter")
 SCALABLE_KERNELS = ("hash_codes", "ell_spmv", "ell_spmm_cheb", "kmeans_assign")
+COARSEN_KERNELS = ("hash_codes", "ell_spmv", "ell_spmm", "ell_spmm_cheb", "kmeans_assign")
 
 
-def drive(pipe, pos, prof, region, tag: str, kernels):
+def drive(pipe, pos, prof, region, tag: str, kernels, keep=()):
     """One full-size run of ``pipe`` with every launch counter zeroed just
-    before and read just after; fails unless each of ``kernels`` launched
-    and the outputs are finite and in range."""
+    before and read just after and every stage timed; fails unless each of
+    ``kernels`` launched and the outputs are finite and in range.  Returns
+    the result, the record and the stage clock (with the output states of
+    the stages in ``keep``)."""
     for _, fn in COUNTERS:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    state = pipe.run_state(prof, torch.Generator().manual_seed(0), points=pos)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with StageClock(keep) as clock:
+        t0 = time.perf_counter()
+        state = pipe.run_state(prof, torch.Generator().manual_seed(0), points=pos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {name: fn.launches for name, fn in COUNTERS}
     res = state.result
@@ -969,17 +1190,19 @@ def drive(pipe, pos, prof, region, tag: str, kernels):
     live = int(np.unique(labels).size)
     pur = purity(labels, region)
     log(f"[{tag}] n={N_FULL} clusters={K_FULL}: points→labels {wall:.2f} s; stages "
-        + ", ".join(f"{r['stage']} {r['wall_s']:.2f} s" for r in reports))
+        + ", ".join(f"{name} {t:.3f} s" for name, t in clock.walls.items())
+        + f"; provenance {state.provenance}")
     log(f"[{tag}] kmeans iterations={res.kmeans_iterations} non-empty={live}/{K_FULL} "
         f"purity={pur:.4f} cluster escalations={reports[2]['escalations']}")
     log(f"[{tag}] launches {launches}; peak device memory allocated {peak_gb:.3f} GB")
-    return res, dict(wall_s=wall, peak_gb=peak_gb, reports=reports,
+    return res, dict(wall_s=wall, peak_gb=peak_gb, reports=reports, stage_walls=clock.walls,
                      kmeans_iterations=res.kmeans_iterations, non_empty=live, purity=pur,
-                     launches=launches, eig_min=float(ev.min()), eig_max=float(ev.max()))
+                     launches=launches, eig_min=float(ev.min()), eig_max=float(ev.max()),
+                     reductions=[i._asdict() for i in state.reductions]), clock
 
 
 def main_path(pos, prof, region):
-    res, rec = drive(main_pipeline(K_FULL), pos, prof, region, "main", MAIN_KERNELS)
+    res, rec, _ = drive(main_pipeline(K_FULL), pos, prof, region, "main", MAIN_KERNELS)
     emb = rec["reports"][1]
     log(f"[main] lanczos restarts={res.lanczos_restarts} converged={emb['converged']} "
         f"residual_max={emb['residual_max']:.3e} attempts={emb['attempts']} "
@@ -1018,12 +1241,12 @@ class CutSpy:
         return 1.0 - (a * (hi - lo) + (hi + lo)) / 2.0
 
 
-def scalable_path(pos, prof, region, exact, first) -> dict:
+def scalable_path(pos, prof, region, exact, first):
     """The scalable path at full size, then LSH recall@16 against the exact
     kNN of the lattice and agreement with the first path's labels."""
     pipe = scalable_pipeline(K_FULL)
     with CutSpy() as spy:
-        res, rec = drive(pipe, pos, prof, region, "scalable", SCALABLE_KERNELS)
+        res, rec, _ = drive(pipe, pos, prof, region, "scalable", SCALABLE_KERNELS)
     rec["assign_on_embedding"] = assign_on_embedding(res.embedding, res.labels)
     np.save(ROOT / "chiprun_out" / "scalable_labels.npy", res.labels.cpu().numpy())
     emb = rec["reports"][1]
@@ -1049,7 +1272,94 @@ def scalable_path(pos, prof, region, exact, first) -> dict:
         f"ARI between the two paths' labels {ari:.4f}")
     rec.update(lambda_cut=lam_cut, fell_back_to_lanczos=fell_back, recall_ids=recall_ids,
                recall_dist=recall_dist, ari_vs_first=ari)
+    return res, rec
+
+
+def reduced_path(tag, pipe, kernels, pos, prof, region, base) -> dict:
+    """A reduced path at full width against its unreduced path ``base``
+    (result, record) from this run: sizes before and after, purity (gate:
+    no worse than the base's less 0.02), ARI of the labels and top-k
+    eigenvalue drift against the base's.  sparsify must keep exactly
+    2·target_upper_count(nnz, ratio) entries; coarsen must leave at most
+    0.95·n nodes and a prolongation that is a partition onto [0, n_after)."""
+    res, rec, clock = drive(pipe, pos, prof, region, tag, kernels, keep=("coarsen",))
+    base_res, base_rec = base
+    info = rec["reductions"][0]
+    if info["kind"] == "sparsify":
+        want = 2 * red.target_upper_count(info["nnz_before"], pipe.sparsify.target_nnz_ratio)
+        check(info["nnz_after"] == want,
+              f"{tag}: kept {info['nnz_after']} entries, not 2·target_upper_count = {want}")
+    else:
+        n_after = info["n_after"]
+        check(n_after <= 0.95 * info["n_before"], f"{tag}: {n_after} nodes left of {N_FULL}")
+        prolong = clock.states["coarsen"].reduction.prolong
+        sizes = torch.bincount(prolong, minlength=n_after)
+        check(prolong.shape == (N_FULL,) and int(prolong.min()) == 0
+              and int(prolong.max()) == n_after - 1 and bool((sizes > 0).all()),
+              f"{tag}: the prolongation is not a partition onto [0, {n_after})")
+        rec["coarse_sizes"] = torch.bincount(sizes).tolist()
+    ari = adjusted_rand_index(res.labels, base_res.labels)
+    drift = red.topk_eigenvalue_drift(base_res.eigenvalues, res.eigenvalues, K_FULL)
+    emb = rec["reports"][1]
+    log(f"[{tag}] {info['kind']}: n {info['n_before']}→{info['n_after']}, nnz "
+        f"{info['nnz_before']}→{info['nnz_after']}; purity {rec['purity']:.4f} (unreduced "
+        f"{base_rec['purity']:.4f}); ARI against the unreduced path's labels {ari:.4f}; top-"
+        f"{K_FULL} eigenvalue drift {drift:.4e}; embed attempts={emb['attempts']} "
+        f"escalations={emb['escalations']} residual_max={emb['residual_max']:.3e}"
+        + (f"; coarse node sizes (count of coarse nodes of each size) {rec['coarse_sizes']}"
+           if "coarse_sizes" in rec else ""))
+    check(rec["purity"] >= base_rec["purity"] - 0.02,
+          f"{tag}: purity {rec['purity']:.4f} below the unreduced path's "
+          f"{base_rec['purity']:.4f} less 0.02")
+    rec.update(ari_vs_unreduced=ari, eig_drift=drift)
     return rec
+
+
+def resume_phase(pos, prof, first_res) -> dict:
+    """The first path at full width, stopped after ``prepare`` by a forced
+    ``PipelineError`` in ``embed``: ``run_stages`` saves the completed
+    prefix (``state_io.save_state``) under ``build/``; ``run(resume_from=)``
+    loads it onto the card (``load_state``) and runs embed and cluster.
+    Gate: labels ARI ≥ 0.99 against the uninterrupted run of this script
+    (the fused k-means epilogue's atomic adds keep the two from being
+    bitwise equal)."""
+    import shutil
+
+    pipe = main_pipeline(K_FULL)
+    ckpt = ROOT / "build" / "resume_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    embed = SpectralPipeline._stage_embed
+
+    def fail(self, st):
+        raise PipelineError("embed", "forced failure (chip_smoke resume phase)")
+
+    SpectralPipeline._stage_embed = fail
+    t0 = time.perf_counter()
+    try:
+        pipe.run_state(prof, torch.Generator().manual_seed(0), points=pos,
+                       checkpoint_dir=str(ckpt))
+        raise SmokeFailure("resume: the forced failure did not raise")
+    except PipelineError as e:
+        check(getattr(e, "checkpoint", None) == str(ckpt), "resume: no checkpoint saved")
+    finally:
+        SpectralPipeline._stage_embed = embed
+    saved_s = time.perf_counter() - t0
+    size_mb = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file()) / 1e6
+    t0 = time.perf_counter()
+    state = pipe.run_state(resume_from=str(ckpt))
+    torch.cuda.synchronize()
+    resumed_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    labels = state.result.labels
+    check(labels.device.type == "cuda", "resume: the resumed run left the card")
+    ari = adjusted_rand_index(labels, first_res.labels)
+    same = bool(torch.equal(labels, first_res.labels))
+    log(f"[resume] first path: prepare + checkpoint {saved_s:.2f} s ({size_mb:.1f} MB under "
+        f"build/); resume (load + embed + cluster) {resumed_s:.2f} s; provenance "
+        f"{state.provenance}; ARI against the uninterrupted run {ari:.4f}; labels bitwise "
+        f"equal: {same}")
+    check(ari >= 0.99, f"resume: ARI {ari:.4f} < 0.99 against the uninterrupted run")
+    return dict(saved_s=saved_s, size_mb=size_mb, resumed_s=resumed_s, ari=ari, bitwise=same)
 
 
 def end_to_end(make_pipe, tag: str, ev_tol: float) -> dict:
@@ -1140,6 +1450,8 @@ def main() -> int:
     pos, prof, _, region = dti_like_pointcloud(N_FULL, D_PROFILE, N_REGIONS, eps=1.8,
                                                seed=0, neighbors="none")
     random_rec = random_phase()
+    guard_rec = guard_phase(prof)
+    blockell_rec = blockell_phase(pos, prof)
     knn_rec, exact = knn_phase()
     kernels = [knn_rec, kmeans_phase(), ell_phase(pos, prof)]
     spipe = scalable_pipeline(K_FULL)
@@ -1151,9 +1463,16 @@ def main() -> int:
     t_main = time.perf_counter()
     first = main_path(pos, prof, region)
     t_scal = time.perf_counter()
-    scal_rec = scalable_path(pos, prof, region, exact, first)
-    main_rec = first[1]
-    del first
+    scalable = scalable_path(pos, prof, region, exact, first)
+    t_red = time.perf_counter()
+    reduced = dict(
+        sparsify=reduced_path("sparsify", sparsify_pipeline(K_FULL), MAIN_KERNELS, pos, prof,
+                              region, first),
+        coarsen=reduced_path("coarsen", coarsen_pipeline(K_FULL), COARSEN_KERNELS, pos, prof,
+                             region, scalable))
+    resume_rec = resume_phase(pos, prof, first[0])
+    main_rec, scal_rec = first[1], scalable[1]
+    del first, scalable
     t_e2e = time.perf_counter()
     # eigenvalue gates, 1e-4 on both paths: Lanczos on both devices converges
     # to tol 1e-4 (card and CPU agree to ~1e-7 once the projected eigh is
@@ -1163,22 +1482,25 @@ def main() -> int:
     # recurrence steps (2.4e-7 on an H100) — a hash bit flipped by a projection
     # within rounding of 0 would move LSH edges and show here
     e2e = dict(main=end_to_end(main_pipeline, "e2e", 1e-4),
-               scalable=end_to_end(scalable_pipeline, "e2e-scalable", 1e-4))
+               scalable=end_to_end(scalable_pipeline, "e2e-scalable", 1e-4),
+               sparsify=end_to_end(sparsify_pipeline, "e2e-sparsify", 1e-4),
+               coarsen=end_to_end(coarsen_pipeline, "e2e-coarsen", 1e-4))
     t_done = time.perf_counter()
     profiled = None
     if "--profile" in sys.argv[1:]:
-        profiled = dict(main=profile_path(main_pipeline(K_FULL), pos, prof, "main"),
-                        scalable=profile_path(scalable_pipeline(K_FULL), pos, prof, "scalable"))
+        profiled = {tag: profile_path(make(K_FULL), pos, prof, tag) for tag, make in (
+            ("main", main_pipeline), ("scalable", scalable_pipeline),
+            ("sparsify", sparsify_pipeline), ("coarsen", coarsen_pipeline))}
     for kern in kernels:  # each kernel's launches on its own path
         rec = main_rec if kern["name"] in MAIN_KERNELS else scal_rec
         kern["launches"] = rec["launches"][kern["name"]]
     summary = dict(device=smi, torch=torch.__version__, cuda=torch.version.cuda,
-                   build_s=build_s, random=random_rec, kernels=kernels, main=main_rec,
-                   scalable=scal_rec,
-                   e2e=e2e, profile=profiled,
+                   build_s=build_s, random=random_rec, guard=guard_rec, blockell=blockell_rec,
+                   kernels=kernels, main=main_rec, scalable=scal_rec, reduced=reduced,
+                   resume=resume_rec, e2e=e2e, profile=profiled,
                    phase_s=dict(kernels=t_main - t_start, main=t_scal - t_main,
-                                scalable=t_e2e - t_scal, e2e=t_done - t_e2e,
-                                total=time.perf_counter() - t_start))
+                                scalable=t_red - t_scal, reduced_and_resume=t_e2e - t_red,
+                                e2e=t_done - t_e2e, total=time.perf_counter() - t_start))
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     log(f"[done] {summary['phase_s']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

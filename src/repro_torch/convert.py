@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.core.reduce import ReduceInfo, ReductionState
 from repro_torch.core.spectral import EmbedState, GraphState, SpectralPipeline
 from repro_torch.sparse.formats import COO, CSR, BlockELL
 
@@ -54,6 +55,22 @@ def graph_state(g: Any, *, device: DeviceLike = None) -> GraphState:
     dev = resolve_device(device)
     return GraphState(adj=coo(g.adj, device=dev), deg=_t(g.deg, dev),
                       inv_sqrt_deg=_t(g.inv_sqrt_deg, dev))
+
+
+def reduce_info(i: Any) -> ReduceInfo:
+    """A reference ``ReduceInfo`` (kind, n_before, n_after, nnz_before,
+    nnz_after)."""
+    return ReduceInfo(kind=str(i.kind), n_before=int(i.n_before), n_after=int(i.n_after),
+                      nnz_before=int(i.nnz_before), nnz_after=int(i.nnz_after))
+
+
+def reduction_state(r: Any, *, device: DeviceLike = None) -> ReductionState:
+    """A reference ``ReductionState`` (fine_graph, prolong, info): the coarsen
+    stage's hand-off to refine."""
+    dev = resolve_device(device)
+    prolong = None if r.prolong is None else _t(r.prolong, dev, torch.int64)
+    return ReductionState(fine_graph=graph_state(r.fine_graph, device=dev), prolong=prolong,
+                          info=reduce_info(r.info))
 
 
 def embed_state(e: Any, *, device: DeviceLike = None) -> EmbedState:

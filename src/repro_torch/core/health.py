@@ -11,7 +11,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional, Tuple
 
-import numpy as np
 import torch
 
 
@@ -118,25 +117,27 @@ def embedding_signals(h: torch.Tensor, residuals: torch.Tensor) -> dict:
 
 
 def check_points(x: torch.Tensor, n_clusters: int) -> None:
-    """Stage-1 input guard: finite features and ``k <= #distinct points``."""
-    xnp = x.detach().cpu().numpy()
-    bad = int(np.size(xnp) - np.isfinite(xnp).sum())
+    """Stage-1 input guard: finite features and ``k <= #distinct points``.
+    Counts on the points' device and reads back only the counts."""
+    bad = nonfinite_count(x)
     if bad:
         raise PipelineError(
             "prepare", f"input points contain {bad} non-finite value(s)",
             remedy="sanitize the feature matrix (impute or drop rows) before "
                    "clustering — NaN propagates through kNN distances into "
                    "every downstream stage")
-    if xnp.shape[0] < n_clusters:
+    n = x.shape[0]
+    if n < n_clusters:
         raise PipelineError(
             "prepare", f"n_clusters={n_clusters} exceeds the number of "
-                       f"points n={xnp.shape[0]}",
+                       f"points n={n}",
             remedy="reduce n_clusters")
-    distinct = np.unique(xnp, axis=0).shape[0]
+    # + 0.0 turns -0.0 into 0.0: np.unique(axis=0) counts the two as one row
+    distinct = torch.unique((x + 0.0).reshape(n, -1), dim=0).shape[0]
     if distinct < n_clusters:
         raise PipelineError(
             "prepare", f"n_clusters={n_clusters} exceeds the number of "
-                       f"distinct points ({distinct} of {xnp.shape[0]} rows "
+                       f"distinct points ({distinct} of {n} rows "
                        f"are unique)",
             remedy="deduplicate the input or reduce n_clusters — at most "
                    "one live cluster per distinct point exists")

@@ -14,9 +14,10 @@ order.  Every entry point takes ``device=``: the card unless the caller asks
 for the CPU, raising when there is none.  ``Plan.device`` keeps the
 reference's meaning ("single" | "sharded") so the reference's JSON loads.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``Plan(device="sharded")`` (A12), the sparsify/coarsen/refine stages
-(A8), checkpointing (A9).
+Stages ``("prepare", "sparsify", "coarsen", "embed", "refine",
+"cluster")`` as in the reference, with checkpoint-on-error and resume
+(:mod:`repro_torch.core.state_io`).  Not ported yet: ``Plan(device="sharded")``,
+which raises ``NotImplementedError`` naming ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -31,10 +32,11 @@ import repro_torch.core.health as health
 import repro_torch.core.kmeans as km
 import repro_torch.core.lanczos as lz
 import repro_torch.core.laplacian as lap
+import repro_torch.core.reduce as red
 from repro_torch._device import DeviceLike, cpu_generator, fold_in, resolve_device
 from repro_torch.core.health import HealthConfig, PipelineError, StageReport
 from repro_torch.core.operator import BlockEllOperator, CooOperator, LinearOperator
-from repro_torch.core.reduce import CoarsenConfig, SparsifyConfig
+from repro_torch.core.reduce import CoarsenConfig, ReduceInfo, ReductionState, SparsifyConfig
 from repro_torch.core.similarity import build_knn_graph
 from repro_torch.kernels.lsh_candidates.ops import (DEFAULT_N_BITS, DEFAULT_N_TABLES,
                                                     MAX_N_BITS)
@@ -260,9 +262,10 @@ class EmbedState(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class PipelineState:
     """The typed value the stage DAG threads; each stage fills the slots it
-    owns and appends to ``provenance``.  ``gen_embed``/``gen_cluster`` are
-    the per-stage CPU generators ``run`` derives; ``device`` is where the
-    stages run."""
+    owns and appends to ``provenance``.  ``reduction`` is the coarsen →
+    refine hand-off and ``reductions`` every reduction's numbers;
+    ``gen_embed``/``gen_cluster`` are the per-stage CPU generators ``run``
+    derives; ``device`` is where the stages run."""
 
     points: Optional[torch.Tensor] = None
     search_points: Optional[torch.Tensor] = None
@@ -270,6 +273,8 @@ class PipelineState:
     graph: Optional[GraphState] = None
     embedding: Optional[EmbedState] = None
     result: Optional[SpectralResult] = None
+    reduction: Optional[ReductionState] = None
+    reductions: Tuple[ReduceInfo, ...] = ()
     gen_embed: Optional[torch.Generator] = None
     gen_cluster: Optional[torch.Generator] = None
     operator_override: Optional[LinearOperator] = None
@@ -289,6 +294,20 @@ def _stage_done(name: str, provenance: Tuple[str, ...]) -> bool:
 
 def _as_points(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(x).to(dev)
+
+
+def _raw_weights(state: GraphState) -> COO:
+    """The raw similarity weights of a Stage-1 state, ``W = D^{1/2} A_sym
+    D^{1/2}`` entrywise: the reduction stages resample or merge raw weights
+    and normalize the reduced graph again through :meth:`SpectralPipeline.prepare`."""
+    sq = torch.sqrt(torch.clamp(state.deg.float(), min=0.0))
+    adj = state.adj
+    # one product of the two scales, as in normalize_sym: the two
+    # orientations of an edge keep one value, so the sparsifier's backbone
+    # test (an exact comparison with the other endpoint's row maximum) is not
+    # decided by rounding
+    val = adj.val.float() * (sq[adj.row] * sq[adj.col])
+    return COO(row=adj.row, col=adj.col, val=val, shape=adj.shape, sorted_rows=adj.sorted_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -382,8 +401,8 @@ class SpectralPipeline:
 
     def operator(self, state: GraphState) -> LinearOperator:
         """The Stage-2 operator for this graph: the COO index-add operator,
-        or with ``eig.representation="blockell"`` a BlockELL(+tail) built
-        host-side, whose products are the ``ell_spmv``/``ell_spmm``
+        or with ``eig.representation="blockell"`` a BlockELL(+tail) built on
+        the graph's device, whose products are the ``ell_spmv``/``ell_spmm``
         kernels."""
         self._check_plan()
         if self.eig.representation == "blockell":
@@ -497,13 +516,52 @@ class SpectralPipeline:
                                    provenance=st.provenance + ("prepare",))
 
     def _stage_sparsify(self, st: PipelineState) -> PipelineState:
-        raise NotImplementedError("the sparsify stage is not ported yet — ROADMAP A8")
+        if st.graph is None:
+            raise ValueError("sparsify runs after prepare (no graph in state)")
+        w = _raw_weights(st.graph)
+        ws = red.sparsify_coo(w, self.sparsify)
+        g = self.prepare(ws, device=st.device)
+        info = ReduceInfo(kind="sparsify", n_before=w.shape[0], n_after=w.shape[0],
+                          nnz_before=w.nnz, nnz_after=ws.nnz)
+        return dataclasses.replace(
+            st, graph=g, reductions=st.reductions + (info,),
+            provenance=st.provenance + (f"sparsify[nnz {info.nnz_before}→{info.nnz_after}]",))
 
     def _stage_coarsen(self, st: PipelineState) -> PipelineState:
-        raise NotImplementedError("the coarsen stage is not ported yet — ROADMAP A8")
+        if st.graph is None:
+            raise ValueError("coarsen runs after prepare (no graph in state)")
+        w = _raw_weights(st.graph)
+        wc, prolong = red.coarsen_coo(w, self.coarsen)
+        info = ReduceInfo(kind="coarsen", n_before=w.shape[0], n_after=wc.shape[0],
+                          nnz_before=w.nnz, nnz_after=wc.nnz)
+        g = self.prepare(wc, device=st.device)
+        reduction = ReductionState(fine_graph=st.graph, prolong=prolong, info=info)
+        return dataclasses.replace(
+            st, graph=g, reduction=reduction, reductions=st.reductions + (info,),
+            provenance=st.provenance + (f"coarsen[n {info.n_before}→{info.n_after}]",))
 
     def _stage_refine(self, st: PipelineState) -> PipelineState:
-        raise NotImplementedError("the refine stage is not ported yet — ROADMAP A8")
+        if st.reduction is None or st.reduction.prolong is None:
+            raise ValueError(
+                "refine needs the coarsen stage's ReductionState (prolong map) in the "
+                "PipelineState — stage order is prepare → coarsen → embed → refine → cluster")
+        if st.embedding is None:
+            raise ValueError("refine runs after embed (no embedding in state)")
+        fine = st.reduction.fine_graph
+        # lift through the partition prolongation, smooth on the fine
+        # operator, map to NJW rows with the fine degrees
+        u0 = st.embedding.embedding[st.reduction.prolong]
+        u, theta, resid = red.lift_and_smooth(self.operator(fine), u0,
+                                              steps=self.coarsen.refine_steps)
+        emb = EmbedState(
+            embedding=lap.embed_rows(u, fine.inv_sqrt_deg),
+            eigenvalues=lap.smallest_laplacian_eigs_from_adj(theta),
+            residuals=resid,
+            restarts=st.embedding.restarts,
+            converged=st.embedding.converged,
+        )
+        return dataclasses.replace(st, graph=fine, embedding=emb, reduction=None,
+                                   provenance=st.provenance + ("refine",))
 
     def _embed_failure(self, emb: EmbedState, ecfg: EigConfig) -> Optional[str]:
         """``None`` (healthy), ``"cheb_diverged"`` (the polynomial filter
@@ -629,44 +687,69 @@ class SpectralPipeline:
                                    reports=reports,
                                    provenance=st.provenance + ("cluster",))
 
-    def run_stages(self, state: PipelineState, *, checkpoint_dir: Optional[str] = None,
-                   resume_from: Optional[str] = None) -> PipelineState:
+    def run_stages(self, state: PipelineState, *,
+                   checkpoint_dir: Optional[str] = None) -> PipelineState:
         """Execute the configured stage DAG over a :class:`PipelineState`;
-        stages already in ``state.provenance`` are skipped.  Checkpointing
-        (``checkpoint_dir``, ``resume_from``) is not ported yet."""
-        _no_checkpoints(checkpoint_dir, resume_from)
+        stages already in ``state.provenance`` are skipped — the whole resume
+        mechanism.  With ``checkpoint_dir`` set, a :class:`PipelineError`
+        first saves the completed-stage prefix there
+        (:func:`repro_torch.core.state_io.save_state`) and gains a
+        ``checkpoint`` attribute naming the directory."""
         if state.device is None:
             state = dataclasses.replace(state, device=resolve_device(None))
         for name in self.stages:
             if _stage_done(name, state.provenance):
                 continue
-            state = getattr(self, f"_stage_{name}")(state)
+            try:
+                state = getattr(self, f"_stage_{name}")(state)
+            except PipelineError as e:
+                if checkpoint_dir is not None:
+                    from repro_torch.core import state_io
+
+                    e.checkpoint = state_io.save_state(checkpoint_dir, state, self)
+                    note = (f"completed-stage prefix saved to {checkpoint_dir!r} — fix "
+                            f"the config and run(resume_from=...)")
+                    e.remedy = (e.remedy + "; " if e.remedy else "") + note
+                    e.args = (f"{e.args[0]}; {note}",) if e.args else (note,)
+                raise
         return state
 
     # -- end to end ---------------------------------------------------------
 
-    def run(self, data, generator: Optional[torch.Generator] = None, *,
+    def run(self, data=None, generator: Optional[torch.Generator] = None, *,
             points=None, operator: Optional[LinearOperator] = None,
             checkpoint_dir: Optional[str] = None, resume_from: Optional[str] = None,
             device: DeviceLike = None) -> SpectralResult:
         """Points/graph in, labels out — the whole stage DAG under one call.
         ``data`` is raw points ([n, d] tensor or array → Stage 1 runs) or a
         COO similarity graph; ``generator`` is a CPU ``torch.Generator``.
-        ``checkpoint_dir`` and ``resume_from`` take the reference's places
-        and raise until checkpointing is ported (ROADMAP A9)."""
+        ``checkpoint_dir`` saves the completed-stage prefix when a stage
+        raises :class:`PipelineError`; ``resume_from`` loads such a prefix
+        onto ``device`` in place of ``data``/``generator``/``points`` (pass
+        none of them) and runs the stages that are left."""
         return self.run_state(data, generator, points=points, operator=operator,
                               checkpoint_dir=checkpoint_dir, resume_from=resume_from,
                               device=device).result
 
-    def run_state(self, data, generator: Optional[torch.Generator] = None, *,
+    def run_state(self, data=None, generator: Optional[torch.Generator] = None, *,
                   points=None, operator: Optional[LinearOperator] = None,
                   checkpoint_dir: Optional[str] = None, resume_from: Optional[str] = None,
                   device: DeviceLike = None) -> PipelineState:
         """:meth:`run`, returning the final :class:`PipelineState`."""
-        _no_checkpoints(checkpoint_dir, resume_from)
         dev = resolve_device(device)
+        if resume_from is not None:
+            if data is not None or generator is not None or points is not None:
+                raise ValueError(
+                    "run(resume_from=...) restores points/graph/generators from the "
+                    "checkpoint — don't pass data/generator/points alongside")
+            from repro_torch.core import state_io
+
+            state, _ = state_io.load_state(resume_from, self, device=dev)
+            if operator is not None:
+                state = dataclasses.replace(state, operator_override=operator)
+            return self.run_stages(state, checkpoint_dir=checkpoint_dir)
         if data is None:
-            raise ValueError("run needs data (points or a COO graph)")
+            raise ValueError("run needs data (points or a COO graph) — or resume_from=")
         if isinstance(data, COO):
             if points is not None:
                 raise ValueError(
@@ -687,7 +770,7 @@ class SpectralPipeline:
         state = dataclasses.replace(
             state, gen_embed=cpu_generator(seeds[1]), gen_cluster=cpu_generator(seeds[2]),
             operator_override=operator, device=dev)
-        return self.run_stages(state)
+        return self.run_stages(state, checkpoint_dir=checkpoint_dir)
 
     # -- serialization ------------------------------------------------------
 
@@ -719,12 +802,6 @@ class SpectralPipeline:
             coarsen=CoarsenConfig(**d.get("coarsen", {})),
             health=HealthConfig(**d.get("health", {})),
         )
-
-
-def _no_checkpoints(checkpoint_dir, resume_from) -> None:
-    if checkpoint_dir is not None or resume_from is not None:
-        raise NotImplementedError(
-            "checkpointing (checkpoint_dir=, resume_from=) is not ported yet — ROADMAP A9")
 
 
 def _wall(t0: float, device: Optional[torch.device]) -> float:

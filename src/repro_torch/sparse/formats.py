@@ -1,9 +1,9 @@
 """Sparse matrix containers (mirrors :mod:`repro.sparse.formats`).
 
-Frozen dataclasses of torch tensors.  Builders are host-side numpy code, as
-in the reference — format construction is data-pipeline work — and put
-their result on the device their input lives on (``device=`` for numpy
-input, CPU by default).
+Frozen dataclasses of torch tensors.  The builders run in torch on the
+device their input lives on (``device=`` for numpy input, CPU by default)
+and give the reference's host-built numpy layouts bit for bit; on the card
+they read back only a few scalars (the sizes that set shapes).
 
 Formats
 -------
@@ -17,6 +17,7 @@ BlockELL   rows grouped in blocks of ``block_rows``; every row padded to a
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -105,12 +106,15 @@ class BlockELL:
                         self.width)
 
 
+
+
 # ---------------------------------------------------------------------------
-# Host-side builders (numpy, as in the reference)
+# Builders (torch, on the input's device)
 # ---------------------------------------------------------------------------
 
-def _host(a) -> np.ndarray:
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+def _tensor(a, device) -> torch.Tensor:
+    return a.to(device) if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a),
+                                                                            device=device)
 
 
 def coo_from_edges(
@@ -126,39 +130,52 @@ def coo_from_edges(
 ) -> COO:
     """Build a COO matrix from edge arrays, optionally row-major sorted.
 
-    ``device=None`` places the result where ``val`` lives if it is a
-    tensor, else on the CPU.
+    ``device=None`` builds where ``val`` lives if it is a tensor, else on the
+    CPU.  The entries and their order are the reference's numpy builder's: a
+    stable sort on ``row·n_cols + col`` orders as its ``lexsort`` does, and
+    duplicate coordinates sum in float64 before the cast to ``dtype``.
     """
     if device is None:
         device = val.device if isinstance(val, torch.Tensor) else "cpu"
-    row = _host(row).astype(np.int32)
-    col = _host(col).astype(np.int32)
-    val = _host(val)
-    if sort:
-        order = np.lexsort((col, row))
+    row = _tensor(row, device).long()
+    col = _tensor(col, device).long()
+    val = _tensor(val, device)
+    if sort or sum_duplicates:
+        key, order = torch.sort(row * shape[1] + col, stable=True)
         row, col, val = row[order], col[order], val[order]
-    if sum_duplicates and row.size:
-        key = row.astype(np.int64) * shape[1] + col
-        uniq, inv = np.unique(key, return_inverse=True)
-        val = np.bincount(inv, weights=val.astype(np.float64), minlength=uniq.size)
-        row = (uniq // shape[1]).astype(np.int32)
-        col = (uniq % shape[1]).astype(np.int32)
-    sorted_rows = bool(sort or sum_duplicates or row.size == 0 or (np.diff(row) >= 0).all())
-    return COO(torch.as_tensor(row.astype(np.int64), device=device),
-               torch.as_tensor(col.astype(np.int64), device=device),
-               torch.as_tensor(np.asarray(val), device=device).to(dtype),
-               tuple(shape), sorted_rows=sorted_rows)
+    if sum_duplicates and row.numel():
+        uniq, inv = torch.unique_consecutive(key, return_inverse=True)
+        # a float64 sum of float32 values is exact while it fits float64's 53
+        # bits (24 + the values' exponent span + log2 of their count), so the
+        # order in which index_add_'s atomics add them does not change it
+        val = torch.zeros(uniq.numel(), dtype=torch.float64, device=device) \
+            .index_add_(0, inv, val.double())
+        row, col = uniq // shape[1], uniq % shape[1]
+    sorted_rows = bool(sort or sum_duplicates or row.numel() == 0
+                       or (row[1:] >= row[:-1]).all())
+    return COO(row, col, val.to(dtype), tuple(shape), sorted_rows=sorted_rows)
 
 
 def coo_to_csr(m: COO) -> CSR:
     """COO (row-sorted) → CSR."""
-    row = _host(m.row)
-    n_rows = m.shape[0]
-    counts = np.bincount(row, minlength=n_rows)
-    indptr = np.zeros(n_rows + 1, np.int64)
-    np.cumsum(counts, out=indptr[1:])
-    return CSR(indptr=torch.as_tensor(indptr, device=m.device), indices=m.col,
-               data=m.val, row=m.row, shape=m.shape)
+    indptr = torch.zeros(m.shape[0] + 1, dtype=torch.int64, device=m.device)
+    indptr[1:] = torch.bincount(m.row, minlength=m.shape[0]).cumsum(0)
+    return CSR(indptr=indptr, indices=m.col, data=m.val, row=m.row, shape=m.shape)
+
+
+def _quantile_int(deg: torch.Tensor, q: float) -> int:
+    """``int(np.quantile(deg, q))``: numpy's linear interpolation, in its
+    arithmetic, between two order statistics of a sort on the device (the
+    only values read back).  ``torch.quantile`` is not used: it takes at most
+    2²⁴ elements."""
+    n = deg.numel()
+    v = (n - 1) * q
+    if v >= n - 1:  # numpy takes the largest value
+        return int(deg.max())
+    lo = math.floor(v)
+    a, b = torch.sort(deg).values[lo:lo + 2].tolist()
+    t = v - lo
+    return int(b - (b - a) * (1 - t) if t >= 0.5 else a + (b - a) * t)
 
 
 def csr_to_blockell(
@@ -169,43 +186,43 @@ def csr_to_blockell(
     width_quantile: float = 0.95,
     lane_multiple: int = 8,
 ) -> BlockELL:
-    """CSR → BlockELL(+COO tail), the same host-side layout as the reference
-    (bit for bit): ``width`` defaults to the ``width_quantile`` of row
-    degrees rounded up to ``lane_multiple``; rows past it spill to the tail.
+    """CSR → BlockELL(+COO tail), the reference's layout bit for bit:
+    ``width`` defaults to the ``width_quantile`` of row degrees rounded up to
+    ``lane_multiple``; a row's first ``width`` entries fill its slots in
+    order and the rest spill to the tail in nnz order (a one-entry zero
+    dummy when nothing spills).
     """
     device = m.data.device
-    indptr = _host(m.indptr)
-    indices = _host(m.indices)
-    data = _host(m.data)
-    n_rows, _ = m.shape
-    deg = np.diff(indptr)
+    n_rows = m.shape[0]
+    deg = m.indptr[1:] - m.indptr[:-1]
     if width is None:
-        q = int(np.quantile(deg, width_quantile)) if n_rows else lane_multiple
-        width = max(lane_multiple, int(np.ceil(max(q, 1) / lane_multiple) * lane_multiple))
+        q = _quantile_int(deg, width_quantile) if n_rows else lane_multiple
+        width = max(lane_multiple, math.ceil(max(q, 1) / lane_multiple) * lane_multiple)
     n_blocks = (n_rows + block_rows - 1) // block_rows
     pad_rows = n_blocks * block_rows
 
-    cols = np.zeros((pad_rows, width), np.int32)
-    vals = np.zeros((pad_rows, width), data.dtype)
-    nnz_row = np.repeat(np.arange(n_rows, dtype=np.int64), deg)
-    slot = np.arange(indices.size, dtype=np.int64) - np.repeat(indptr[:-1].astype(np.int64), deg)
+    nnz = m.indices.numel()
+    nnz_row = torch.repeat_interleave(torch.arange(n_rows, device=device), deg,
+                                      output_size=nnz)
+    slot = torch.arange(nnz, device=device) - m.indptr[nnz_row]
     body = slot < width
-    cols[nnz_row[body], slot[body]] = indices[body]
-    vals[nnz_row[body], slot[body]] = data[body]
+    # one scatter of every entry: spilled ones write a spare last slot, which
+    # is dropped (each real slot is written by exactly one entry)
+    flat = torch.where(body, nnz_row * width + slot, pad_rows * width)
+    cols = torch.zeros(pad_rows * width + 1, dtype=torch.int32, device=device)
+    vals = torch.zeros(pad_rows * width + 1, dtype=m.data.dtype, device=device)
+    cols[flat] = m.indices.int()
+    vals[flat] = m.data
     spill = ~body
-    if spill.any():
-        tr = nnz_row[spill]
-        tc = indices[spill].astype(np.int64)
-        tv = data[spill]
-    else:  # a 1-element dummy, as in the reference
-        tr = np.zeros(1, np.int64)
-        tc = np.zeros(1, np.int64)
-        tv = np.zeros(1, data.dtype)
-    tail = COO(torch.as_tensor(tr, device=device), torch.as_tensor(tc, device=device),
-               torch.as_tensor(tv, device=device), m.shape)
+    if int(spill.sum()):
+        tail = COO(nnz_row[spill], m.indices[spill].long(), m.data[spill], m.shape)
+    else:
+        zero = torch.zeros(1, dtype=torch.int64, device=device)
+        tail = COO(zero, zero.clone(), torch.zeros(1, dtype=m.data.dtype, device=device),
+                   m.shape)
     return BlockELL(
-        cols=torch.as_tensor(cols.reshape(n_blocks, block_rows, width), device=device),
-        vals=torch.as_tensor(vals.reshape(n_blocks, block_rows, width), device=device),
+        cols=cols[:-1].reshape(n_blocks, block_rows, width),
+        vals=vals[:-1].reshape(n_blocks, block_rows, width),
         tail=tail,
         shape=m.shape,
         block_rows=block_rows,

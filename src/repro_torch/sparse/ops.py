@@ -96,7 +96,10 @@ def normalize_sym(m: COO, deg=None) -> COO:
     d = degrees(m) if deg is None else deg
     d32 = d.float()
     inv_sqrt = torch.where(d32 > 0, torch.rsqrt(d32), torch.zeros_like(d32)).to(m.val.dtype)
-    return COO(m.row, m.col, m.val * inv_sqrt[m.row] * inv_sqrt[m.col], m.shape,
+    # one product of the two scales, which commutes: an edge's two
+    # orientations get the same value, so D^{-1/2} W D^{-1/2} is exactly
+    # symmetric when W is (the reference rounds (w·s_u)·s_v, which is not)
+    return COO(m.row, m.col, m.val * (inv_sqrt[m.row] * inv_sqrt[m.col]), m.shape,
                sorted_rows=m.sorted_rows)
 
 

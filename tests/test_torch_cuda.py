@@ -534,3 +534,63 @@ def test_block_lanczos_on_card_matches_float64_reference():
     dense.index_put_((a.row.cpu(), a.col.cpu()), a.val.cpu().double(), accumulate=True)
     truth = (1 - torch.linalg.eigvalsh(dense).flip(0)[:12]).float()
     torch.testing.assert_close(emb.eigenvalues.cpu(), truth, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,hub", [(3001, 0), (1000, 400)])
+def test_device_builders_card_equal_cpu(n, hub):
+    """``coo_from_edges`` (sorted, duplicates summed), ``coo_to_csr`` and
+    ``csr_to_blockell`` on the card: bit for bit the CPU's build (the
+    summed duplicates are exact in float64, whatever order the card's
+    atomics add them in)."""
+    rng = np.random.default_rng(n)
+    r, c = rng.integers(0, n, 12 * n), rng.integers(0, n // 3, 12 * n)
+    r[:hub] = 7  # a row far past the width: the tail
+    v = rng.random(12 * n).astype(np.float32)
+    built = {}
+    for dev in ("cuda", "cpu"):
+        coo = tf.coo_from_edges(*(torch.as_tensor(a, device=dev) for a in (r, c, v)), (n, n),
+                                sum_duplicates=True)
+        built[dev] = coo, tf.csr_to_blockell(tf.coo_to_csr(coo))
+    (gc, ge), (wc, we) = built["cuda"], built["cpu"]
+    for a, b in ((gc.row, wc.row), (gc.col, wc.col), (gc.val, wc.val), (ge.cols, we.cols),
+                 (ge.vals, we.vals), (ge.tail.row, we.tail.row), (ge.tail.col, we.tail.col),
+                 (ge.tail.val, we.tail.val)):
+        assert torch.equal(a.cpu(), b)
+    assert ge.width == we.width and (hub == 0 or ge.tail.nnz > 1)
+
+
+def test_check_points_on_card():
+    from repro_torch.core import health as th
+    from repro_torch.core.health import PipelineError
+
+    x = torch.zeros(40, 3, device="cuda")
+    x[:20, 0] = torch.arange(1, 21, device="cuda", dtype=torch.float32)
+    x[20:, 0] = -0.0  # 21 distinct rows: -0.0 counts as 0.0
+    th.check_points(x, 21)
+    with pytest.raises(PipelineError, match=r"\(21 of 40 rows are unique\)"):
+        th.check_points(x, 22)
+    x[3, 1] = float("nan")
+    with pytest.raises(PipelineError, match="1 non-finite"):
+        th.check_points(x, 2)
+
+
+def test_reductions_card_match_cpu():
+    """The sparsifier (its Gumbel keys drawn on each device: equal to a few
+    ulps; the card's degrees summed by atomics in another order) keeps at
+    least 99 % of the CPU's coordinates; the coarsening's matching and
+    prolongation are equal, coarse weights at rtol 1e-6."""
+    from repro_torch.core import reduce as tred
+    from repro_torch.core.spectral import _raw_weights
+
+    pos, prof, _, _ = dti_like_pointcloud(3000, 90, 4, eps=1.8, seed=0, neighbors="none")
+    pipe = SpectralPipeline(n_clusters=8, graph=GraphConfig(knn_k=16, measure="cross_correlation"))
+    w = _raw_weights(pipe.build_graph(prof, points=pos))
+    wc = w.to("cpu")
+    s_card = tred.sparsify_coo(w, tred.SparsifyConfig(target_nnz_ratio=0.4))
+    s_cpu = tred.sparsify_coo(wc, tred.SparsifyConfig(target_nnz_ratio=0.4))
+    key = lambda m: set((m.row.cpu() * m.shape[1] + m.col.cpu()).tolist())  # noqa: E731
+    assert s_card.nnz == s_cpu.nnz
+    assert len(key(s_card) & key(s_cpu)) >= 0.99 * len(key(s_cpu))  # parallel edges: a set
+    (gc, gp), (cc, cp) = (tred.coarsen_coo(m, tred.CoarsenConfig(levels=2)) for m in (w, wc))
+    assert torch.equal(gp.cpu(), cp) and torch.equal(gc.row.cpu(), cc.row)
+    torch.testing.assert_close(gc.val.cpu(), cc.val, rtol=1e-6, atol=0)

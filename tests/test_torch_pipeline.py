@@ -135,32 +135,58 @@ def test_escalation_ladders_and_guards():
                                                device=CPU)
 
 
-_COARSEN = ("prepare", "coarsen", "embed", "refine", "cluster")
-
-
 @pytest.mark.parametrize("kw,item,done", [
-    (dict(stages=_COARSEN), "coarsen stage.*A8", ()),
-    (dict(stages=_COARSEN), "refine stage.*A8", ("prepare", "coarsen", "embed")),
     (dict(plan=tsp.Plan(device="sharded")), "A12", ()),
-    (dict(stages=("prepare", "sparsify", "embed", "cluster")), "A8", ()),
-    (dict(run=dict(checkpoint_dir="ckpt")), "checkpoint.*A9", ()),
-    (dict(run=dict(resume_from="ckpt")), "checkpoint.*A9", ()),
-    (dict(run=dict(checkpoint_dir="ckpt")), "checkpoint.*A9", ("prepare",)),
 ])
 def test_unported_features_raise(kw, item, done):
     """Each unported feature raises naming its ROADMAP item; ``done`` marks
-    stages as already run, to reach the refine stage past coarsen.  ``run``
-    holds keywords of ``run``/``run_stages`` (the checkpoint arguments take
-    the reference's names and raise, not ``TypeError``)."""
+    stages as already run, to reach a later stage."""
     x = np.random.default_rng(0).normal(size=(60, 3)).astype(np.float32)
-    run_kw = kw.get("run", {})
-    pipe = tsp.SpectralPipeline(n_clusters=2, **{k: v for k, v in kw.items() if k != "run"})
+    pipe = tsp.SpectralPipeline(n_clusters=2, **kw)
     with pytest.raises(NotImplementedError, match=item):
         if done:
-            pipe.run_stages(tsp.PipelineState(provenance=done, device=torch.device(CPU)),
-                            **run_kw)
+            pipe.run_stages(tsp.PipelineState(provenance=done, device=torch.device(CPU)))
         else:
-            pipe.run(x, _gen(), device=CPU, **run_kw)
+            pipe.run(x, _gen(), device=CPU)
+
+
+def _dup_rows():
+    x = np.repeat(np.arange(4, dtype=np.float32)[:, None], 3, 1)
+    return np.concatenate([x, x, x])  # 12 rows, 4 distinct
+
+
+def _signed_zeros():
+    x = np.array([[0.0, 1.0], [-0.0, 1.0], [2.0, 3.0], [2.0, -0.0], [2.0, 0.0]], np.float32)
+    return x  # 5 rows, 3 distinct: np.unique(axis=0) counts -0.0 as 0.0
+
+
+@pytest.mark.parametrize("x,k", [
+    (np.array([[1.0, np.nan], [np.inf, 2.0], [3.0, 4.0]], np.float32), 2),
+    (np.ones((3, 2), np.float32), 5),
+    (_dup_rows(), 5),
+    (_dup_rows(), 4),
+    (_signed_zeros(), 4),
+    (_signed_zeros(), 3),
+])
+def test_check_points_matches_reference(x, k):
+    """The Stage-1 guard counts on the points' device: the reference's
+    verdict and message, word for word, on NaN/Inf, too few rows, duplicate
+    rows and signed zeros."""
+    from repro.core import health as jh
+    from repro.core.health import PipelineError as JPipelineError
+    from repro_torch.core import health as th
+
+    try:
+        jh.check_points(jnp.asarray(x), k)
+        want = None
+    except JPipelineError as e:
+        want = str(e)
+    try:
+        th.check_points(torch.as_tensor(x), k)
+        got = None
+    except PipelineError as e:
+        got = str(e)
+    assert got == want
 
 
 def test_label_metric_matches_reference():

@@ -76,6 +76,57 @@ def test_coo_to_csr_and_blockell_bitwise():
         _assert_coo_equal(je.tail, te.tail)
 
 
+def _builder_case(case):
+    """Edge arrays that exercise one part of the device builders."""
+    rng = np.random.default_rng(len(case))
+    n = 97
+    if case == "ragged":
+        deg = rng.integers(0, 30, n)
+    elif case == "spill":  # hub rows far past the 95th-percentile width
+        deg = np.full(n, 6)
+        deg[[0, 40, 96]] = (300, 120, 75)
+    elif case == "empty_rows":  # the first, the last and every third row empty
+        deg = rng.integers(1, 12, n)
+        deg[::3] = 0
+        deg[-1] = 0
+    elif case == "no_spill":  # equal degrees: the tail is the 1-entry dummy
+        deg = np.full(n, 8)
+    else:  # "duplicates": each coordinate up to 4 times, summed
+        deg = rng.integers(2, 10, n)
+    row = np.repeat(np.arange(n), deg)
+    col = rng.integers(0, n if case != "duplicates" else 5, row.size)
+    perm = rng.permutation(row.size)
+    val = rng.random(row.size).astype(np.float32) + 0.1
+    return row[perm], col[perm], val[perm], (n, n)
+
+
+@pytest.mark.parametrize("case", ["ragged", "spill", "empty_rows", "no_spill", "duplicates"])
+def test_device_builders_bitwise(case):
+    """``coo_from_edges`` on tensors, ``coo_to_csr`` and ``csr_to_blockell``
+    run in torch on the input's device; their output equals the reference's
+    numpy builders bit for bit (the width's quantile included)."""
+    r, c, v, shape = _builder_case(case)
+    tr, tc, tv = (torch.as_tensor(a) for a in (r, c, v))
+    for sort, sd in ((True, True), (True, False), (False, False), (False, True)):
+        _assert_coo_equal(jf.coo_from_edges(r, c, v, shape, sort=sort, sum_duplicates=sd),
+                          tf.coo_from_edges(tr, tc, tv, shape, sort=sort, sum_duplicates=sd))
+    j = jf.coo_from_edges(r, c, v, shape, sum_duplicates=True)
+    t = tf.coo_from_edges(tr, tc, tv, shape, sum_duplicates=True)
+    jc, tcsr = jf.coo_to_csr(j), tf.coo_to_csr(t)
+    np.testing.assert_array_equal(np.asarray(jc.indptr), to_np(tcsr.indptr))
+    for kw in (dict(), dict(width_quantile=0.5, lane_multiple=1), dict(width_quantile=0.77),
+               dict(width_quantile=1.0, block_rows=16), dict(width=4)):
+        je, te = jf.csr_to_blockell(jc, **kw), tf.csr_to_blockell(tcsr, **kw)
+        assert (je.block_rows, je.width, je.shape) == (te.block_rows, te.width, te.shape)
+        for a, b in ((je.cols, te.cols), (je.vals, te.vals)):
+            assert np.asarray(a).dtype == to_np(b).dtype
+            np.testing.assert_array_equal(np.asarray(a), to_np(b))
+        _assert_coo_equal(je.tail, te.tail)
+    if case == "no_spill":
+        dummy = tf.csr_to_blockell(tcsr).tail
+        assert dummy.nnz == 1 and float(dummy.val[0]) == 0.0
+
+
 def test_products_match():
     j, t = _pair(seed=1)
     rng = np.random.default_rng(1)

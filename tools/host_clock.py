@@ -16,10 +16,11 @@ with these host clocks:
   directions), each between
   ``torch.cuda.synchronize()`` calls, so the time is the host's and the
   device's both;
-* **host assembly** — the input guard ``health.check_points`` (a copy of
-  the points to the host and a row ``np.unique``) and
-  ``SpectralPipeline.operator`` (the BlockELL layout built in numpy), also
-  between synchronisations;
+* **host assembly** — the input guard ``health.check_points`` and
+  ``SpectralPipeline.operator`` (the BlockELL layout), also between
+  synchronisations (both run on the card and read back only counts; on a
+  tree from before that, the guard copies the points to the host and the
+  layout is built in numpy);
 * **host reads** — every ``Tensor.__int__``, ``__bool__``, ``__float__``,
   ``item``, ``tolist`` and ``cpu`` outside those: the time the host waits
   for the device to drain before it reads a value (k-means's changed-label
