@@ -45,12 +45,16 @@ result line):
    paths' k-means kernels once more on their final embeddings against
    their plain versions (differing labels must be float64 near-ties), and
    the labels to ``chiprun_out/``; the reduced paths held to their
-   unreduced paths (sizes, purity, ARI, eigenvalue drift);
+   unreduced paths (sizes, purity, ARI, eigenvalue drift), and the sparse
+   kernels held to their plain versions on the sparsified, coarse and fine
+   layouts those paths built;
    resume — the first path stopped by a forced error after ``prepare``,
    its checkpoint saved under ``build/``, resumed, held to the
    uninterrupted run's labels;
 5. end to end at the example's default size (n = 4000, 12 clusters), each
-   path: the card against the CPU from one seed.
+   path: the card against the CPU from one seed, the card run
+   ``CARD_RUNS`` times, each run held to the CPU's, and the runs' labels
+   and degrees compared with the first card run's bitwise.
 
 With ``--profile`` each path runs once more under ``torch.profiler``
 (device busy share, top kernels, host → device copies) and once more under
@@ -646,6 +650,70 @@ def kmeans_phase() -> dict:
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
 
 
+def hold_spmm(m, x) -> float:
+    """``ell_spmm`` through its wrapper against the plain gather plus the COO
+    tail (rtol 1e-5, atol 1e-6); returns max|Δy|."""
+    nb, br, w = m.cols.shape
+    got = ell_ops.ell_spmm(m, x)
+    want = ell_spmm_ref(x, m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w))
+    want = want[: m.shape[0]] + spmm_coo(m.tail, x)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    return float((got - want).abs().max())
+
+
+def hold_spmv(m, x) -> float:
+    """``ell_spmv`` through its wrapper against the plain gather plus the COO
+    tail (rtol 1e-5, atol 1e-6); returns max|Δy|."""
+    nb, br, w = m.cols.shape
+    got = spmv_ops.ell_spmv(m, x)
+    want = ell_spmv_ref(x, m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w))
+    want = want[: m.shape[0]] + spmv_coo(m.tail, x)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    return float((got - want).abs().max())
+
+
+def cheb_coefs(dev):
+    """A Chebyshev step's (ca, cb) as the filter passes them: device scalars."""
+    return torch.tensor(1.98, device=dev), torch.tensor(-0.02, device=dev)
+
+
+def hold_cheb(m, x, prev) -> float:
+    """The fused Chebyshev step through its wrapper against the plain step
+    plus ``ca·(A_tail x)`` (rtol 1e-5, atol 1e-5); returns max|Δy|."""
+    ca, cb = cheb_coefs(x.device)
+    nb, br, w = m.cols.shape
+    got = ell_ops.ell_spmm_cheb_step(m, x, prev, ca, cb)
+    want = ell_spmm_cheb_ref(x, m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w),
+                             prev, ca, cb) + ca * spmm_coo(m.tail, x)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    return float((got - want).abs().max())
+
+
+def hold_layout(tag: str, what: str, m, widths, spmv: bool = False, cheb_width=None) -> dict:
+    """The sparse kernels a reduced path launches, held against their plain
+    versions on the BlockELL layout that path built (its own row width and
+    tail): ``ell_spmm`` at each of ``widths``, ``ell_spmv`` and the
+    Chebyshev step at ``cheb_width`` where the path runs them."""
+    dev = m.cols.device
+    gen = torch.Generator().manual_seed(8)
+    n = m.shape[0]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    err = {f"ell_spmm b={b}": hold_spmm(m, randn(n, b)) for b in widths}
+    if spmv:
+        err["ell_spmv"] = hold_spmv(m, randn(n))
+    if cheb_width is not None:
+        err[f"ell_spmm_cheb b={cheb_width}"] = hold_cheb(m, randn(n, cheb_width),
+                                                         randn(n, cheb_width))
+    nb, br, w = m.cols.shape
+    log(f"[{tag}] kernels on the {what} layout (rows={nb * br} W={w} tail={m.tail.nnz}) "
+        f"against their plain versions: " + ", ".join(f"{k} max|Δy|={v:.2e}"
+                                                     for k, v in err.items()))
+    return dict(rows=nb * br, width=w, tail=m.tail.nnz, max_abs_err=err)
+
+
 def ell_phase(pos, prof) -> dict:
     """``ell_spmm`` through its wrapper against the plain gather plus the COO
     tail: ragged small graphs, then the first path's BlockELL graph at
@@ -660,14 +728,6 @@ def ell_phase(pos, prof) -> dict:
     dev = torch.device("cuda")
     from repro_torch.sparse import formats as tf
 
-    def compare(m, x):
-        nb, br, w = m.cols.shape
-        got = ell_ops.ell_spmm(m, x)
-        want = ell_spmm_ref(x, m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w))
-        want = want[: m.shape[0]] + spmm_coo(m.tail, x)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-        return float((got - want).abs().max())
-
     rng = np.random.default_rng(3)
     before = ell_ops.ell_spmm.launches
     for n, b, width in ((100, 4, None), (257, 3, 8), (1000, 8, 16)):
@@ -675,14 +735,14 @@ def ell_phase(pos, prof) -> dict:
         v = rng.random(12 * n).astype(np.float32)
         m = tf.csr_to_blockell(tf.coo_to_csr(tf.coo_from_edges(r, c, v, (n, n), device=dev)),
                                width=width)
-        compare(m, torch.randn(n, b, device=dev))
+        hold_spmm(m, torch.randn(n, b, device=dev))
     # main path: the normalized DTI kNN graph in the pipeline's BlockELL layout
     pipe = main_pipeline(K_FULL)
     state = pipe.build_graph(prof, points=pos)
     m = pipe.operator(state).a
     xs = {b: torch.randn(N_FULL, b, device=dev) for b in (4, 8)}
-    err = {b: compare(m, x) for b, x in xs.items()}
-    err[508] = compare(m, torch.randn(N_FULL, K_FULL + 8, device=dev))
+    err = {b: hold_spmm(m, x) for b, x in xs.items()}
+    err[508] = hold_spmm(m, torch.randn(N_FULL, K_FULL + 8, device=dev))
     check(ell_ops.ell_spmm.launches == before + 6, "ell_spmm wrapper did not launch its kernel")
     nb, br, w = m.cols.shape
     cols, vals = m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w)
@@ -817,24 +877,17 @@ def spmv_phase(state, op) -> dict:
     dev = torch.device("cuda")
     from repro_torch.sparse import formats as tf
 
-    def compare(m, x):
-        nb, br, w = m.cols.shape
-        got = spmv_ops.ell_spmv(m, x)
-        want = ell_spmv_ref(x, m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w))
-        want = want[: m.shape[0]] + spmv_coo(m.tail, x)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-        return float((got - want).abs().max())
-
     rng = np.random.default_rng(5)
     before = spmv_ops.ell_spmv.launches
     for n, width in ((100, None), (257, 8), (3001, 8), (3001, 12), (3001, 24), (3001, 40)):
         r, c = rng.integers(0, n, 12 * n), rng.integers(0, n, 12 * n)
         v = rng.random(12 * n).astype(np.float32)
-        compare(tf.csr_to_blockell(tf.coo_to_csr(tf.coo_from_edges(r, c, v, (n, n), device=dev)),
-                                   width=width), torch.randn(n, device=dev))
+        hold_spmv(tf.csr_to_blockell(tf.coo_to_csr(tf.coo_from_edges(r, c, v, (n, n),
+                                                                     device=dev)),
+                                     width=width), torch.randn(n, device=dev))
     m = op.a
     x = torch.randn(N_FULL, device=dev)
-    err = compare(m, x)
+    err = hold_spmv(m, x)
     # the same function (the tail's index-add sums in a varying order)
     torch.testing.assert_close(op.mv(x), spmv_ops.ell_spmv(m, x), rtol=1e-6, atol=1e-7)
     check(spmv_ops.ell_spmv.launches == before + 9, "ell_spmv wrapper did not launch its kernel")
@@ -899,17 +952,7 @@ def cheb_step_phase(state, op) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(6)
     r = K_FULL + 8
-    ca = torch.tensor(1.98, device=dev)
-    cb = torch.tensor(-0.02, device=dev)
-
-    def compare(m, x, prev):
-        nb, br, w = m.cols.shape
-        got = ell_ops.ell_spmm_cheb_step(m, x, prev, ca, cb)
-        want = ell_spmm_cheb_ref(x, m.cols.reshape(nb * br, w), m.vals.reshape(nb * br, w),
-                                 prev, ca, cb) + ca * spmm_coo(m.tail, x)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-        return float((got - want).abs().max())
-
+    ca, cb = cheb_coefs(dev)
     from repro_torch.sparse import formats as tf
     rng = np.random.default_rng(7)
     before = ell_ops.ell_spmm_cheb_step.launches
@@ -921,11 +964,11 @@ def cheb_step_phase(state, op) -> dict:
         v = rng.random(12 * n).astype(np.float32)
         m = tf.csr_to_blockell(tf.coo_to_csr(tf.coo_from_edges(rr, c, v, (n, n), device=dev)),
                                width=width)
-        compare(m, torch.randn(n, b, device=dev), torch.randn(n, b, device=dev))
+        hold_cheb(m, torch.randn(n, b, device=dev), torch.randn(n, b, device=dev))
     m = op.a
     x = torch.randn(N_FULL, r, generator=gen).to(dev)
     prev = torch.randn(N_FULL, r, generator=gen).to(dev)
-    err = compare(m, x, prev)
+    err = hold_cheb(m, x, prev)
     torch.testing.assert_close(op.cheb_step(x, prev, ca, cb),
                                ell_ops.ell_spmm_cheb_step(m, x, prev, ca, cb),
                                rtol=1e-6, atol=1e-6)
@@ -1281,23 +1324,41 @@ def reduced_path(tag, pipe, kernels, pos, prof, region, base) -> dict:
     no worse than the base's less 0.02), ARI of the labels and top-k
     eigenvalue drift against the base's.  sparsify must keep exactly
     2·target_upper_count(nnz, ratio) entries; coarsen must leave at most
-    0.95·n nodes and a prolongation that is a partition onto [0, n_after)."""
-    res, rec, clock = drive(pipe, pos, prof, region, tag, kernels, keep=("coarsen",))
+    0.95·n nodes and a prolongation that is a partition onto [0, n_after).
+    After the run, each sparse kernel is held against its plain version on
+    the layouts this path built and at the widths it gives them: the
+    sparsified graph at the Lanczos block; the coarse graph at the moment
+    probes' and the sketch's widths, its SpMV and its Chebyshev step; the
+    fine graph at refine's embedding width."""
+    res, rec, clock = drive(pipe, pos, prof, region, tag, kernels,
+                            keep=("sparsify", "coarsen"))
     base_res, base_rec = base
     info = rec["reductions"][0]
     if info["kind"] == "sparsify":
         want = 2 * red.target_upper_count(info["nnz_before"], pipe.sparsify.target_nnz_ratio)
         check(info["nnz_after"] == want,
               f"{tag}: kept {info['nnz_after']} entries, not 2·target_upper_count = {want}")
+        graph = clock.states.pop("sparsify").graph
+        rec["layouts"] = dict(sparsified=hold_layout(
+            tag, "sparsified", pipe.operator(graph).a, (pipe.eig.block_size,)))
     else:
         n_after = info["n_after"]
         check(n_after <= 0.95 * info["n_before"], f"{tag}: {n_after} nodes left of {N_FULL}")
-        prolong = clock.states["coarsen"].reduction.prolong
+        st = clock.states.pop("coarsen")
+        prolong = st.reduction.prolong
         sizes = torch.bincount(prolong, minlength=n_after)
         check(prolong.shape == (N_FULL,) and int(prolong.min()) == 0
               and int(prolong.max()) == n_after - 1 and bool((sizes > 0).all()),
               f"{tag}: the prolongation is not a partition onto [0, {n_after})")
         rec["coarse_sizes"] = torch.bincount(sizes).tolist()
+        ccfg = pipe._cheb_config(n_after)
+        r = cheb.resolved_signals(ccfg)
+        rec["layouts"] = dict(
+            coarse=hold_layout(tag, "coarse", pipe.operator(st.graph).a, (ccfg.n_probes, r),
+                               spmv=True, cheb_width=r),
+            fine=hold_layout(tag, "fine", pipe.operator(st.reduction.fine_graph).a,
+                             (res.embedding.shape[1],)))
+        del st
     ari = adjusted_rand_index(res.labels, base_res.labels)
     drift = red.topk_eigenvalue_drift(base_res.eigenvalues, res.eigenvalues, K_FULL)
     emb = rec["reports"][1]
@@ -1362,29 +1423,53 @@ def resume_phase(pos, prof, first_res) -> dict:
     return dict(saved_s=saved_s, size_mb=size_mb, resumed_s=resumed_s, ari=ari, bitwise=same)
 
 
+# card runs of each end-to-end check: the card's atomic sums round differently
+# from run to run, so one card run that agrees with the CPU can be a lucky one
+CARD_RUNS = 4
+
+
 def end_to_end(make_pipe, tag: str, ev_tol: float) -> dict:
-    """n = 4000, 12 clusters: the card against the CPU from one seed."""
+    """n = 4000, 12 clusters: the card against the CPU from one seed.  Each
+    of ``CARD_RUNS`` card runs is held to the one CPU run; whether each
+    run's labels and degrees are bitwise the first card run's is printed
+    too."""
     k = 12
     out = {}
-    for dev in ("cuda", "cpu"):
+    for dev in ["cpu"] + ["cuda"] * CARD_RUNS:
         pos, prof, _, region = dti_like_pointcloud(4000, 90, max(k // 2, 4), eps=1.8, seed=0,
                                                    neighbors="none", device=dev)
         t0 = time.perf_counter()
-        res = make_pipe(k).run(prof, torch.Generator().manual_seed(0), points=pos, device=dev)
-        out[dev] = (res, time.perf_counter() - t0, purity(res.labels, region))
-    ari = adjusted_rand_index(out["cuda"][0].labels, out["cpu"][0].labels)
-    diff = (out["cuda"][0].eigenvalues.cpu() - out["cpu"][0].eigenvalues).abs()
-    dev_ev = float(diff.max())
-    log(f"[{tag}] n=4000 k={k}: card {out['cuda'][1]:.2f} s vs CPU {out['cpu'][1]:.2f} s; "
-        f"ARI={ari:.4f} max|Δλ|={dev_ev:.2e} (at λ_{int(diff.argmax())}) purity "
-        f"card={out['cuda'][2]:.3f} cpu={out['cpu'][2]:.3f}")
-    for dev, (res, _, _) in out.items():
+        st = make_pipe(k).run_state(prof, torch.Generator().manual_seed(0), points=pos,
+                                    device=dev)
+        out.setdefault(dev, []).append((st, time.perf_counter() - t0,
+                                        purity(st.result.labels, region)))
+    cpu, cpu_s, cpu_pur = out["cpu"][0]
+    first = out["cuda"][0][0]
+    runs = []
+    for i, (st, card_s, card_pur) in enumerate(out["cuda"]):
+        res = st.result
+        ari = adjusted_rand_index(res.labels, cpu.result.labels)
+        diff = (res.eigenvalues.cpu() - cpu.result.eigenvalues).abs()
+        dev_ev = float(diff.max())
+        log(f"[{tag}] n=4000 k={k} (card run {i}): card {card_s:.2f} s vs CPU {cpu_s:.2f} s; "
+            f"ARI={ari:.4f} max|Δλ|={dev_ev:.2e} (at λ_{int(diff.argmax())}) purity "
+            f"card={card_pur:.3f} cpu={cpu_pur:.3f}")
+        log(f"[{tag}] card run {i}: labels bitwise those of card run 0: "
+            f"{bool(torch.equal(res.labels, first.result.labels))}; degrees: "
+            f"{bool(torch.equal(st.graph.deg, first.graph.deg))}")
+        runs.append(dict(ari=ari, max_eig_diff=dev_ev, card_s=card_s))
+    for dev, st in (("cuda", first), ("cpu", cpu)):
+        res = st.result
         log(f"[{tag}] {dev}: restarts={res.lanczos_restarts} kmeans_iters="
             f"{res.kmeans_iterations} residual_max={float(res.eig_residuals.max()):.2e} "
             f"λ={[round(v, 6) for v in res.eigenvalues.cpu().tolist()]}")
-    check(ari >= 0.99, f"{tag}: card vs CPU labels ARI {ari:.4f} < 0.99")
-    check(dev_ev <= ev_tol, f"{tag}: card vs CPU eigenvalues differ by {dev_ev:.2e} > {ev_tol:g}")
-    return dict(ari=ari, max_eig_diff=dev_ev, card_s=out["cuda"][1], cpu_s=out["cpu"][1])
+    for i, run in enumerate(runs):
+        check(run["ari"] >= 0.99, f"{tag}: card run {i} vs CPU labels ARI {run['ari']:.4f} < 0.99")
+        check(run["max_eig_diff"] <= ev_tol, f"{tag}: card run {i} vs CPU eigenvalues differ by "
+              f"{run['max_eig_diff']:.2e} > {ev_tol:g}")
+    return dict(ari=min(r["ari"] for r in runs),
+                max_eig_diff=max(r["max_eig_diff"] for r in runs),
+                card_s=runs[0]["card_s"], cpu_s=cpu_s, runs=runs)
 
 
 def profile_path(pipe, pos, prof, tag: str) -> dict:
@@ -1481,10 +1566,9 @@ def main() -> int:
     # draws through the same graph, so they differ only by rounding in 64
     # recurrence steps (2.4e-7 on an H100) — a hash bit flipped by a projection
     # within rounding of 0 would move LSH edges and show here
-    e2e = dict(main=end_to_end(main_pipeline, "e2e", 1e-4),
-               scalable=end_to_end(scalable_pipeline, "e2e-scalable", 1e-4),
-               sparsify=end_to_end(sparsify_pipeline, "e2e-sparsify", 1e-4),
-               coarsen=end_to_end(coarsen_pipeline, "e2e-coarsen", 1e-4))
+    e2e = {tag: end_to_end(make, f"e2e-{tag}", 1e-4) for tag, make in (
+        ("main", main_pipeline), ("scalable", scalable_pipeline),
+        ("sparsify", sparsify_pipeline), ("coarsen", coarsen_pipeline))}
     t_done = time.perf_counter()
     profiled = None
     if "--profile" in sys.argv[1:]:

@@ -31,7 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch._device import DeviceLike, cpu_generator
+from repro_torch._device import DeviceLike, cpu_generator, resolve_device
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.core.health import StageReport
 from repro_torch.core.reduce import ReduceInfo, ReductionState
@@ -155,12 +155,14 @@ def _generator(tree, name: str, key_name: str) -> Optional[torch.Generator]:
     return None
 
 
-def state_from_tree(tree: Dict[str, np.ndarray], *, device: DeviceLike = "cpu"):
+def state_from_tree(tree: Dict[str, np.ndarray], *, device: DeviceLike = None):
     """Rebuild the :class:`PipelineState` (inverse of :func:`state_to_tree`),
-    its tensors on ``device``.  Returns ``(state, pipeline_dict_or_None)``."""
+    its tensors on ``device`` (the card unless the caller names another, as
+    for every entry point of the port).  Returns
+    ``(state, pipeline_dict_or_None)``."""
     from repro_torch.core.spectral import EmbedState, PipelineState, SpectralResult
 
-    dev = torch.device(device)
+    dev = resolve_device(device)
     meta = json.loads(bytes(np.asarray(tree[_META_KEY])).decode("utf-8"))
     kw: Dict[str, Any] = {
         "provenance": tuple(meta["provenance"]),
@@ -212,9 +214,9 @@ def save_state(directory: str, state, pipeline=None) -> str:
     return directory
 
 
-def load_state(directory: str, pipeline=None, *, device: DeviceLike = "cpu"):
+def load_state(directory: str, pipeline=None, *, device: DeviceLike = None):
     """``(state, pipeline_dict)`` from :func:`save_state`'s slot, tensors on
-    ``device``.  With ``pipeline`` given, warns if its config differs from
+    ``device`` (the card unless the caller names another).  With ``pipeline`` given, warns if its config differs from
     the one the state was produced under (resume still proceeds)."""
     mgr = CheckpointManager(directory, keep=1)
     if not mgr._complete(STATE_STEP):

@@ -12,6 +12,14 @@ at rtol 1e-6; ``lift_and_smooth``'s Ritz values within 1e-5 and its basis
 spanning the reference's subspace (every singular value of ``uᵀu'`` within
 1e-4 of 1; column signs may differ); end to end, labels ARI ≥ 0.99 against
 the reference's.
+
+The port departs from the reference on purpose in one place: its
+``normalize_sym`` and ``_raw_weights`` round an edge's weight as
+w·(s_u·s_v), where the reference rounds (w·s_u)·s_v, so that an edge's two
+orientations hold one value (ROADMAP R5; which of the two is right is for
+the reference's owners to settle).  The pipeline parity tests that put the
+reference's normalization back (``ref_normalization``) hold the port to the
+reference's labels where rounding decides them.
 """
 import dataclasses
 import json
@@ -26,12 +34,16 @@ from repro.core import reduce as jred
 from repro.core import spectral as jsp
 from repro.core.operator import CooOperator as JCoo
 from repro.data.sbm import sbm_graph
+from repro.sparse import ops as jops
+from repro.sparse.formats import COO as JCOO
 from repro.sparse.ops import normalize_sym as j_normalize_sym
 from repro_torch import convert
+from repro_torch.core import laplacian as tlap
 from repro_torch.core import reduce as tred
 from repro_torch.core import spectral as tsp
 from repro_torch.core.operator import CallableOperator, CooOperator
 from repro_torch.serve.metrics import adjusted_rand_index
+from repro_torch.sparse.formats import COO
 from repro_torch.sparse.ops import normalize_sym
 from tests._parity import to_np
 
@@ -50,6 +62,33 @@ def ref_gumbel(monkeypatch):
         return torch.as_tensor(np.array(g), device=device)
 
     monkeypatch.setattr(tred, "draw_gumbel", draw)
+
+
+def _jcoo(m) -> JCOO:
+    return JCOO(jnp.asarray(to_np(m.row)), jnp.asarray(to_np(m.col)), jnp.asarray(to_np(m.val)),
+                tuple(m.shape), sorted_rows=m.sorted_rows)
+
+
+@pytest.fixture
+def ref_normalization(monkeypatch):
+    """The reference's own normalization and raw-weight recovery in place of
+    the port's: its (w·s_u)·s_v rounding and XLA's ``rsqrt``, which is not
+    torch's in the last bit."""
+    def norm(m, deg=None):
+        out = jops.normalize_sym(_jcoo(m), None if deg is None else jnp.asarray(to_np(deg)))
+        return COO(m.row, m.col, torch.as_tensor(np.array(out.val)), m.shape,
+                   sorted_rows=m.sorted_rows)
+
+    def raw(state):
+        out = jsp._raw_weights(jsp.GraphState(
+            adj=_jcoo(state.adj), deg=jnp.asarray(to_np(state.deg)),
+            inv_sqrt_deg=jnp.asarray(to_np(state.inv_sqrt_deg))))
+        a = state.adj
+        return COO(a.row, a.col, torch.as_tensor(np.array(out.val)), a.shape,
+                   sorted_rows=a.sorted_rows)
+
+    monkeypatch.setattr(tlap, "normalize_sym", norm)
+    monkeypatch.setattr(tsp, "_raw_weights", raw)
 
 
 def _sbm(n_per=60, r=4, seed=0, weighted=True):
@@ -186,10 +225,13 @@ def test_sparsify_pipeline_graph_near_reference(ref_gumbel):
     normalized graph.  The reference rounds them as (w·s_u)·s_v, so an
     edge's two orientations can differ in the last bit and its backbone
     test (an exact comparison with the other endpoint's row maximum) is
-    decided by rounding; the port forms s_u·s_v first and keeps the two
-    equal.  The kept graphs then differ on an edge or two.  Held: ≥ 99 % of
-    the kept entries shared, and labels as near the blocks as the
-    reference's (ARI within 0.02)."""
+    decided by rounding; the port departs from the reference on purpose
+    (ROADMAP R5) and forms s_u·s_v first, keeping the two equal.  The kept
+    graphs then differ on an edge or two.  Held: ≥ 99 % of the kept entries
+    shared, and labels as near the blocks as the reference's (ARI within
+    0.02).  ``test_sparsify_pipeline_matches_reference_normalization`` holds
+    the same fixture to the reference's labels with its normalization put
+    back."""
     want, got, truth = _both_runs(_SPARSIFY, p_in=0.3,
                                   sparsify=jred.SparsifyConfig(target_nnz_ratio=0.4))
     jk = set(zip(np.asarray(want.graph.adj.row).tolist(), np.asarray(want.graph.adj.col).tolist()))
@@ -197,6 +239,23 @@ def test_sparsify_pipeline_graph_near_reference(ref_gumbel):
     assert len(jk) == len(tk) and len(jk & tk) >= 0.99 * len(jk)
     assert adjusted_rand_index(truth, got.result.labels) >= \
         adjusted_rand_index(truth, np.asarray(want.result.labels)) - 0.02
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sparsify_pipeline_matches_reference_normalization(ref_gumbel, ref_normalization,
+                                                            seed):
+    """The p_in 0.3 fixture, where rounding decides the backbone and the
+    reference misplaces boundary nodes, with the reference's normalization
+    and raw-weight recovery put into the port: the kept graph's coordinates
+    equal, labels ARI ≥ 0.99 against the reference's, eigenvalues within
+    1e-5."""
+    want, got, _ = _both_runs(_SPARSIFY, p_in=0.3, seed=seed,
+                              sparsify=jred.SparsifyConfig(target_nnz_ratio=0.4))
+    np.testing.assert_array_equal(np.asarray(want.graph.adj.row), to_np(got.graph.adj.row))
+    np.testing.assert_array_equal(np.asarray(want.graph.adj.col), to_np(got.graph.adj.col))
+    assert adjusted_rand_index(np.asarray(want.result.labels), got.result.labels) >= 0.99
+    np.testing.assert_allclose(np.asarray(want.result.eigenvalues),
+                               to_np(got.result.eigenvalues), rtol=0, atol=1e-5)
 
 
 def test_coarsen_refine_pipeline_matches_reference():

@@ -110,7 +110,24 @@ def test_tmp_dir_never_restored(tmp_path):
     tio.save_state(str(tmp_path / "b"), st)
     os.rename(tmp_path / "b" / "step_00000000", tmp_path / "b" / "step_00000000.tmp")
     with pytest.raises(FileNotFoundError, match="no intact"):
-        tio.load_state(str(tmp_path / "b"))
+        tio.load_state(str(tmp_path / "b"), device=CPU)
+
+
+def test_load_state_defaults_to_the_card(tmp_path):
+    """``load_state`` and ``state_from_tree`` put the tensors on the card
+    unless the caller names another device, as every entry point of the
+    port does: without a card they raise rather than fall back to the CPU."""
+    st = tsp.PipelineState(points=torch.ones(4, 2), provenance=("prepare",))
+    tio.save_state(str(tmp_path), st)
+    tree = tio.state_to_tree(st)
+    if torch.cuda.is_available():
+        assert tio.load_state(str(tmp_path))[0].points.device.type == "cuda"
+        assert tio.state_from_tree(tree)[0].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tio.load_state(str(tmp_path))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tio.state_from_tree(tree)
 
 
 def test_manager_async_save(tmp_path):
@@ -175,13 +192,14 @@ def test_state_round_trip_every_slot_bitwise(tmp_path):
     st = _coarse_state(x, pipe)
     assert st.reduction is not None and st.result is not None
     tio.save_state(str(tmp_path), st, pipe)
-    st2, pipe_dict = tio.load_state(str(tmp_path), pipe)
+    st2, pipe_dict = tio.load_state(str(tmp_path), pipe, device=CPU)
     assert pipe_dict == pipe.to_dict()
     _assert_same_data(st, st2)
     # a prebuilt-graph input round-trips too
     w, _ = sbm_graph(20, 2, 0.5, 0.05, seed=1)
     g = convert.coo(w, device=CPU)
-    st3, _ = tio.state_from_tree(tio.state_to_tree(tsp.PipelineState(input_graph=g)))
+    st3, _ = tio.state_from_tree(tio.state_to_tree(tsp.PipelineState(input_graph=g)),
+                                device=CPU)
     for f in ("row", "col", "val"):
         assert torch.equal(getattr(g, f), getattr(st3.input_graph, f))
 
@@ -219,7 +237,7 @@ def test_reference_checkpoint_restored_by_port(tmp_path):
     jst, jpipe = _reference_state()
     jio.save_state(str(tmp_path), jst, jpipe)
     tpipe = convert.pipeline(jpipe.to_dict())
-    tst, pipe_dict = tio.load_state(str(tmp_path), tpipe)
+    tst, pipe_dict = tio.load_state(str(tmp_path), tpipe, device=CPU)
     assert pipe_dict == jpipe.to_dict()
     _tree_equal_to_reference(jst, tst)
     # the documented rule: each key's words (w0, w1) seed a generator w0·2³² + w1
@@ -247,7 +265,7 @@ def test_sharded_checkpoint_raises_naming_a12():
     meta["input_graph"]["kind"] = "sharded"
     tree["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8).copy()
     with pytest.raises(NotImplementedError, match="A12"):
-        tio.state_from_tree(tree)
+        tio.state_from_tree(tree, device=CPU)
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +294,7 @@ def test_checkpoint_on_error_then_resume(tmp_path, monkeypatch, stages, fail_at)
             pipe.run(x, _gen(7), checkpoint_dir=str(tmp_path), device=CPU)
     assert ei.value.checkpoint == str(tmp_path)
     assert "resume_from" in str(ei.value)
-    st, _ = tio.load_state(str(tmp_path))
+    st, _ = tio.load_state(str(tmp_path), device=CPU)
     done = stages[:stages.index(fail_at)]
     assert [p.split("[")[0] for p in st.provenance] == list(done)
     out = pipe.run(resume_from=str(tmp_path), device=CPU)
@@ -301,7 +319,7 @@ def test_resume_of_a_reference_checkpoint_runs_the_rest():
     jst, jpipe = _reference_state()
     jst = dataclasses.replace(jst, result=None, provenance=jst.provenance[:3])
     tpipe = convert.pipeline(jpipe.to_dict())
-    tst, _ = tio.state_from_tree(jio.state_to_tree(jst, jpipe))
+    tst, _ = tio.state_from_tree(jio.state_to_tree(jst, jpipe), device=CPU)
     out = tpipe.run_stages(tst)
     assert out.provenance[-2:] == ("refine", "cluster")
     assert to_np(out.result.labels).shape == (120,)
