@@ -54,7 +54,24 @@ result line):
 5. end to end at the example's default size (n = 4000, 12 clusters), each
    path: the card against the CPU from one seed, the card run
    ``CARD_RUNS`` times, each run held to the CPU's, and the runs' labels
-   and degrees compared with the first card run's bitwise.
+   and degrees compared with the first card run's bitwise;
+6. serve — the serving path (``repro_torch.serve``) at the serving cell's
+   size: ``launch/serve.py``'s blob pool (n = 160,000, 16 centres, d = 16)
+   trained, its exact and LSH indexes built, 2,048 held-out queries served
+   in batches of 256 with the launch counters zeroed just before and read
+   just after; OOS labels against a full re-clustering (ARI ≥ 0.95, both
+   searches), the persisted LSH tables against the rehash path (agreement
+   1.0), ``routed_candidates`` card = CPU, pad-row invariance, a registry
+   load onto the card bitwise the published index, per-label latency
+   through the micro-batcher, every kernel of the path held at each shape
+   the path gave it (``knn_topk`` all pairs on the pool and on a query
+   batch, ``hash_codes`` on the pool and on a query batch, ``kmeans_iter``
+   on the trained embedding) and timed at the serving shapes (the kernel
+   line's ``@serve`` rows), the
+   launcher's ``serve`` mode (exit code 32 with ``nan-query`` on 64
+   requests) and ``cluster`` mode (exit code 2 with ``nan-graph`` on 4), and
+   the card against the CPU at n = 4000 (OOS labels ARI ≥ 0.99); with
+   ``--profile`` the serving of the queries under ``torch.profiler`` too.
 
 With ``--profile`` each path runs once more under ``torch.profiler``
 (device busy share, top kernels, host → device copies) and once more under
@@ -66,7 +83,10 @@ table as JSON (each kernel's launches from its own path); the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import io
 import itertools
 import json
 import math
@@ -111,7 +131,10 @@ from repro_torch.kernels.lsh_candidates import ops as lsh_ops  # noqa: E402
 from repro_torch.kernels.lsh_candidates.kernel import hash_codes_cuda  # noqa: E402
 from repro_torch.kernels.lsh_candidates.ref import hash_codes_ref  # noqa: E402
 from repro_torch.sparse.ops import spmm_coo, spmv_coo  # noqa: E402
-from repro_torch.serve.metrics import adjusted_rand_index  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.serve import (BatchConfig, EmbeddingRegistry, MicroBatcher,  # noqa: E402
+                               OOSConfig, OOSResult, adjusted_rand_index, build_index,
+                               serve_fn)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): fp32 outside the tensor
 # cores, TF32 on the tensor cores, and HBM bandwidth.
@@ -158,10 +181,59 @@ def bound(n_bytes: float, n_ops: float, peak: float = PEAK_FP32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kmeans_bound(n_bytes: float):
+def kmeans_bound(n_bytes: float, n: int = N_FULL, k: int = K_FULL, d: int = K_FULL):
     """The k-means distance products at fp32 accuracy on the tensor cores:
     three TF32 products (3xTF32) of 2·n·k·d flops each."""
-    return bound(n_bytes, 3 * 2.0 * N_FULL * K_FULL * K_FULL, PEAK_TF32_FLOPS)
+    return bound(n_bytes, 3 * 2.0 * n * k * d, PEAK_TF32_FLOPS)
+
+
+def iter_bytes(n: int, k: int, d: int) -> int:
+    """A Lloyd iteration's bytes: x, c and ‖c‖² read once; labels and dmin,
+    sums and counts written once."""
+    return (n * d + k * d + k) * 4 + n * 8 + k * (d + 1) * 4
+
+
+def kmeans_library(x, c, chunk: int = 16384):
+    """A Lloyd iteration's statistics as a composition of library calls,
+    chunked: cdist + argmin + index_add_."""
+    k, d = c.shape
+    sums = torch.zeros(k, d + 1, device=x.device)
+    for s in range(0, x.shape[0], chunk):
+        xb = x[s:s + chunk]
+        lab = torch.cdist(xb, c).argmin(1)
+        sums[:, :d].index_add_(0, lab, xb)
+        sums[:, d].index_add_(0, lab, torch.ones_like(lab, dtype=torch.float32))
+    return sums
+
+
+def hold_iter(x, c, tag: str, order_bound: bool = False) -> float:
+    """``kmeans_iter`` through its wrapper against its plain version: labels
+    and counts equal, dmin at 1e-5·(‖x‖²+‖c‖²) (it cancels those terms
+    against 2x·c, so its error scales with them), sums at rtol 1e-5 / atol
+    1e-4.  With ``order_bound`` (clusters of ~10⁴ rows, where fp32 sums in
+    two orders differ by more than 1e-5) each sum, the kernel's and the
+    plain version's, must instead lie within the bound of fp32 summation in
+    any order of the float64 sum: |ŝ − s| ≤ γ_m·Σ|x|, γ_m = m·u/(1 − m·u),
+    u = 2⁻²⁴, m the cluster's count.  Returns the larger max|Δ| of sums and
+    dmin between the kernel and its plain version."""
+    gl, gd, gs, gn = km_ops.kmeans_iter(x, c)
+    wl, wd, ws, wn = kmeans_iter_ref(x, c)
+    check(torch.equal(gl, wl), f"kmeans_iter labels differ ({tag})")
+    check(torch.equal(gn, wn), f"kmeans_iter counts differ ({tag})")
+    scale = float((x * x).sum(1).max() + (c * c).sum(1).max())
+    torch.testing.assert_close(gd, wd, rtol=0, atol=1e-5 * scale)
+    if order_bound:
+        own, x64 = gl.long(), x.double()
+        exact = torch.zeros(gs.shape, dtype=torch.float64, device=x.device).index_add_(0, own, x64)
+        mag = torch.zeros_like(exact).index_add_(0, own, x64.abs())
+        mu = gn.double()[:, None] * 2.0 ** -24
+        slack = mu / (1 - mu) * mag
+        for name, sums in (("kernel", gs), ("plain version", ws)):
+            check(bool(((sums.double() - exact).abs() <= slack).all()),
+                  f"kmeans_iter sums of the {name} outside fp32 summation's bound ({tag})")
+    else:
+        torch.testing.assert_close(gs, ws, rtol=1e-5, atol=1e-4)
+    return max(float((gd - wd).abs().max()), float((gs - ws).abs().max()))
 
 
 def launch_ms(fn, copies, iters: int):
@@ -228,14 +300,16 @@ def device_ms(fn, copies, iters: int) -> float:
     raise SmokeFailure("torch.profiler recorded no device time in three tries")
 
 
-def near_tie_swaps(x, got_idx, want_idx, want_d) -> int:
+def near_tie_swaps(x, got_idx, want_idx, want_d, queries=None) -> int:
     """Count of neighbour slots whose ids differ; raises unless each differing
     id is as near (float64, rtol 1e-5) as the plain version's id at that rank
-    — a near-tie that fp32 rounding may order either way."""
+    — a near-tie that fp32 rounding may order either way.  ``queries``
+    defaults to the candidates ``x`` (all pairs)."""
     diff = got_idx != want_idx
     rows = torch.nonzero(diff)[:, 0]
     x64 = x.double()
-    d_got = ((x64[rows] - x64[got_idx[diff].long()]) ** 2).sum(1)
+    q64 = x64 if queries is None else queries.double()
+    d_got = ((q64[rows] - x64[got_idx[diff].long()]) ** 2).sum(1)
     want = want_d[diff].double()
     check(bool(((d_got - want).abs() <= 1e-5 * want + 1e-6).all()),
           "knn_topk: a differing id is not a near-tie")
@@ -594,17 +668,6 @@ def kmeans_phase() -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(2)
 
-    def compare(x, c, tag):
-        gl, gd, gs, gn = km_ops.kmeans_iter(x, c)
-        wl, wd, ws, wn = kmeans_iter_ref(x, c)
-        check(torch.equal(gl, wl), f"kmeans_iter labels differ ({tag})")
-        check(torch.equal(gn, wn), f"kmeans_iter counts differ ({tag})")
-        # dmin cancels ‖x‖² + ‖c‖² against 2x·c: its error scales with them
-        scale = float((x * x).sum(1).max() + (c * c).sum(1).max())
-        torch.testing.assert_close(gd, wd, rtol=0, atol=1e-5 * scale)
-        torch.testing.assert_close(gs, ws, rtol=1e-5, atol=1e-4)
-        return max(float((gd - wd).abs().max()), float((gs - ws).abs().max()))
-
     def blobs(n, k, d, noise):  # tie-free: every point sits near its own centroid
         c = torch.randn(k, d, generator=gen)
         x = c[torch.randint(k, (n,), generator=gen)] + noise * torch.randn(n, d, generator=gen)
@@ -615,31 +678,19 @@ def kmeans_phase() -> dict:
     # 128-wide centroid tile, n = 1; the tile is shared, the epilogue is not
     for n, k, d in ((1, 1, 1), (1000, 37, 90), (513, 500, 33), (4097, 129, 257),
                     (1, 130, 500), (700, 65, 17), (3000, 130, 500)):
-        compare(*blobs(n, k, d, 0.05), f"n={n} k={k} d={d}")
+        hold_iter(*blobs(n, k, d, 0.05), f"n={n} k={k} d={d}")
     for n, k, d in ((2000, 300, 90), (3000, K_FULL, K_FULL)):
         x, c = blobs(n, k, d, 0.05)  # every centroid twice: exact ties across tiles
-        compare(x, torch.cat([c, c]), f"duplicated centroids k={k} d={d}")
+        hold_iter(x, torch.cat([c, c]), f"duplicated centroids k={k} d={d}")
     x, c = blobs(N_FULL, K_FULL, K_FULL, 0.02)
-    err = compare(x, c, "main shape")
+    err = hold_iter(x, c, "main shape")
     check(km_ops.kmeans_iter.launches == before + 10,
           "kmeans_iter wrapper did not launch its kernel")
     cn = (c * c).sum(1)
     ms = cuda_ms(lambda: kmeans_iter_cuda(x, c, cn), iters=10)
     plain_ms = cuda_ms(lambda: kmeans_iter_ref(x, c), iters=3)
-
-    def library():  # a composition of calls, chunked: cdist + argmin + index_add_
-        sums = torch.zeros(K_FULL, K_FULL + 1, device=dev)
-        for s in range(0, N_FULL, 16384):
-            xb = x[s:s + 16384]
-            lab = torch.cdist(xb, c).argmin(1)
-            sums[:, :K_FULL].index_add_(0, lab, xb)
-            sums[:, K_FULL].index_add_(0, lab, torch.ones_like(lab, dtype=torch.float32))
-        return sums
-
-    library_ms = cuda_ms(library, iters=3)
-    n_bytes = (N_FULL * K_FULL + K_FULL * K_FULL + K_FULL) * 4 + N_FULL * 8 \
-        + K_FULL * (K_FULL + 1) * 4
-    bms, by = kmeans_bound(n_bytes)
+    library_ms = cuda_ms(lambda: kmeans_library(x, c), iters=3)
+    bms, by = kmeans_bound(iter_bytes(N_FULL, K_FULL, K_FULL))
     log(f"[kernel] kmeans_iter (tol: labels and counts exact, sums rtol 1e-5 atol 1e-4, "
         f"dmin atol 1e-5·(‖x‖²+‖c‖²)): n={N_FULL} k={K_FULL} d={K_FULL} labels and counts equal, "
         f"max|Δ| sums/dmin={err:.2e}; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
@@ -791,6 +842,30 @@ def _csr(adj):
         .coalesce().to_sparse_csr()
 
 
+def hold_hash(x, planes):
+    """``hash_codes`` through its wrapper against its plain version: codes
+    equal wherever every projection is at least ``HASH_EPS`` from 0 in
+    float64, tie-breaks at rtol 1e-5 (for d > 20, within the bound of two
+    summation orders, and codes compared where every projection clears it).
+    Returns (pairs near 0, codes that differ, max|Δtie|)."""
+    gc, gt = lsh_ops.hash_codes(x, planes)
+    wc, wt = hash_codes_ref(x, planes)
+    proj = torch.einsum("nd,tdb->tnb", x.double(), planes.double())
+    d = x.shape[1]
+    if d <= 20:
+        clear = (proj.abs() >= HASH_EPS)[..., :-1].all(-1)
+        torch.testing.assert_close(gt, wt, rtol=1e-5, atol=1e-5)
+    else:  # two fp32 sums of d terms in different orders differ by at
+        # most 2(d + 1)·2⁻²⁴·Σ|terms|, above HASH_EPS at d = 90
+        slack = 2 * (d + 1) * 2.0 ** -24 * torch.einsum(
+            "nd,tdb->tnb", x.double().abs(), planes.double().abs())
+        clear = (proj.abs() >= torch.clamp(slack, min=HASH_EPS))[..., :-1].all(-1)
+        check(bool(((gt - wt).double().abs() <= slack[..., -1]).all()),
+              "hash_codes: tie-breaks differ by more than two summation orders can")
+    check(torch.equal(gc[clear], wc[clear]), "hash_codes: codes differ away from 0")
+    return int((~clear).sum()), int((gc != wc).sum()), float((gt - wt).abs().max())
+
+
 def hash_phase(pos) -> dict:
     """``hash_codes`` on the lattice positions with the scalable path's planes
     (16 tables of 16 bits, seed 0), after a grid of random shapes (d ∈ {1,
@@ -806,31 +881,12 @@ def hash_phase(pos) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(4)
     before = lsh_ops.hash_codes.launches
-
-    def compare(x, planes):
-        gc, gt = lsh_ops.hash_codes(x, planes)
-        wc, wt = hash_codes_ref(x, planes)
-        proj = torch.einsum("nd,tdb->tnb", x.double(), planes.double())
-        d = x.shape[1]
-        if d <= 20:
-            clear = (proj.abs() >= HASH_EPS)[..., :-1].all(-1)
-            torch.testing.assert_close(gt, wt, rtol=1e-5, atol=1e-5)
-        else:  # two fp32 sums of d terms in different orders differ by at
-            # most 2(d + 1)·2⁻²⁴·Σ|terms|, above HASH_EPS at d = 90
-            slack = 2 * (d + 1) * 2.0 ** -24 * torch.einsum(
-                "nd,tdb->tnb", x.double().abs(), planes.double().abs())
-            clear = (proj.abs() >= torch.clamp(slack, min=HASH_EPS))[..., :-1].all(-1)
-            check(bool(((gt - wt).double().abs() <= slack[..., -1]).all()),
-                  "hash_codes: tie-breaks differ by more than two summation orders can")
-        check(torch.equal(gc[clear], wc[clear]), "hash_codes: codes differ away from 0")
-        return int((~clear).sum()), int((gc != wc).sum()), float((gt - wt).abs().max())
-
     grid = list(itertools.product((1, 3, 8, 9, 90), (1, 16), (1, 16, 24)))
     for d, t, b in grid:
-        compare((torch.rand(1000 + 7 * d + t, d, generator=gen) * 50).to(dev),
+        hold_hash((torch.rand(1000 + 7 * d + t, d, generator=gen) * 50).to(dev),
                 torch.randn(t, d, b + 1, generator=gen).to(dev))
     planes = lsh_ops.make_planes(3, LSH_TABLES, LSH_BITS, 0).to(dev)
-    near, differ, err = compare(pos, planes)
+    near, differ, err = hold_hash(pos, planes)
     check(lsh_ops.hash_codes.launches == before + len(grid) + 1,
           "hash_codes wrapper did not launch its kernel")
     copies = [(pos.clone(),) for _ in range(8)]
@@ -1509,6 +1565,413 @@ def profile_path(pipe, pos, prof, tag: str) -> dict:
                 host_clock=clocks)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: serving
+# ---------------------------------------------------------------------------
+
+# the serving cell: launch/serve.py's training pool (Gaussian blobs, 16
+# centres × 8.0, d = 16) at 8 times the n of the reference's
+# BENCH_serving.json, OOSConfig.from_graph_config's defaults (knn_k = 10,
+# σ = 1), 2,048 held-out queries in batches of 256
+N_SERVE, K_SERVE, D_SERVE, Q_SERVE, B_SERVE, KNN_SERVE = 160_000, 16, 16, 2048, 256, 10
+SERVE_KERNELS = ("knn_topk", "hash_codes", "kmeans_iter")
+
+
+def serve_pipeline() -> SpectralPipeline:
+    """The serving cell's training pipeline: the launcher's defaults but a
+    Lanczos block of k = 16, as the reference's ``BENCH_serving.json`` run
+    trained for its parity gate — the kNN graph of the blobs has 16
+    components, and single-vector Lanczos (b = 1) resolves only part of the
+    16-fold eigenvalue 0 (ROADMAP R3, held in both packages by
+    ``tests/test_torch_serve.py``)."""
+    return SpectralPipeline(n_clusters=K_SERVE, eig=EigConfig(block_size=K_SERVE))
+
+
+def serve_data(n: int):
+    """``launch/serve.py``'s training pool (its rng, its draws) for ``n``
+    points, then ``Q_SERVE`` held-out rows drawn after it from the same
+    centres; and the true blobs of both."""
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(K_SERVE, D_SERVE)) * 8.0
+    pool = np.concatenate([centers[i] + rng.normal(size=(n // K_SERVE, D_SERVE))
+                           for i in range(K_SERVE)]).astype(np.float32)
+    tru = rng.integers(K_SERVE, size=Q_SERVE)
+    queries = (centers[tru] + rng.normal(size=(Q_SERVE, D_SERVE))).astype(np.float32)
+    return pool, queries, np.repeat(np.arange(K_SERVE), n // K_SERVE), tru
+
+
+def serve_all(index, queries):
+    """``serve_fn`` over ``queries`` in batches of ``B_SERVE``: the outputs
+    concatenated, and each batch's host-clock milliseconds (synchronised)."""
+    outs, ms = [], []
+    for s in range(0, queries.shape[0], B_SERVE):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(serve_fn(index, queries[s:s + B_SERVE]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return OOSResult(*(torch.cat(f) for f in zip(*outs))), ms
+
+
+def knn_serve_record(pool, q) -> dict:
+    """``knn_topk`` at the serving shape ([256 queries × 160,000 pool × 16],
+    k = 10, query_offset = n) through the wrapper ``oos_embed`` calls,
+    against its plain version (distances rtol 1e-5, ids equal up to
+    near-ties); real rows bitwise the same at 1, 37, 128, 129 and 256 query
+    rows (one block with spare threads, two blocks); timed with events
+    against ``torch.cdist`` + ``topk``."""
+    n = pool.shape[0]
+    gd, gi = knn_ops.knn_topk(pool, KNN_SERVE, queries=q, query_offset=n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wd, wi = knn_topk_ref(pool, KNN_SERVE, queries=q, query_offset=n)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-6)
+    swaps = near_tie_swaps(pool, gi, wi, wd, queries=q)
+    check(bool((gi >= 0).all() & (gi < n).all()), "knn_topk@serve: an id outside the pool")
+    for r in (1, 37, 128, 129):
+        rd, ri = knn_ops.knn_topk(pool, KNN_SERVE, queries=q[:r].contiguous(), query_offset=n)
+        check(torch.equal(rd, gd[:r]) and torch.equal(ri, gi[:r]),
+              f"knn_topk@serve: rows change with the batch's row count ({r} rows)")
+    # a NaN query (the launcher's injected fault): its row is the plain
+    # version's — NaN distances, the lowest ids — and no other row moves
+    qn = q.clone()
+    qn[5, 3] = float("nan")
+    nd, ni = knn_ops.knn_topk(pool, KNN_SERVE, queries=qn, query_offset=n)
+    pd, pi = knn_topk_ref(pool, KNN_SERVE, queries=qn[5:6], query_offset=n + 5)
+    rest = torch.arange(q.shape[0], device=q.device) != 5
+    check(torch.equal(ni[5:6], pi) and bool(torch.isnan(nd[5]).all() & torch.isnan(pd).all())
+          and torch.equal(nd[rest], gd[rest]) and torch.equal(ni[rest], gi[rest]),
+          "knn_topk@serve: a NaN query's row differs from the plain version's")
+    ms = cuda_ms(lambda: knn_topk_cuda(q, pool, KNN_SERVE, query_offset=n, d=D_SERVE), iters=20)
+    library_ms = cuda_ms(lambda: torch.topk(torch.cdist(q, pool) ** 2, KNN_SERVE,
+                                            largest=False), iters=20)
+    n_bytes = (n + q.shape[0]) * D_SERVE * 4 + q.shape[0] * KNN_SERVE * 8
+    t_ops, t_bytes = issue_ms(float(q.shape[0]) * n * D_SERVE), n_bytes / PEAK_HBM_BYTES * 1e3
+    bms, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    err = float((gd - wd).abs().max())
+    log(f"[serve] kernel knn_topk@serve (tol: rtol 1e-5, ids equal up to near-ties; rows "
+        f"bitwise the same at 1/37/128/129/256 rows; a NaN query's row bitwise the plain "
+        f"version's): [{q.shape[0]} × {n} × {D_SERVE}] "
+        f"k={KNN_SERVE} offset={n}: {swaps} ids swapped at near-ties, max|Δd|={err:.2e}; "
+        f"kernel_ms={ms:.4f} (events) plain_ms={plain_ms:.2f} library_ms={library_ms:.4f} "
+        f"(cdist + topk) bound_ms={bms:.4f} ({by}, fp32 issue slots)")
+    return dict(name="knn_topk@serve", route="cuda", source="src/repro_torch/csrc/knn_topk.cu",
+                replaces="src/repro/kernels/knn_topk/kernel.py:91", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
+                near_tie_swaps=swaps)
+
+
+def hash_serve_record(q) -> dict:
+    """``hash_codes`` on one batch of query rows ([256 × 16], 16 tables of 16
+    bits, seed 0) against its plain version (``hold_hash``), timed as
+    profiler device time against ``x @ P`` + the pack."""
+    dev = q.device
+    planes = lsh_ops.make_planes(D_SERVE, LSH_TABLES, LSH_BITS, 0).to(dev)
+    near, differ, err = hold_hash(q, planes)
+    copies = [(q.clone(),) for _ in range(8)]
+    ms = device_ms(lambda x: hash_codes_cuda(x, planes), copies, iters=80)
+    plain_ms = cuda_ms(lambda: hash_codes_ref(q, planes), iters=20)
+    pows = 2 ** torch.arange(LSH_BITS, device=dev, dtype=torch.int32)
+
+    def library(x):  # x @ P, then the pack
+        proj = x @ planes
+        return ((proj[..., :-1] >= 0).int() * pows).sum(-1), proj[..., -1]
+
+    library_ms = device_ms(library, copies, iters=80)
+    cols = LSH_BITS + 1
+    nq = q.shape[0]
+    bms, by = bound(nq * D_SERVE * 4 + LSH_TABLES * D_SERVE * cols * 4 + LSH_TABLES * nq * 8,
+                    2.0 * nq * LSH_TABLES * cols * D_SERVE)
+    log(f"[serve] kernel hash_codes@serve (tol: codes exact where every |proj| >= "
+        f"{HASH_EPS:g}, tie rtol 1e-5): [{nq} × {D_SERVE}] T={LSH_TABLES} bits={LSH_BITS}: "
+        f"{near} (table, point) pairs near 0, {differ} codes differ, max|Δtie|={err:.2e}; "
+        f"kernel_ms device={ms:.4f} plain_ms={plain_ms:.4f} library_ms device={library_ms:.4f} "
+        f"bound_ms={bms:.5f} ({by})")
+    return dict(name="hash_codes@serve", route="cuda", source="src/repro_torch/csrc/hash_codes.cu",
+                replaces="src/repro/kernels/lsh_candidates/kernel.py:48", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+
+
+def hold_pool_search(pool) -> dict:
+    """Stage 1 of the serving cell's training, all pairs of the pool
+    ([160,000 × 16], k = 10) through the wrapper Stage 1 calls, against its
+    plain version: distances rtol 1e-5, ids equal up to near-ties."""
+    gd, gi = knn_ops.knn_topk(pool, KNN_SERVE)
+    wd, wi = knn_topk_ref(pool, KNN_SERVE)
+    torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-6)
+    swaps = near_tie_swaps(pool, gi, wi, wd)
+    err = float((gd - wd).abs().max())
+    log(f"[serve] knn_topk on the pool (tol: rtol 1e-5, ids equal up to near-ties): "
+        f"[{pool.shape[0]} × {D_SERVE}] k={KNN_SERVE}: {swaps} ids swapped at near-ties, "
+        f"max|Δd|={err:.2e}")
+    return dict(near_tie_swaps=swaps, max_abs_err=err)
+
+
+def kmeans_serve_record(emb, labels) -> dict:
+    """``kmeans_iter`` at the serving cell's training shape: the trained
+    embedding [160,000 × 16] and the k = 16 centroids of its final labels,
+    held with ``hold_iter`` (10,000 rows a cluster: sums to fp32
+    summation's bound); timed with events against its plain version and
+    the library composition."""
+    x = emb.float().contiguous()
+    n, d = x.shape
+    c = tkm.update_centroids(x, labels, K_SERVE, torch.zeros(K_SERVE, d, device=x.device))
+    err = hold_iter(x, c, "the serving cell's embedding", order_bound=True)
+    cn = (c * c).sum(1)
+    ms = cuda_ms(lambda: kmeans_iter_cuda(x, c, cn), iters=20)
+    plain_ms = cuda_ms(lambda: kmeans_iter_ref(x, c), iters=5)
+    library_ms = cuda_ms(lambda: kmeans_library(x, c), iters=5)
+    bms, by = kmeans_bound(iter_bytes(n, K_SERVE, d), n, K_SERVE, d)
+    log(f"[serve] kernel kmeans_iter@serve (tol: labels and counts exact, sums within fp32 "
+        f"summation's bound γ_m·Σ|x| of the float64 sums, dmin atol 1e-5·(‖x‖²+‖c‖²)): "
+        f"the trained embedding [{n} × {d}] and the "
+        f"centroids of its labels, k={K_SERVE}: labels and counts equal, max|Δ| sums/dmin="
+        f"{err:.2e}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"(chunked cdist + argmin + index_add_) bound_ms={bms:.5f} ({by})")
+    return dict(name="kmeans_iter@serve", route="cuda", source="src/repro_torch/csrc/kmeans_iter.cu",
+                replaces="src/repro/kernels/kmeans_iter/kernel.py:98", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+
+
+def profile_serve(index, queries, tag: str) -> dict:
+    """``serve_all`` once more under ``torch.profiler`` (device activity
+    only): the device's busy share of the wall and the kernels that take
+    the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_:
+        t0 = time.perf_counter()
+        serve_all(index, queries)
+        wall = time.perf_counter() - t0
+    events = prof_.key_averages()
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"[profile] serve {tag}: {Q_SERVE} queries in {wall * 1e3:.1f} ms wall, device busy "
+        f"{busy * 1e3:.1f} ms ({100 * busy / wall:.1f} %)")
+    for e in top:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    return dict(wall_s=wall, device_busy_s=busy,
+                top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
+
+
+def pad_invariance(index, queries, tag: str) -> None:
+    """A batch of ``B_SERVE`` rows holding 1, 37 and 256 real rows (zero
+    rows after them) returns the same real rows, bitwise."""
+    outs = {}
+    for r in (1, 37, B_SERVE):
+        b = torch.zeros(B_SERVE, D_SERVE, device=queries.device)
+        b[:r] = queries[:r]
+        outs[r] = serve_fn(index, b)
+    for f in OOSResult._fields:
+        a, b, c = (getattr(outs[r], f) for r in (1, 37, B_SERVE))
+        check(torch.equal(a[:1], b[:1]) and torch.equal(b[:37], c[:37]),
+              f"serve ({tag}): OOSResult.{f} changes with the pad rows")
+
+
+def run_launcher(argv) -> tuple:
+    """``launch.serve.main(argv)`` in process: (exit code, its stdout lines,
+    host seconds), the lines echoed."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = launch_serve.main(argv)
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        log(f"[launcher] {ln[:400]}")
+    return rc, lines, wall
+
+
+def serve_card_vs_cpu() -> dict:
+    """n = 4000 (250 points a blob): train, build both indexes and serve the
+    2,048 held-out queries on the card and on the CPU from one seed; OOS
+    labels ARI ≥ 0.99 between the two, exact and LSH."""
+    pool, queries, _, _ = serve_data(4000)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pipe = serve_pipeline()
+        res = pipe.run(pool, torch.Generator().manual_seed(0), device=dev)
+        cfg = OOSConfig.from_graph_config(pipe.graph)
+        out[dev] = dict(train=res.labels.cpu(), **{
+            m: serve_fn(build_index(pool, res, config=dataclasses.replace(cfg, method=m),
+                                    device=dev), queries).labels.cpu()
+            for m in ("exact", "lsh")})
+    ari = {m: adjusted_rand_index(out["cuda"][m], out["cpu"][m]) for m in ("train", "exact", "lsh")}
+    same = {m: bool(torch.equal(out["cuda"][m], out["cpu"][m])) for m in ("exact", "lsh")}
+    log(f"[serve] card vs CPU at n=4000: ARI train {ari['train']:.4f}, OOS exact "
+        f"{ari['exact']:.4f}, OOS LSH {ari['lsh']:.4f}; OOS labels bitwise equal: {same}")
+    for m in ("exact", "lsh"):
+        check(ari[m] >= 0.99, f"serve card vs CPU: OOS {m} ARI {ari[m]:.4f} < 0.99")
+    return dict(ari=ari, bitwise=same)
+
+
+def serve_phase() -> tuple:
+    """The serving path at the serving cell's size: train the pool as
+    ``serve_online`` does, build the exact and the LSH index, serve the
+    held-out queries in batches of 256 — every launch counter zeroed just
+    before and read just after.  Then its gates (OOS ARI ≥ 0.95 against a
+    full re-clustering of pool + queries, exact and LSH; persisted LSH
+    tables against the rehash path, label agreement 1.0;
+    ``routed_candidates`` on the card = on the CPU, bitwise; pad-row
+    invariance; a registry load onto the card bitwise the published
+    index), per-label latency through the micro-batcher, every kernel of the
+    path held at the shapes the path gave it (``knn_topk`` on the pool and
+    on a query batch, ``hash_codes`` on the pool and on a query batch,
+    ``kmeans_iter`` on the trained embedding), the launcher's two modes with
+    their faults injected, and the card against the CPU at n = 4000.
+    Returns the three kernel records and the phase's record."""
+    import shutil
+
+    dev = torch.device("cuda")
+    pool_np, queries_np, truth, query_truth = serve_data(N_SERVE)
+    pool, queries = torch.from_numpy(pool_np).to(dev), torch.from_numpy(queries_np).to(dev)
+    pipe = serve_pipeline()
+    cfg = OOSConfig.from_graph_config(pipe.graph)
+    for _, fn in COUNTERS:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = pipe.run(pool, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trained = {name: fn.launches for name, fn in COUNTERS}
+    t0 = time.perf_counter()
+    exact = build_index(pool, res, config=cfg)
+    lsh = build_index(pool, res, config=dataclasses.replace(cfg, method="lsh"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    before = {name: fn.launches for name, fn in COUNTERS}
+    served, exact_ms = serve_all(exact, queries)
+    mid = {name: fn.launches for name, fn in COUNTERS}
+    served_lsh, lsh_ms = serve_all(lsh, queries)
+    launches = {name: fn.launches for name, fn in COUNTERS}
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0, f"serve path never launched {name}")
+    n_batches = Q_SERVE // B_SERVE
+    per_batch = dict(knn_topk=(mid["knn_topk"] - before["knn_topk"]) / n_batches,
+                     hash_codes=(launches["hash_codes"] - mid["hash_codes"]) / n_batches)
+    rep = [r.to_dict() for r in res.reports]
+    train_ari = adjusted_rand_index(res.labels, truth)
+    log(f"[serve] n={N_SERVE} k={K_SERVE} d={D_SERVE}: train {train_s:.2f} s (restarts "
+        f"{res.lanczos_restarts}, embed converged={rep[1]['converged']} residual_max="
+        f"{rep[1]['residual_max']:.2e}, k-means iterations {res.kmeans_iterations}); train "
+        f"labels ARI against the blobs {train_ari:.4f}; both indexes built in {build_s:.3f} s")
+    log(f"[serve] launches: training {trained}; serving {Q_SERVE} queries in "
+        f"{n_batches} batches of {B_SERVE} (exact, then LSH) "
+        f"{ {k: launches[k] - before[k] for k in launches} }; a batch: {per_batch}")
+    log(f"[serve] serve_fn a batch of {B_SERVE} (host clock, synchronised): exact "
+        + " ".join(f"{t:.2f}" for t in exact_ms) + " ms; LSH "
+        + " ".join(f"{t:.2f}" for t in lsh_ms) + " ms")
+    # the gates
+    full = pipe.run(torch.cat([pool, queries]), torch.Generator().manual_seed(1))
+    full_q = full.labels[N_SERVE:]
+    ari = dict(exact=adjusted_rand_index(served.labels, full_q),
+               lsh=adjusted_rand_index(served_lsh.labels, full_q),
+               exact_vs_truth=adjusted_rand_index(served.labels, query_truth))
+    profiled = ({tag: profile_serve(index, queries, tag) for tag, index in
+                 (("exact", exact), ("lsh", lsh))} if "--profile" in sys.argv[1:] else None)
+    rehash, _ = serve_all(dataclasses.replace(lsh, lsh_tables=None), queries)
+    agree = float((rehash.labels == served_lsh.labels).float().mean())
+    for name, out in (("exact", served), ("lsh", served_lsh)):
+        check(health.numeric_problems({"embedding": out.embedding, "dist2": out.dist2}) == (),
+              f"serve ({name}): non-finite rows")
+    log(f"[serve] OOS labels against a full re-clustering of pool + queries (n="
+        f"{N_SERVE + Q_SERVE}): ARI exact {ari['exact']:.4f}, LSH {ari['lsh']:.4f}; exact "
+        f"against the queries' blobs {ari['exact_vs_truth']:.4f}; LSH persisted tables against "
+        f"the rehash path: label agreement {agree:.4f}")
+    check(ari["exact"] >= 0.95, f"serve: exact OOS ARI {ari['exact']:.4f} < 0.95")
+    check(ari["lsh"] >= 0.95, f"serve: LSH OOS ARI {ari['lsh']:.4f} < 0.95")
+    check(agree == 1.0, f"serve: persisted/rehash LSH label agreement {agree:.4f} < 1")
+    q1 = queries[:B_SERVE].contiguous()
+    planes = lsh_ops.make_planes(D_SERVE, cfg.n_tables, cfg.n_bits, cfg.lsh_seed)
+    qc, qt = lsh_ops.hash_codes(q1, planes)
+    win = lsh_ops.default_candidates(cfg.knn_k, cfg.n_tables) // cfg.n_tables
+    card = lsh_ops.routed_candidates(lsh.lsh_tables, qc, qt, win=win)
+    tables_cpu = lsh_ops.LshTables(*(t.cpu() for t in lsh.lsh_tables))
+    check(torch.equal(card.cpu(), lsh_ops.routed_candidates(tables_cpu, qc.cpu(), qt.cpu(),
+                                                            win=win)),
+          "serve: routed_candidates on the card differs from the CPU's")
+    for name, index in (("exact", exact), ("lsh", lsh)):
+        pad_invariance(index, queries, name)
+    reg_dir = ROOT / "build" / "serve_registry"
+    shutil.rmtree(reg_dir, ignore_errors=True)
+    registry = EmbeddingRegistry(str(reg_dir))
+    for index in (exact, lsh):
+        _, loaded = registry.load(registry.publish(index))
+        check(loaded.device.type == "cuda", "registry: load() left the card")
+        check(all(torch.equal(getattr(loaded, f), getattr(index, f))
+                  for f in ("points", "embedding", "centroids", "labels"))
+              and loaded.config == index.config
+              and (index.lsh_tables is None) == (loaded.lsh_tables is None)
+              and (index.lsh_tables is None
+                   or all(torch.equal(a, b) for a, b in zip(loaded.lsh_tables, index.lsh_tables))),
+              "registry: the loaded index differs from the published one")
+    log(f"[serve] routed_candidates card = CPU bitwise ({card.shape[0]} × {card.shape[1]}); "
+        f"pad rows change no real row (1, 37, 256 real rows, exact and LSH); registry "
+        f"publish → load onto the card bitwise (versions {registry.versions()})")
+    # per-label latency through the micro-batcher: full batches, then single rows
+    lat = dict(full=[], single=[])
+    with MicroBatcher(functools.partial(serve_fn, exact), D_SERVE,
+                      BatchConfig(batch_size=B_SERVE, max_wait_s=0.01)) as mb:
+        for s in range(0, Q_SERVE, B_SERVE):
+            t0 = time.perf_counter()
+            out = mb.label(queries_np[s:s + B_SERVE], timeout=60.0)
+            lat["full"].append((time.perf_counter() - t0) * 1e3)
+            check(np.array_equal(out.labels, served.labels[s:s + B_SERVE].cpu().numpy()),
+                  "serve: the batcher's labels differ from serve_fn's")
+        for i in range(16):
+            t0 = time.perf_counter()
+            mb.label(queries_np[i], timeout=60.0)
+            lat["single"].append((time.perf_counter() - t0) * 1e3)
+        stats = dataclasses.asdict(mb.stats)
+    log(f"[serve] micro-batcher (max wait 10 ms): a full batch of {B_SERVE} "
+        + " ".join(f"{t:.2f}" for t in lat["full"]) + f" ms ({np.median(lat['full']) / B_SERVE * 1e3:.2f} "
+        f"µs a label, median); one row " + " ".join(f"{t:.2f}" for t in lat["single"])
+        + f" ms; stats {stats}")
+    # every kernel of the path at the shapes it gave them: training's search
+    # and k-means, the index build's hash of the pool, and a query batch
+    pool_search = hold_pool_search(pool)
+    near, differ, err = hold_hash(pool, planes.to(dev))
+    log(f"[serve] hash_codes on the pool (as build_index runs it; tol as hash_codes@serve): "
+        f"[{N_SERVE} × {D_SERVE}]: {near} (table, point) pairs near 0, {differ} codes differ, "
+        f"max|Δtie|={err:.2e}")
+    q = queries[:B_SERVE].contiguous()
+    records = [knn_serve_record(pool, q), hash_serve_record(q),
+               kmeans_serve_record(res.embedding, res.labels)]
+    for r in records:
+        r["launches"] = launches[r["name"].split("@")[0]]
+    # the launcher, in process, at the serving cell's size and at its docstring's
+    launcher_dir = ROOT / "build" / "serve_launcher_registry"
+    shutil.rmtree(launcher_dir, ignore_errors=True)
+    rc, lines, serve_wall = run_launcher([
+        "--mode", "serve", "--n", str(N_SERVE), "--clusters", str(K_SERVE), "--dim",
+        str(D_SERVE), "--requests", "64", "--rows-per-request", "4", "--batch-size",
+        str(B_SERVE), "--inject-fault", "nan-query", "--registry-dir", str(launcher_dir)])
+    summary = json.loads(lines[-1])
+    check(rc == 32, f"launcher --mode serve returned {rc}, not 32 (the odd requests)")
+    rc2, lines2, cluster_wall = run_launcher([
+        "--mode", "cluster", "--n", "20000", "--clusters", "64", "--requests", "4",
+        "--inject-fault", "nan-graph"])
+    check(rc2 == 2, f"launcher --mode cluster returned {rc2}, not 2")
+    shutil.rmtree(reg_dir, ignore_errors=True)
+    shutil.rmtree(launcher_dir, ignore_errors=True)
+    log(f"[serve] launcher: serve mode exit {rc} in {serve_wall:.2f} s (p50 {summary['p50_ms']} "
+        f"ms, p99 {summary['p99_ms']} ms, fill {summary['fill']}, batches {summary['batches']}, "
+        f"train_ari_vs_served {summary['train_ari_vs_served']}); cluster mode exit {rc2} in "
+        f"{cluster_wall:.2f} s")
+    e2e = serve_card_vs_cpu()
+    rec = dict(train_s=train_s, pool_search=pool_search,
+               pool_hash=dict(near_zero=near, codes_differ=differ, max_abs_err=err), build_s=build_s, train_ari=train_ari, restarts=res.lanczos_restarts,
+               embed_report=rep[1], launches=launches, launches_training=trained,
+               launches_per_batch=per_batch, batch_ms=dict(exact=exact_ms, lsh=lsh_ms),
+               ari=ari, rehash_agreement=agree, batcher_ms=lat, batcher_stats=stats,
+               launcher=dict(serve=summary, serve_wall_s=serve_wall, cluster_wall_s=cluster_wall,
+                             cluster_lines=[ln for ln in lines2 if ln.startswith("[req")]),
+               card_vs_cpu=e2e, profile=profiled)
+    return records, rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script needs a GPU",
@@ -1569,6 +2032,8 @@ def main() -> int:
     e2e = {tag: end_to_end(make, f"e2e-{tag}", 1e-4) for tag, make in (
         ("main", main_pipeline), ("scalable", scalable_pipeline),
         ("sparsify", sparsify_pipeline), ("coarsen", coarsen_pipeline))}
+    t_serve = time.perf_counter()
+    serve_kernels, serve_rec = serve_phase()
     t_done = time.perf_counter()
     profiled = None
     if "--profile" in sys.argv[1:]:
@@ -1578,13 +2043,15 @@ def main() -> int:
     for kern in kernels:  # each kernel's launches on its own path
         rec = main_rec if kern["name"] in MAIN_KERNELS else scal_rec
         kern["launches"] = rec["launches"][kern["name"]]
+    kernels += serve_kernels  # launches from the serving path's run
     summary = dict(device=smi, torch=torch.__version__, cuda=torch.version.cuda,
                    build_s=build_s, random=random_rec, guard=guard_rec, blockell=blockell_rec,
                    kernels=kernels, main=main_rec, scalable=scal_rec, reduced=reduced,
-                   resume=resume_rec, e2e=e2e, profile=profiled,
+                   resume=resume_rec, e2e=e2e, serve=serve_rec, profile=profiled,
                    phase_s=dict(kernels=t_main - t_start, main=t_scal - t_main,
                                 scalable=t_red - t_scal, reduced_and_resume=t_e2e - t_red,
-                                e2e=t_done - t_e2e, total=time.perf_counter() - t_start))
+                                e2e=t_serve - t_e2e, serve=t_done - t_serve,
+                                total=time.perf_counter() - t_start))
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     log(f"[done] {summary['phase_s']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

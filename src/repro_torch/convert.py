@@ -18,6 +18,8 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.reduce import ReduceInfo, ReductionState
 from repro_torch.core.spectral import EmbedState, GraphState, SpectralPipeline
+from repro_torch.kernels.lsh_candidates.ops import LshTables
+from repro_torch.serve.oos import OOSConfig, ServingIndex
 from repro_torch.sparse.formats import COO, CSR, BlockELL
 
 
@@ -91,3 +93,23 @@ def pipeline(config: Union[str, dict]) -> SpectralPipeline:
     """A ``SpectralPipeline`` from the reference's ``to_dict()`` (a dict or
     its JSON text)."""
     return SpectralPipeline.from_dict(json.loads(config) if isinstance(config, str) else config)
+
+
+def lsh_tables(t: Any, *, device: DeviceLike = None) -> LshTables:
+    """Reference ``LshTables`` (order, codes, ties): a pool's persisted LSH
+    tables."""
+    dev = resolve_device(device)
+    return LshTables(order=_t(t.order, dev, torch.int32), codes=_t(t.codes, dev, torch.int32),
+                     ties=_t(t.ties, dev, torch.float32))
+
+
+def serving_index(i: Any, *, device: DeviceLike = None) -> ServingIndex:
+    """A reference ``ServingIndex`` (points, embedding, centroids, labels,
+    config, lsh_tables)."""
+    dev = resolve_device(device)
+    tables = None if i.lsh_tables is None else lsh_tables(i.lsh_tables, device=dev)
+    return ServingIndex(points=_t(i.points, dev, torch.float32),
+                        embedding=_t(i.embedding, dev, torch.float32),
+                        centroids=_t(i.centroids, dev, torch.float32),
+                        labels=_t(i.labels, dev, torch.int32),
+                        config=OOSConfig(**i.config.to_dict()), lsh_tables=tables)

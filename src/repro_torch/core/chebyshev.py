@@ -45,7 +45,7 @@ import torch
 
 from repro_torch import _random
 from repro_torch._device import cpu_generator
-from repro_torch.core.lanczos import LanczosResult, _op_device
+from repro_torch.core.lanczos import LanczosResult, _eigh, _op_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,16 +347,9 @@ def chebyshev_eigsh(op, cfg: ChebConfig, *, v0: Optional[torch.Tensor] = None,
     q, _ = torch.linalg.qr(y)  # [n, R] whitened basis
     aq = sign * op.mm(q).to(f32)  # one more operator application
     b = q.T @ aq
-    # the R×R Rayleigh-Ritz problem in float64 (ROADMAP §C P1: float32
-    # cuSOLVER eigh shifted every eigenvalue by ~5.5e-5 on the H100).  A
-    # diverged filter leaves non-finite entries, on which torch's eigh
-    # raises: solve a zero block instead and return NaN pairs, as the
-    # reference's eigh does, for the embed stage's ladder to catch.
-    b = 0.5 * (b + b.T).double()
-    finite = torch.isfinite(b).all()
-    theta, s = torch.linalg.eigh(torch.where(finite, b, 0.0))  # ascending [R]
-    theta = torch.where(finite, theta, math.nan).to(f32)
-    s = torch.where(finite, s, math.nan).to(f32)
+    # the R×R Rayleigh-Ritz problem in float64; a diverged filter's
+    # non-finite block comes back as NaN pairs for the embed stage's ladder
+    theta, s = _eigh(b)  # ascending [R]
     kk = min(cfg.k, r)
     sel = s[:, r - kk:].flip(1)  # top-kk, descending
     vals = theta[r - kk:].flip(0)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -82,6 +83,11 @@ class StageReport:
             "residual_max": float(self.residual_max),
             "wall_s": float(self.wall_s),
         }
+
+
+def reports_to_dict(reports: Tuple[StageReport, ...]) -> list:
+    """Serialize a report trail (the serve loop's structured log record)."""
+    return [r.to_dict() for r in reports]
 
 
 def is_concrete(*values) -> bool:
@@ -159,6 +165,45 @@ def check_graph(val: torch.Tensor) -> None:
             remedy="similarity weights must be non-negative (the sym "
                    "normalization takes sqrt of degrees); clamp or rebuild "
                    "the graph")
+
+
+def numeric_problems(tree, context: str = "") -> Tuple[str, ...]:
+    """Non-finite scan of a nested dict/list/tuple of numbers, tensors or
+    arrays: the :func:`result_problems` discipline generalized to metric
+    trees and served rows.  Returns problem strings naming the offending
+    path; empty means healthy.  Non-numeric leaves (strings, None, integer
+    tensors) are ignored.  A tensor is counted on its own device; only the
+    count is read back."""
+    problems = []
+
+    def visit(path, v):
+        if isinstance(v, dict):
+            for k, sub in v.items():
+                visit(f"{path}.{k}" if path else str(k), sub)
+        elif isinstance(v, (list, tuple)):
+            for i, sub in enumerate(v):
+                visit(f"{path}[{i}]", sub)
+        elif isinstance(v, (int, bool, str, bytes)) or v is None:
+            return
+        elif isinstance(v, torch.Tensor):
+            if v.is_floating_point() or v.is_complex():
+                report(path, int((~torch.isfinite(v)).sum()), v.numel())
+        else:
+            try:
+                arr = np.asarray(v)
+            except (TypeError, ValueError):  # not array-like: not a number
+                return
+            if arr.dtype.kind in "fc":
+                report(path, int((~np.isfinite(arr)).sum()), arr.size)
+
+    def report(path, bad, size):
+        if bad:
+            problems.append(f"non-finite value at {path!r}"
+                            + (f" in {context}" if context else "")
+                            + (f" ({bad} entries)" if size > 1 else ""))
+
+    visit("", tree)
+    return tuple(problems)
 
 
 def result_problems(result) -> Tuple[str, ...]:

@@ -22,6 +22,7 @@ and one seed gives the same draws on the CPU and on the card.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -158,9 +159,16 @@ def _eigh(Tm: torch.Tensor):
     ``eigh`` on an H100 every converged Laplacian eigenvalue of the
     4000-voxel DTI graph came out ~5.5e-5 below a float64 reference
     (``tests/test_torch_cuda.py`` holds the card to it).  The m×m problem is
-    small beside the [m, n] basis work."""
-    theta, S = torch.linalg.eigh(0.5 * (Tm + Tm.T).double())
-    return theta.float(), S.float()
+    small beside the [m, n] basis work.
+
+    A non-finite T (a NaN operator) makes torch's ``eigh`` raise where the
+    reference's returns NaN: a zero block is solved instead and NaN pairs
+    returned, for the embed stage's ladder to catch, with no host read."""
+    T = 0.5 * (Tm + Tm.T).double()
+    finite = torch.isfinite(T).all()
+    theta, S = torch.linalg.eigh(torch.where(finite, T, 0.0))
+    return (torch.where(finite, theta, math.nan).float(),
+            torch.where(finite, S, math.nan).float())
 
 
 def _op_device(op, v0) -> torch.device:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import _random
+from repro_torch.core.lanczos import _eigh
 from repro_torch.sparse.formats import COO, coo_from_edges
 from repro_torch.sparse.ops import degrees, sort_coo_rows
 
@@ -251,10 +252,10 @@ def lift_and_smooth(op, u0: torch.Tensor, *, steps: int = 2
     q, _ = torch.linalg.qr(u)
     aq = op.mm(q).to(f32)  # the Rayleigh–Ritz stream
     b = q.T @ aq
-    theta, s = torch.linalg.eigh((0.5 * (b + b.T)).double())  # ascending
-    sel = s.to(f32).flip(1)  # descending
+    theta, s = _eigh(b)  # ascending
+    sel = s.flip(1)  # descending
     u = q @ sel
-    vals = theta.to(f32).flip(0)
+    vals = theta.flip(0)
     resid = torch.linalg.norm(aq @ sel - u * vals[None, :], dim=0)
     return u, vals, resid
 

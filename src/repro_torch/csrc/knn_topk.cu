@@ -4,7 +4,11 @@
 // src/repro/kernels/knn_topk/kernel.py.  For every query row: the k nearest
 // candidate rows by squared Euclidean distance, self excluded (global query
 // id = query_offset + row), ascending, ties to the lowest candidate id,
-// unfilled slots (+inf, -1).
+// unfilled slots (+inf, -1).  The order is that of a stable sort of the
+// distances, the plain version's: the query itself counts as a candidate at
+// +inf, a NaN distance ranks after +inf and keeps its id, and a slot at
+// +inf is written (+inf, -1).  So a query or candidate with a NaN coordinate
+// gives the plain version's rows, NaN distances included.
 //
 // What bounds it on the H100: issue slots.  All pairs are visited.  The
 // function needs d multiply-adds a pair (‖c‖² − 2q·c, with ‖c‖² in the
@@ -37,11 +41,16 @@
 //     other tiles only compare; swept in ascending id, every slice of the
 //     lattice was nearer than the one before and rebuilt the top-k, and the
 //     warp ran each lane's insertion shift;
-//   * the running top-k is a sorted register array ordered by (distance,
-//     id): the visit order no longer gives the lowest-id tie rule, so a
-//     candidate enters when (d, id) < (bd[K−1], bi[K−1]) and the fully
-//     unrolled shift orders the same way.  The result is the first k pairs
-//     in that order, whatever the order of the visit.
+//   * the running top-k is a sorted register array ordered by (key, id),
+//     the key a distance's bits as an unsigned word (monotone for
+//     distances >= 0, +inf above every finite one, every NaN one word
+//     above +inf, empty slots above all): the visit order no longer gives
+//     the lowest-id tie rule, so a candidate enters when (key, id) <
+//     (bk[K−1], bi[K−1]) and the fully unrolled shift orders the same way.
+//     The result is the first k pairs in that order, whatever the order of
+//     the visit.  The hot loop's filter stays one float compare, !(d >
+//     worst), which lets a NaN through, and through everything while the
+//     worst slot is empty, +inf or NaN.
 // Measured on an H100 80GB HBM3 at 700 W (tools/knn_topk_variants.py,
 // k = 16): 8.7 ms on the 142,541-voxel lattice against 27.5 for the
 // ascending sweep it replaced (insertions a query 136 against 1,545), and
@@ -55,29 +64,37 @@ constexpr int kThreads = 128;
 constexpr int kSmemFloats = 12288;  // 48 KB of candidate tile
 constexpr int kTile = 1024;         // most candidates a tile holds
 constexpr int kGroup = 8;           // candidates a hot-loop step compares
+constexpr unsigned kInfKey = 0x7f800000u;  // +inf's bits
+constexpr unsigned kNanKey = 0x7fffffffu;  // every NaN distance
+constexpr unsigned kEmpty = 0xffffffffu;   // a slot no candidate has taken
 
-// (d0, i0) after (d1, i1) in the order (distance, id)
-__device__ __forceinline__ bool after(float d0, int i0, float d1, int i1) {
-  return d0 > d1 || (d0 == d1 && i0 > i1);
+// a distance (>= 0, +inf or NaN) as a key in the order of a stable sort
+__device__ __forceinline__ unsigned key_of(float d) {
+  return d != d ? kNanKey : __float_as_uint(d);
 }
 
-// Insert (d, id) into the sorted (bd, bi): position s takes its left
-// neighbour where that comes after (d, id), else (d, id) where the old entry
-// does; one pass from the right, every index fixed at compile time.
+// (k0, i0) after (k1, i1) in the order (key, id)
+__device__ __forceinline__ bool after(unsigned k0, int i0, unsigned k1, int i1) {
+  return k0 > k1 || (k0 == k1 && i0 > i1);
+}
+
+// Insert (kd, id) into the sorted (bk, bi): position s takes its left
+// neighbour where that comes after (kd, id), else (kd, id) where the old
+// entry does; one pass from the right, every index fixed at compile time.
 template <int KP>
-__device__ __forceinline__ void insert(float (&bd)[KP], int (&bi)[KP], float d, int id) {
+__device__ __forceinline__ void insert(unsigned (&bk)[KP], int (&bi)[KP], unsigned kd, int id) {
 #pragma unroll
   for (int s = KP - 1; s > 0; --s) {
-    if (after(bd[s - 1], bi[s - 1], d, id)) {
-      bd[s] = bd[s - 1];
+    if (after(bk[s - 1], bi[s - 1], kd, id)) {
+      bk[s] = bk[s - 1];
       bi[s] = bi[s - 1];
-    } else if (after(bd[s], bi[s], d, id)) {
-      bd[s] = d;
+    } else if (after(bk[s], bi[s], kd, id)) {
+      bk[s] = kd;
       bi[s] = id;
     }
   }
-  if (after(bd[0], bi[0], d, id)) {
-    bd[0] = d;
+  if (after(bk[0], bi[0], kd, id)) {
+    bk[0] = kd;
     bi[0] = id;
   }
 }
@@ -99,11 +116,11 @@ knn_topk_kernel(const float* __restrict__ xq, const float* __restrict__ xc,
   float q[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) q[c] = (D > 0 && c < D) ? qrow[c] : 0.f;
-  float bd[KP];
+  unsigned bk[KP];
   int bi[KP];
 #pragma unroll
   for (int s = 0; s < KP; ++s) {
-    bd[s] = CUDART_INF_F;
+    bk[s] = kEmpty;
     bi[s] = -1;
   }
 
@@ -133,6 +150,7 @@ knn_topk_kernel(const float* __restrict__ xq, const float* __restrict__ xc,
     for (int c = 0; c < cnt; c += G) {
       float dist[G];
       bool near = false;
+      const float worst = __uint_as_float(bk[KP - 1]);  // NaN while empty
 #pragma unroll
       for (int u = 0; u < G; ++u) {
         float acc;
@@ -152,17 +170,17 @@ knn_topk_kernel(const float* __restrict__ xq, const float* __restrict__ xc,
           }
         }
         dist[u] = acc;
-        near |= acc <= bd[KP - 1];
+        near |= !(acc > worst);
       }
       if (!near) continue;
-      // ties at the k-th distance go on to the id order
+      // ties at the k-th key go on to the id order; the query itself is a
+      // candidate at +inf
 #pragma unroll
       for (int u = 0; u < G; ++u) {
         const int cid = c0 + c + u;
-        const float acc = dist[u];
-        if (c + u < cnt && (acc < bd[KP - 1] || (acc == bd[KP - 1] && cid < bi[KP - 1])) &&
-            (long long)cid != self)
-          insert(bd, bi, acc, cid);
+        const unsigned kd = (long long)cid == self ? kInfKey : key_of(dist[u]);
+        if (c + u < cnt && (kd < bk[KP - 1] || (kd == bk[KP - 1] && cid < bi[KP - 1])))
+          insert(bk, bi, kd, cid);
       }
     }
   }
@@ -170,8 +188,9 @@ knn_topk_kernel(const float* __restrict__ xq, const float* __restrict__ xc,
 #pragma unroll
   for (int s = 0; s < KP; ++s) {
     if (s < k) {
-      out_d[(long long)q0 * k + s] = bd[s];
-      out_i[(long long)q0 * k + s] = bi[s];
+      const bool none = bk[s] == kInfKey || bk[s] == kEmpty;
+      out_d[(long long)q0 * k + s] = bk[s] == kEmpty ? CUDART_INF_F : __uint_as_float(bk[s]);
+      out_i[(long long)q0 * k + s] = none ? -1 : bi[s];
     }
   }
 }

@@ -70,6 +70,10 @@ def knn_topk(
 knn_topk.launches = 0  # kernel launches (CUDA path only)
 
 
+_NAN_KEY = 0x7F800001  # every NaN distance's sort key: just above +inf's bits
+_NOT_A_CANDIDATE = 0x7FFFFFFF  # the query's own row and −1 slots
+
+
 def knn_topk_rerank(
     x: torch.Tensor,  # [n, d] candidate pool
     cand: torch.Tensor,  # [nq, m] candidate ids (−1 = padding), unique per row
@@ -84,8 +88,12 @@ def knn_topk_rerank(
     contract (dist² ascending, int32 ids, invalid slots (+inf, −1), ties to
     the lowest position in the row — the smallest id, since candidate rows
     are ascending) with the ``m ≪ n`` ids of ``cand`` as the only candidates.
-    The query's own row and −1 slots never count.  Queries go in chunks of
-    ``block_q``, so only a [block_q, m, d] gather is live."""
+    The query's own row and −1 slots never count: they rank after every
+    candidate, a NaN distance included, so a query with a NaN coordinate
+    keeps its candidates at NaN distances (as ``knn_topk`` keeps them), where
+    the reference ranks them after its +inf padding and returns no
+    neighbours (ROADMAP R6).  Queries go in chunks of ``block_q``, so only a
+    [block_q, m, d] gather is live."""
     xf = x.float()
     cn = (xf * xf).sum(1)
     q = xf if queries is None else queries.float()
@@ -104,10 +112,17 @@ def knn_topk_rerank(
         safe = torch.where(cb >= 0, cb, 0)
         d2 = qn[s:s + block_q, None] + cn[safe] \
             - 2.0 * torch.einsum("qd,qmd->qm", q[s:s + block_q], xf[safe])
-        d2 = torch.where(valid, torch.clamp(d2, min=0.0), math.inf)
-        val, sel = torch.sort(d2, dim=1, stable=True)  # ties → lowest position
-        dist[s:s + block_q] = val[:, :ko]
-        idx[s:s + block_q] = safe.gather(1, sel[:, :ko]).to(torch.int32)
+        d2 = torch.clamp(d2, min=0.0)
+        # sort keys: a distance's bits without the sign (monotone for d2 ≥ 0,
+        # −0 as 0), every NaN one word above +inf, a slot that does not
+        # count above all
+        key = torch.clamp(d2.view(torch.int32) & 0x7FFFFFFF, max=_NAN_KEY)
+        key = torch.where(valid, key, _NOT_A_CANDIDATE)
+        kv, sel = torch.sort(key, dim=1, stable=True)  # ties → lowest position
+        sel = sel[:, :ko]
+        dist[s:s + block_q] = torch.where(kv[:, :ko] == _NOT_A_CANDIDATE, math.inf,
+                                          d2.gather(1, sel))
+        idx[s:s + block_q] = safe.gather(1, sel).to(torch.int32)
     idx = torch.where(torch.isinf(dist), -1, idx)  # canonicalize invalid slots
     if ko < k:  # fewer candidates than requested neighbours
         dist = torch.cat([dist, torch.full((nq, k - ko), math.inf, device=x.device)], 1)

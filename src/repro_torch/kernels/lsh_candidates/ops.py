@@ -1,5 +1,4 @@
-"""LSH candidate generation for the approximate Stage 1 (mirrors the Stage-1
-part of :mod:`repro.kernels.lsh_candidates.ops`).
+"""LSH candidate generation (mirrors :mod:`repro.kernels.lsh_candidates.ops`).
 
 * :func:`hash_codes` — the kernel wrapper: a CUDA input launches the kernel
   in ``csrc/hash_codes.cu`` (or raises), a CPU input runs the plain version
@@ -14,13 +13,18 @@ part of :mod:`repro.kernels.lsh_candidates.ops`).
 The hyperplanes come from a CPU generator seeded with ``lsh_seed``
 (:func:`make_planes`), so one seed gives the same planes on the CPU and on
 the card; they are not the reference's ``jax.random`` planes (the parity
-tests substitute those for this module's ``make_planes``).  The persisted
-tables of the serving path (``LshTables``, ``sorted_tables``,
-``routed_candidates``) are not ported yet (ROADMAP A10).
+tests substitute those for this module's ``make_planes``).
+
+The serving path persists the pool's tables instead of hashing it per call:
+:func:`sorted_tables` keeps each table's (code, tie) order and
+:func:`routed_candidates` ranks queries hashed elsewhere into it
+(:class:`LshTables`).  Every sort is a stable ``argsort``: the reference's
+rule that a query ranks after an equal pool key rests on it, and NaN keys
+sort last, where ``jnp.argsort`` puts them.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -92,8 +96,7 @@ def lsh_candidates(x: torch.Tensor, *, m: int, n_tables: int = DEFAULT_N_TABLES,
     dev = x.device
     win = min(max(m // n_tables, 1), n)
     codes, tie = hash_codes(x, make_planes(d, n_tables, n_bits, seed))
-    p1 = torch.argsort(tie, dim=1, stable=True)
-    order = p1.gather(1, torch.argsort(codes.gather(1, p1), dim=1, stable=True))  # [T, n]
+    order = _lex_order(codes, tie)  # [T, n]
     pos = torch.empty_like(order)
     pos.scatter_(1, order, torch.arange(n, device=dev).expand(n_tables, n))
 
@@ -109,11 +112,82 @@ def lsh_candidates(x: torch.Tensor, *, m: int, n_tables: int = DEFAULT_N_TABLES,
         widx = (st[..., None] + steps).reshape(n_tables, q * win)
         cand = order.gather(1, widx).reshape(n_tables, q, win).permute(1, 0, 2) \
             .reshape(q, n_tables * win)
-        # dedup: one ascending sort (self → sentinel n lands at the tail),
-        # then duplicates — adjacent after the sort — masked to −1 in place
-        c = torch.where(cand == qid[s:s + q, None], n, cand)
-        c = torch.sort(c, dim=1).values
-        dup = torch.zeros_like(c, dtype=torch.bool)
-        dup[:, 1:] = c[:, 1:] == c[:, :-1]
-        out[s:s + q, : n_tables * win] = torch.where(dup | (c >= n), -1, c).to(torch.int32)
+        out[s:s + q, : n_tables * win] = _dedup(cand, qid[s:s + q], n)
     return out
+
+
+def _dedup(cand: torch.Tensor, qid: torch.Tensor, n: int) -> torch.Tensor:
+    """Window ids ``[nq, w]`` deduped in place: one ascending sort a row (the
+    query's own id → sentinel n lands at the tail), then duplicates —
+    adjacent after the sort — and the sentinel masked to −1 (int32)."""
+    c = torch.sort(torch.where(cand == qid[:, None], n, cand), dim=1).values
+    dup = torch.zeros_like(c, dtype=torch.bool)
+    dup[:, 1:] = c[:, 1:] == c[:, :-1]
+    return torch.where(dup | (c >= n), -1, c).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Persistent / routed tables — hash the pool once, look queries up later
+# ---------------------------------------------------------------------------
+
+class LshTables(NamedTuple):
+    """Per-table sorted bucket structure of a candidate pool: for each of T
+    tables the pool ids in (bucket code, tie-break) ascending order and the
+    sorted keys themselves, so a query's window position is a rank
+    computation needing no re-hash of the pool."""
+
+    order: torch.Tensor  # [T, n] int32 — pool ids, (code, tie) ascending per table
+    codes: torch.Tensor  # [T, n] int32 — bucket codes in sorted order
+    ties: torch.Tensor  # [T, n] f32 — tie-break projections in sorted order
+
+
+def _lex_order(codes: torch.Tensor, ties: torch.Tensor) -> torch.Tensor:
+    """Per row, the (code, tie) lexicographic order: a stable argsort by
+    tie, then a stable argsort by code."""
+    p1 = torch.argsort(ties, dim=1, stable=True)
+    return p1.gather(1, torch.argsort(codes.gather(1, p1), dim=1, stable=True))
+
+
+def sorted_tables(codes: torch.Tensor, ties: torch.Tensor) -> LshTables:
+    """:class:`LshTables` from :func:`hash_codes` output ([T, n] each): the
+    same lexicographic sort as :func:`lsh_candidates`, so a pool point's
+    rank here is the window position the fused path gives it."""
+    order = _lex_order(codes, ties)
+    return LshTables(order=order.to(torch.int32), codes=codes.gather(1, order),
+                     ties=ties.gather(1, order))
+
+
+def routed_candidates(tables: LshTables, qcodes: torch.Tensor, qties: torch.Tensor, *,
+                      win: int, query_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Candidate pool ids ``[nq, T·win]`` for queries hashed elsewhere
+    (``qcodes``/``qties`` [T, nq]): each query's lexicographic insertion
+    rank among a table's sorted (code, tie) keys centres a ``win``-wide
+    window of pool ids; the union over tables is deduped in place (unique
+    ids ascending, −1 interspersed — the ``knn_topk_rerank`` contract).
+
+    The rank comes from one combined sort of [pool keys; query keys], as in
+    the reference: a query's pool-only rank is its combined position less
+    the queries sorted before it.  An equal key ranks the query after the
+    pool point (the stable sort keeps pool entries first).  ``query_rows``
+    masks each query's own pool id from its candidates; ids outside
+    ``[0, n)`` never match.
+    """
+    order = tables.order.long()
+    T, n = order.shape
+    nq = qcodes.shape[1]
+    dev = order.device
+    win = min(max(win, 1), n)
+    comb = _lex_order(torch.cat([tables.codes, qcodes.to(dev)], 1),
+                      torch.cat([tables.ties, qties.to(dev)], 1))  # [T, n + nq]
+    isq = comb >= n
+    # pool-only rank at each combined position: the position less the
+    # queries strictly before it
+    rank = torch.arange(n + nq, device=dev) - (torch.cumsum(isq.long(), 1) - isq.long())
+    qpos = torch.empty((T, nq), dtype=torch.long, device=dev)
+    qpos.scatter_(1, (comb[isq] - n).reshape(T, nq), rank[isq].reshape(T, nq))
+    start = torch.clamp(qpos - win // 2, 0, n - win)
+    widx = (start[..., None] + torch.arange(win, device=dev)).reshape(T, nq * win)
+    cand = order.gather(1, widx).reshape(T, nq, win).permute(1, 0, 2).reshape(nq, T * win)
+    qid = (torch.full((nq,), -1, dtype=torch.long, device=dev) if query_rows is None
+           else query_rows.to(dev).long())
+    return _dedup(cand, qid, n)

@@ -594,3 +594,109 @@ def test_reductions_card_match_cpu():
     (gc, gp), (cc, cp) = (tred.coarsen_coo(m, tred.CoarsenConfig(levels=2)) for m in (w, wc))
     assert torch.equal(gp.cpu(), cp) and torch.equal(gc.row.cpu(), cc.row)
     torch.testing.assert_close(gc.val.cpu(), cc.val, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("d", [3, 16])
+def test_knn_query_rows_independent_of_row_count(d):
+    """The out-of-sample form (queries past the pool, ``query_offset = n``):
+    a query's neighbours are bitwise the same whether it rides with 0, 36,
+    127, 128 or 255 other rows (one block with spare threads, or two)."""
+    gen = torch.Generator().manual_seed(d)
+    x = torch.randn(5000, d, generator=gen).cuda()
+    q = torch.randn(256, d, generator=gen).cuda()
+    fd, fi = knn_topk(x, 10, queries=q, query_offset=5000)
+    rd, ri = knn_topk_ref(x, 10, queries=q, query_offset=5000)
+    torch.testing.assert_close(fd, rd, rtol=1e-5, atol=1e-6)
+    knn_ids_equal_up_to_near_ties(q, x, fi, ri, rd)
+    for r in (1, 37, 128, 129):
+        d_r, i_r = knn_topk(x, 10, queries=q[:r].contiguous(), query_offset=5000)
+        assert torch.equal(d_r, fd[:r]) and torch.equal(i_r, fi[:r])
+
+
+@pytest.mark.parametrize("n,d,k,off", [(1000, 3, 16, 0), (1000, 3, 16, 1000), (300, 16, 10, 0),
+                                       (300, 16, 10, 300), (8, 2, 10, 0), (8, 16, 10, 8)])
+def test_knn_nan_rows_match_plain(n, d, k, off):
+    """A NaN coordinate in a candidate and in a query: the kernel's rows are
+    bitwise the plain version's — a NaN distance ranks after +inf (the
+    query itself) and keeps its id, as a stable sort puts it.  Integer
+    coordinates make every distance exact, so ties break by id alone; n = 8
+    with k = 10 leaves slots empty after the NaN candidate."""
+    gen = torch.Generator().manual_seed(n + d)
+    x = torch.randint(-3, 4, (n, d), generator=gen).float()
+    x[n // 2, d - 1] = float("nan")
+    q = None
+    if off:
+        q = torch.randint(-3, 4, (40, d), generator=gen).float()
+        q[7, 0] = float("nan")
+        q = q.cuda()
+    x = x.cuda()
+    got = knn_topk(x, k, queries=q, query_offset=off)
+    want = knn_topk_ref(x, k, queries=q, query_offset=off)
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0, equal_nan=True)
+    assert bool(torch.isnan(got[0]).any())
+
+
+def test_oos_nan_query_card_matches_cpu():
+    """A NaN query served from an index on the card: its row is NaN (the
+    serving gate's failure) and its neighbours are the CPU's; the other rows
+    are those of the clean batch."""
+    from repro_torch.serve import OOSConfig, build_index, serve_fn
+
+    rng = np.random.default_rng(4)
+    centers = np.eye(4, 8, dtype=np.float32) * 3.0
+    pool = (centers[rng.integers(4, size=800)] + 0.3 * rng.normal(size=(800, 8))).astype(
+        np.float32)
+    queries = (centers[rng.integers(4, size=40)] + 0.3 * rng.normal(size=(40, 8))).astype(
+        np.float32)
+    res = SpectralPipeline(n_clusters=4, eig=EigConfig(block_size=4)).run(
+        pool, torch.Generator().manual_seed(0), device="cpu")
+    card, cpu = (build_index(pool, res, config=OOSConfig(), device=dev) for dev in ("cuda", "cpu"))
+    bad = queries.copy()
+    bad[3, 5] = np.nan
+    got, want, clean = serve_fn(card, bad), serve_fn(cpu, bad), serve_fn(card, queries)
+    assert bool(torch.isnan(got.embedding[3]).all()) and bool(torch.isnan(got.weight_sum[3]))
+    assert torch.equal(got.neighbors.cpu(), want.neighbors)
+    keep = [i for i in range(40) if i != 3]
+    for f in ("labels", "dist2", "embedding", "weight_sum", "neighbors"):
+        assert torch.equal(getattr(got, f)[keep], getattr(clean, f)[keep])
+
+
+@pytest.mark.parametrize("method", ["exact", "lsh"])
+def test_oos_serving_card_matches_cpu(method):
+    """One CPU training result served from an index on the card and from one
+    on the CPU: labels equal; exact neighbours equal and embedding rows
+    within 1e-5; LSH neighbours equal in ≥ 99 % of slots (the card's hash
+    sums in another order, so a projection within rounding of 0 may take the
+    other sign); the tables sorted and the candidates routed bitwise alike
+    from the same hash output; outputs on the card."""
+    from repro_torch.kernels.lsh_candidates.ops import routed_candidates, sorted_tables
+    from repro_torch.serve import OOSConfig, build_index, serve_fn
+
+    rng = np.random.default_rng(3)
+    centers = np.eye(4, 8, dtype=np.float32) * 3.0
+    pool = (centers[rng.integers(4, size=2000)] + 0.3 * rng.normal(size=(2000, 8))).astype(
+        np.float32)
+    queries = (centers[rng.integers(4, size=300)] + 0.3 * rng.normal(size=(300, 8))).astype(
+        np.float32)
+    res = SpectralPipeline(n_clusters=4, eig=EigConfig(block_size=4)).run(
+        pool, torch.Generator().manual_seed(0), device="cpu")
+    cfg = OOSConfig(method=method)
+    card, cpu = (build_index(pool, res, config=cfg, device=dev) for dev in ("cuda", "cpu"))
+    got, want = serve_fn(card, queries), serve_fn(cpu, queries)
+    assert got.labels.is_cuda and got.embedding.is_cuda
+    assert torch.equal(got.labels.cpu(), want.labels)
+    if method == "exact":
+        assert torch.equal(got.neighbors.cpu(), want.neighbors)
+        torch.testing.assert_close(got.embedding.cpu(), want.embedding, rtol=1e-5, atol=1e-5)
+        return
+    assert float((got.neighbors.cpu() == want.neighbors).float().mean()) >= 0.99
+    planes = make_planes(8, 16, 16, 0)
+    pc, pt = hash_codes(card.points, planes)
+    tables = sorted_tables(pc, pt)
+    for a, b in zip(tables, sorted_tables(pc.cpu(), pt.cpu())):
+        assert torch.equal(a.cpu(), b)
+    qc, qt = hash_codes(torch.as_tensor(queries).cuda(), planes)
+    tables_cpu = type(tables)(*(t.cpu() for t in tables))
+    assert torch.equal(routed_candidates(tables, qc, qt, win=60).cpu(),
+                       routed_candidates(tables_cpu, qc.cpu(), qt.cpu(), win=60))

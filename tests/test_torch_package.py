@@ -63,6 +63,26 @@ def test_entry_points_refuse_a_missing_card():
     pipe.run(x, torch.Generator(), device="cpu")  # the explicit CPU path works
 
 
+def test_serving_entry_points_refuse_a_missing_card(tmp_path):
+    """The serving entry points default to the card as well: the index
+    builder, the batcher, a registry load and the launcher."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    import types
+
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import EmbeddingRegistry, MicroBatcher, build_index
+
+    x = np.random.default_rng(0).normal(size=(30, 3)).astype(np.float32)
+    result = types.SimpleNamespace(labels=np.zeros(30, np.int32), embedding=x)
+    for call in (lambda: build_index(x, result),
+                 lambda: MicroBatcher(lambda b: b, 3),
+                 lambda: EmbeddingRegistry(str(tmp_path)).load(),
+                 lambda: launch_serve.main(["--mode", "serve", "--n", "40"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
 def test_raw_kernel_entries_refuse_cpu_tensors():
     x = torch.zeros(8, 4)
     with pytest.raises(ValueError, match="CUDA tensor"):
