@@ -51,6 +51,26 @@ result line):
    resume — the first path stopped by a forced error after ``prepare``,
    its checkpoint saved under ``build/``, resumed, held to the
    uninterrupted run's labels;
+   sharded — the sharded plan (``repro_torch.core.distributed_pipeline``):
+   the layout path (the first path's graph partitioned onto 4 row blocks
+   on the card, bitwise the reference's numpy layout, run by
+   ``Plan(variant="gspmd")``: purity within 0.01 and eigenvalues within
+   1e-4 of the first path's); the mesh path on a world-size-1 NCCL
+   ``DeviceMesh`` (Stage 1 gather and ring bitwise the single-device
+   ``knn_topk``; the first path from raw points with the gather and the
+   ring exchange and the scalable path's LSH Stage 1 on the ring, each
+   within 0.01 of its unsharded path's purity, counters zeroed around each;
+   ``kmeans_sharded`` one all-reduce a Lloyd iteration; the layout path's
+   graph as a one-block ShardedCOO under ``variant="shard_map"``, one
+   all-gather an operator product); card vs CPU at n = 4000 against one gloo rank (ARI ≥ 0.99);
+   4 gloo ranks sharing the card with the gather exchange (every rank the
+   same labels and eigenvalues, held to the world-size-1 run; the ring is
+   left out, gloo cannot send from a CUDA tensor); ``knn_topk``,
+   ``kmeans_iter`` and ``hash_codes`` at a 4-rank plan's shapes (the
+   ``@shard`` rows, their launches counted at world size 1); both
+   examples on the card at their default sizes, and the DTI example's
+   ``--device-stage1 --n 4000`` purity on the card within 0.01 of the
+   CPU's;
 5. end to end at the example's default size (n = 4000, 12 clusters), each
    path: the card against the CPU from one seed, the card run
    ``CARD_RUNS`` times, each run held to the CPU's, and the runs' labels
@@ -98,6 +118,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -109,7 +130,7 @@ import repro_torch.core.kmeans as tkm  # noqa: E402
 import repro_torch.core.reduce as red  # noqa: E402
 from repro_torch.core.health import PipelineError  # noqa: E402
 from repro_torch.core.spectral import (EigConfig, GraphConfig, KMeansConfig,  # noqa: E402
-                                       SpectralPipeline)
+                                       Plan, SpectralPipeline)
 from repro_torch.data.pointcloud import dti_like_pointcloud  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.ell_spmm import ops as ell_ops  # noqa: E402
@@ -130,6 +151,7 @@ from repro_torch.kernels.knn_topk.ref import knn_topk_ref  # noqa: E402
 from repro_torch.kernels.lsh_candidates import ops as lsh_ops  # noqa: E402
 from repro_torch.kernels.lsh_candidates.kernel import hash_codes_cuda  # noqa: E402
 from repro_torch.kernels.lsh_candidates.ref import hash_codes_ref  # noqa: E402
+from repro_torch.sparse import distributed as tdist  # noqa: E402
 from repro_torch.sparse.ops import spmm_coo, spmv_coo  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.serve import (BatchConfig, EmbeddingRegistry, MicroBatcher,  # noqa: E402
@@ -436,14 +458,19 @@ def d2h_copy_bytes(fn) -> list:
     memcpy records of ``torch.profiler``'s device trace."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     path = ROOT / "chiprun_out" / "d2h_trace.json"
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
-    path.unlink()
+    for _ in range(3):  # the profiler now and then returns no device records
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        path.unlink()
+        if any(e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") for e in events):
+            break
+    else:
+        raise SmokeFailure("torch.profiler recorded no device events in three tries")
     copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
     check(all("bytes" in e.get("args", {}) for e in copies),
           "the profiler's device → host copy records carry no byte counts")
@@ -1117,6 +1144,30 @@ def assign_phase() -> dict:
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
 
 
+def hold_iter_near_ties(x, c, tag: str):
+    """``kmeans_iter`` through its wrapper against its plain version on real
+    data: dmin at 1e-5·(‖x‖²+‖c‖²), a label may differ only at a float64
+    near-tie within that, counts and sums those of the kernel's own labels.
+    Returns (the differing rows, the largest gap, the scale)."""
+    gl, gd, gs, gn = km_ops.kmeans_iter(x, c)
+    wl, wd, _, _ = kmeans_iter_ref(x, c)
+    scale = float((x * x).sum(1).max() + (c * c).sum(1).max())
+    torch.testing.assert_close(gd, wd, rtol=0, atol=1e-5 * scale)
+    rows = torch.nonzero(gl != wl)[:, 0]
+    x64, c64 = x[rows].double(), c.double()
+    d_got = ((x64 - c64[gl[rows].long()]) ** 2).sum(1)
+    d_want = ((x64 - c64[wl[rows].long()]) ** 2).sum(1)
+    gap = float((d_got - d_want).abs().max()) if rows.numel() else 0.0
+    check(gap <= 1e-5 * scale, f"kmeans_iter {tag}: a differing label is not a "
+                               f"near-tie (float64 gap {gap:.3e})")
+    own = gl.long()
+    check(torch.equal(gn, torch.bincount(own, minlength=c.shape[0]).float()),
+          f"kmeans_iter {tag}: counts are not those of its labels")
+    torch.testing.assert_close(gs, torch.zeros_like(gs).index_add_(0, own, x), rtol=1e-5,
+                               atol=1e-4)
+    return rows, gap, scale
+
+
 def iter_on_embedding(emb, labels) -> dict:
     """``kmeans_iter`` against its plain version on real data: the first
     path's final embedding and the centroids of its final labels.  A label
@@ -1127,22 +1178,7 @@ def iter_on_embedding(emb, labels) -> dict:
     voxel order, where neighbouring rows often share a label."""
     x = emb.float().contiguous()
     c = tkm.update_centroids(x, labels, K_FULL, torch.zeros(K_FULL, x.shape[1], device=x.device))
-    gl, gd, gs, gn = km_ops.kmeans_iter(x, c)
-    wl, wd, _, _ = kmeans_iter_ref(x, c)
-    scale = float((x * x).sum(1).max() + (c * c).sum(1).max())
-    torch.testing.assert_close(gd, wd, rtol=0, atol=1e-5 * scale)
-    rows = torch.nonzero(gl != wl)[:, 0]
-    x64, c64 = x[rows].double(), c.double()
-    d_got = ((x64 - c64[gl[rows].long()]) ** 2).sum(1)
-    d_want = ((x64 - c64[wl[rows].long()]) ** 2).sum(1)
-    gap = float((d_got - d_want).abs().max()) if rows.numel() else 0.0
-    check(gap <= 1e-5 * scale, f"kmeans_iter on the embedding: a differing label is not a "
-                               f"near-tie (float64 gap {gap:.3e})")
-    own = gl.long()
-    check(torch.equal(gn, torch.bincount(own, minlength=K_FULL).float()),
-          "kmeans_iter on the embedding: counts are not those of its labels")
-    torch.testing.assert_close(gs, torch.zeros_like(gs).index_add_(0, own, x), rtol=1e-5,
-                               atol=1e-4)
+    rows, gap, scale = hold_iter_near_ties(x, c, "on the embedding")
     cn = (c * c).sum(1)
     turns = [cuda_ms(lambda: fn(x, c, cn), iters=10)
              for fn in (kmeans_iter_cuda, kmeans_assign_cuda, kmeans_assign_cuda,
@@ -1972,6 +2008,507 @@ def serve_phase() -> tuple:
     return records, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the sharded plan
+# ---------------------------------------------------------------------------
+
+SHARDS = 4  # row blocks of the layout path, and the ranks the @shard shapes are cut for
+N_SHARD = N_FULL - N_FULL % SHARDS  # the row-block Stage 1 needs n % S == 0
+NL_SHARD = N_SHARD // SHARDS
+
+
+def host_partition(row, col, val, n: int, num_shards: int):
+    """The reference's ``partition_coo_by_rows``, its numpy loop: per-shard
+    (row_local, col, val) buckets, each in the edges' order, padded with
+    (0, 0, 0) to the fullest bucket."""
+    n_pad = tdist.padded_rows(n, num_shards)
+    rps = n_pad // num_shards
+    owner = row // rps
+    e_max = max(int(np.bincount(owner, minlength=num_shards).max()), 1)
+    rl = np.zeros((num_shards, e_max), np.int64)
+    cl = np.zeros((num_shards, e_max), np.int64)
+    vl = np.zeros((num_shards, e_max), val.dtype)
+    for s in range(num_shards):
+        sel = owner == s
+        k = int(sel.sum())
+        rl[s, :k] = row[sel] - s * rps
+        cl[s, :k] = col[sel]
+        vl[s, :k] = val[sel]
+    return rl.reshape(-1), cl.reshape(-1), vl.reshape(-1), rps, e_max
+
+
+def layout_path(pos, prof, region, first) -> dict:
+    """The single-process layout path at full size: the first path's graph,
+    built on the card and partitioned onto 4 row blocks there (bitwise the
+    reference's numpy layout), then ``Plan(variant="gspmd")`` — the
+    index-add over the global rows — with the first path's Lanczos (b = 4)
+    and fused k-means.  Gates: purity within 0.01 of the first path's,
+    eigenvalues within 1e-4 of its (index-add sums round differently from
+    run to run on the card, so not bitwise)."""
+    from repro_torch.core.similarity import build_knn_graph
+
+    first_res, first_rec = first
+    g = main_pipeline(K_FULL).graph
+    w = build_knn_graph(prof, g.knn_k, points=pos, measure=g.measure)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sm = tdist.partition_coo_by_rows(w, SHARDS)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    rl, cl, vl, rps, e_max = host_partition(w.row.cpu().numpy(), w.col.cpu().numpy(),
+                                            w.val.cpu().numpy(), N_FULL, SHARDS)
+    check((sm.rows_per_shard, sm.edges_per_shard, sm.shape) == (rps, e_max, (SHARDS * rps,) * 2)
+          and np.array_equal(sm.row_local.cpu().numpy(), rl)
+          and np.array_equal(sm.col.cpu().numpy(), cl)
+          and np.array_equal(sm.val.cpu().numpy().view(np.uint32), vl.view(np.uint32)),
+          "sharded: the ShardedCOO built on the card is not the host layout bitwise")
+    pipe = dataclasses.replace(main_pipeline(K_FULL), eig=EigConfig(tol=1e-4, block_size=4),
+                               plan=Plan(variant="gspmd"))
+    for _, fn in COUNTERS:
+        fn.launches = 0
+    with StageClock() as clock:
+        t0 = time.perf_counter()
+        state = pipe.run_state(sm, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in COUNTERS}
+    check(launches["kmeans_iter"] > 0, "sharded layout path never launched kmeans_iter")
+    res = state.result
+    labels = res.labels[:N_FULL]
+    check(res.labels.shape == (SHARDS * rps,) and bool(torch.isfinite(res.embedding).all()),
+          "sharded layout path: labels or embedding malformed")
+    pur = purity(labels, region)
+    ari = adjusted_rand_index(labels, first_res.labels)
+    ev = float((res.eigenvalues - first_res.eigenvalues).abs().max())
+    log(f"[sharded] layout path: {SHARDS} row blocks of {rps} rows, {e_max} edges a bucket "
+        f"(partitioned on the card in {build_ms:.1f} ms, bitwise the host layout); "
+        f"points graph→labels {wall:.2f} s; stages "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in clock.walls.items())
+        + f"; launches {launches}; restarts={res.lanczos_restarts} kmeans iterations="
+        f"{res.kmeans_iterations}; purity {pur:.4f} (first path {first_rec['purity']:.4f}); "
+        f"ARI against the first path {ari:.4f}; max|Δλ| against the first path {ev:.2e}")
+    check(abs(pur - first_rec["purity"]) <= 0.01,
+          f"sharded layout path: purity {pur:.4f} not within 0.01 of the first path's")
+    check(ev <= 1e-4, f"sharded layout path: eigenvalues differ by {ev:.2e} > 1e-4")
+    return dict(build_ms=build_ms, rows_per_shard=rps, edges_per_shard=e_max, wall_s=wall,
+                stage_walls=clock.walls, launches=launches, purity=pur, ari_vs_first=ari,
+                max_eig_diff=ev, restarts=res.lanczos_restarts,
+                kmeans_iterations=res.kmeans_iterations), w
+
+
+def mesh_operator_path(w, region, first, mesh) -> dict:
+    """The layout path's graph ``w`` partitioned onto the world-size-1 NCCL
+    mesh's one row block, under ``Plan(device="sharded",
+    variant="shard_map")``: the degree pass
+    and every Stage-2 product through ``ShardedCooOperator``'s mesh path
+    (a rank's bucket, then one all-gather), Stage 3 through
+    ``kmeans_sharded``.  Gates, from the collective counter: one all-gather
+    a product, plus the degree pass's and the labels'; one all-reduce a
+    Lloyd iteration plus the inertia's; purity within 0.01 and eigenvalues
+    within 1e-4 of the first path's."""
+    from repro_torch.core.operator import ShardedCooOperator
+
+    class Counted(ShardedCooOperator):  # counts the products Stage 2 asks for
+        products = 0
+
+        def mv(self, x):
+            Counted.products += 1
+            return super().mv(x)
+
+        def mm(self, x):
+            Counted.products += 1
+            return super().mm(x)
+
+    first_res, first_rec = first
+    sm = tdist.partition_coo_by_rows(w, 1)
+    plan = Plan(device="sharded", variant="shard_map", mesh=mesh)
+    pipe = dataclasses.replace(main_pipeline(K_FULL), eig=EigConfig(tol=1e-4, block_size=4),
+                               plan=plan)
+    op = Counted(pipe.prepare(sm).adj, variant=plan.variant, mesh=mesh, axis=plan.axis)
+    for _, fn in COUNTERS:
+        fn.launches = 0
+    tdist.COLLECTIVES.reset()
+    with StageClock() as clock:
+        t0 = time.perf_counter()
+        state = pipe.run_state(sm, torch.Generator().manual_seed(0), operator=op)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in COUNTERS}
+    calls = dict(tdist.COLLECTIVES.calls)
+    res = state.result
+    pur = purity(res.labels[:N_FULL], region)
+    ev = float((res.eigenvalues - first_res.eigenvalues).abs().max())
+    log(f"[sharded] mesh operator path (the layout path's graph on one row block, shard_map, "
+        f"world size 1): {wall:.2f} s; stages " + ", ".join(f"{k} {v:.3f} s" for k, v in clock.walls.items())
+        + f"; {Counted.products} operator products, collectives {calls}; launches {launches}; "
+        f"kmeans iterations={res.kmeans_iterations}; purity {pur:.4f} (first path "
+        f"{first_rec['purity']:.4f}); max|Δλ| against the first path {ev:.2e}")
+    check(Counted.products > 0 and calls["all_gather"] == Counted.products + 2,
+          f"sharded mesh operator: {calls['all_gather']} all-gathers for "
+          f"{Counted.products} products (want one a product, plus the degree pass and labels)")
+    check(calls["psum"] == res.kmeans_iterations + 1,
+          f"sharded mesh operator: {calls['psum']} all-reduces for {res.kmeans_iterations} "
+          f"Lloyd iterations")
+    check(launches["kmeans_iter"] > 0, "sharded mesh operator path never launched kmeans_iter")
+    check(abs(pur - first_rec["purity"]) <= 0.01,
+          f"sharded mesh operator: purity {pur:.4f} not within 0.01 of the first path's")
+    check(ev <= 1e-4, f"sharded mesh operator: eigenvalues differ by {ev:.2e} > 1e-4")
+    return dict(wall_s=wall, stage_walls=clock.walls, products=Counted.products,
+                collectives=calls, launches=launches, purity=pur, max_eig_diff=ev,
+                kmeans_iterations=res.kmeans_iterations)
+
+
+def sharded_pipe(make, n_clusters: int, mesh, exchange: str) -> SpectralPipeline:
+    return dataclasses.replace(make(n_clusters), plan=Plan(
+        device="sharded", variant="shard_map", mesh=mesh, stage1_exchange=exchange))
+
+
+def mesh_paths(pos, prof, region, mesh, first, scalable) -> dict:
+    """The mesh path at full size on a world-size-1 NCCL mesh: Stage 1 alone
+    (``make_knn_rowblock``, gather and ring) bitwise the single-device
+    ``knn_topk``; the first path from raw points under the sharded plan with
+    the gather and the ring exchange, and the scalable path's LSH Stage 1 on
+    the ring, each driven with the launch counters zeroed just before and
+    read just after and held to its unsharded path's purity (within 0.01);
+    ``kmeans_sharded`` on the gather run's embedding making one all-reduce a
+    Lloyd iteration and one for the inertia."""
+    from repro_torch.core.distributed_pipeline import kmeans_sharded, make_knn_rowblock
+
+    sd, si = knn_ops.knn_topk(pos, KNN_K)
+    for exch in ("gather", "ring"):
+        d, i = make_knn_rowblock(mesh, KNN_K, exchange=exch)(pos)
+        check(torch.equal(i, si) and torch.equal(d.view(torch.int32), sd.view(torch.int32)),
+              f"sharded: the {exch} Stage 1 is not bitwise the single-device knn_topk")
+    out = {}
+    for tag, make, kernels, base, exch in (
+            ("gather", main_pipeline, MAIN_KERNELS, first, "gather"),
+            ("ring", main_pipeline, MAIN_KERNELS, first, "ring"),
+            ("lsh-ring", scalable_pipeline, SCALABLE_KERNELS, scalable, "ring")):
+        tdist.COLLECTIVES.reset()
+        res, rec, _ = drive(sharded_pipe(make, K_FULL, mesh, exch), pos, prof, region,
+                            f"shard-{tag}", kernels)
+        rec["collectives"] = dict(tdist.COLLECTIVES.calls)
+        log(f"[shard-{tag}] collectives {rec['collectives']}; purity {rec['purity']:.4f} "
+            f"(unsharded {base[1]['purity']:.4f})")
+        check(abs(rec["purity"] - base[1]["purity"]) <= 0.01,
+              f"sharded {tag}: purity {rec['purity']:.4f} not within 0.01 of the unsharded "
+              f"path's {base[1]['purity']:.4f}")
+        out[tag] = rec
+        if tag == "gather":
+            emb = res.embedding
+    tdist.COLLECTIVES.reset()
+    km = kmeans_sharded(emb, KMeansConfig(k=K_FULL), torch.Generator().manual_seed(0),
+                        mesh=mesh)
+    calls = dict(tdist.COLLECTIVES.calls)
+    log(f"[sharded] kmeans_sharded on the gather run's embedding: {km.iterations} Lloyd "
+        f"iterations, collectives {calls}")
+    check(calls["psum"] == km.iterations + 1,
+          f"kmeans_sharded made {calls['psum']} all-reduces for {km.iterations} iterations")
+    out["kmeans_sharded"] = dict(iterations=km.iterations, collectives=calls)
+    return out
+
+
+def card_vs_cpu_sharded(mesh, tmp: Path) -> tuple:
+    """n = 4000, 12 clusters: the first path under the sharded plan (gather)
+    on the card's world-size-1 mesh against one gloo rank on the CPU, from
+    one seed; ARI ≥ 0.99.  Returns the record, the spec of the run and the
+    card's result (labels, eigenvalues, purity against the regions)."""
+    from repro_torch.testing.dist import pipeline_rank, run_ranks
+
+    k = 12
+    pos, prof, _, region = dti_like_pointcloud(4000, 90, max(k // 2, 4), eps=1.8, seed=0,
+                                               neighbors="none", device="cuda")
+    pipe = sharded_pipe(main_pipeline, k, mesh, "gather")
+    t0 = time.perf_counter()
+    res = pipe.run(prof, torch.Generator().manual_seed(0), points=pos)
+    card = res.labels.cpu().numpy()
+    card_s = time.perf_counter() - t0
+    spec = dict(x=prof.cpu().numpy(), points=pos.cpu().numpy(), pipeline=pipe.to_dict(),
+                device="cpu", mesh=((1,), ("data",)))
+    t0 = time.perf_counter()
+    cpu = run_ranks(pipeline_rank, 1, spec, tmpdir=str(tmp / "cpu"), backend="gloo",
+                    timeout=120.0, join_timeout=300.0)[0]["labels"]
+    cpu_s = time.perf_counter() - t0
+    ari = adjusted_rand_index(card, cpu)
+    log(f"[sharded] card vs CPU at n=4000 k={k} (sharded plan, gather; card world size 1 "
+        f"over NCCL, CPU one gloo rank): ARI {ari:.4f}; card {card_s:.2f} s, CPU rank "
+        f"{cpu_s:.2f} s with its start-up")
+    check(ari >= 0.99, f"sharded card vs CPU: ARI {ari:.4f} < 0.99")
+    region = region.cpu().numpy()
+    return dict(ari=ari, card_s=card_s, cpu_s=cpu_s), spec, dict(
+        labels=card, eigenvalues=res.eigenvalues.cpu().numpy(), region=region,
+        purity=purity(card, region), embedding=res.embedding.cpu().numpy())
+
+
+def ranks_on_one_card(spec, card, tmp: Path) -> dict:
+    """4 gloo ranks sharing the card, the gather exchange: first
+    ``kmeans_sharded`` on 4 ranks of the world-size-1 run's embedding must
+    give the labels and iterations of ``kmeans`` on it; then the n = 4000
+    sharded path on 4 ranks, gated against the world-size-1 run ``card``:
+    every rank the same labels and eigenvalues (bitwise), ARI ≥ 0.99,
+    eigenvalues within 1e-4, purity within 0.01.  The ring exchange is left
+    out here: gloo cannot send from a CUDA tensor (its send/receive fails
+    with ``writev ... Bad address`` or hangs), so the ring runs on several
+    ranks only on the CPU."""
+    from repro_torch.testing.dist import kmeans_rank, pipeline_rank, run_ranks
+
+    emb = card["embedding"]
+    want = tkm.kmeans(torch.as_tensor(emb, device="cuda"), KMeansConfig(k=12),
+                      torch.Generator().manual_seed(0))
+    got = run_ranks(kmeans_rank, SHARDS,
+                    dict(x=emb, cfg=dict(k=12), seed=0, device="cuda",
+                         mesh=((SHARDS,), ("data",))),
+                    tmpdir=str(tmp / "ranks_kmeans"), backend="gloo", timeout=60.0,
+                    join_timeout=180.0)
+    same = [bool(np.array_equal(g["labels"], want.labels.cpu().numpy())) for g in got]
+    log(f"[sharded] kmeans_sharded on {SHARDS} gloo ranks on the one card, the world-size-1 "
+        f"embedding: labels equal to kmeans' {same}, iterations "
+        f"{[g['iterations'] for g in got]} (kmeans {want.iterations}), all-reduces "
+        f"{got[0]['calls']['psum']}")
+    check(all(same) and all(g["iterations"] == want.iterations for g in got),
+          "sharded: kmeans_sharded on 4 ranks on one card differs from kmeans")
+    t0 = time.perf_counter()
+    outs = run_ranks(pipeline_rank, SHARDS,
+                     dict(spec, device="cuda", mesh=((SHARDS,), ("data",))),
+                     tmpdir=str(tmp / "ranks_gather"), backend="gloo", timeout=120.0,
+                     join_timeout=400.0)
+    wall = time.perf_counter() - t0
+    labels, vals = outs[0]["labels"], outs[0]["eigenvalues"]
+    ari = adjusted_rand_index(labels, card["labels"])
+    pur = purity(labels, card["region"])
+    ev = float(np.abs(vals - card["eigenvalues"]).max())
+    log(f"[sharded] {SHARDS} gloo ranks on the one card at n=4000, gather exchange: "
+        f"{wall:.2f} s with start-up; purity {pur:.4f} (world size 1: {card['purity']:.4f}), "
+        f"max|Δλ| {ev:.2e}, ARI {ari:.4f} against the world-size-1 run; k-means iterations "
+        f"{outs[0]['kmeans_iterations']}; collectives of rank 0 {outs[0]['calls']}")
+    check(all(np.array_equal(o["labels"], labels) for o in outs),
+          f"sharded: {SHARDS} ranks on one card disagree on the labels")
+    check(all(np.array_equal(o["eigenvalues"].view(np.uint32), vals.view(np.uint32))
+              for o in outs),
+          f"sharded: {SHARDS} ranks on one card disagree on the eigenvalues")
+    check(ari >= 0.99, f"sharded: {SHARDS} ranks on one card, ARI {ari:.4f} < 0.99 against "
+                       f"the world-size-1 run")
+    check(ev <= 1e-4, f"sharded: {SHARDS} ranks on one card, eigenvalues differ by {ev:.2e} "
+                      f"> 1e-4 from the world-size-1 run")
+    check(abs(pur - card["purity"]) <= 0.01,
+          f"sharded: {SHARDS} ranks on one card, purity {pur:.4f} not within 0.01 of the "
+          f"world-size-1 run's {card['purity']:.4f}")
+    return dict(kmeans_iterations=want.iterations,
+                gather=dict(wall_s=wall, ari=ari, purity=pur, max_eig_diff=ev,
+                            calls=outs[0]["calls"]))
+
+
+def knn_shard_record(pos) -> dict:
+    """``knn_topk`` at a 4-rank plan's shapes on the lattice's first 142,540
+    points: each 35,635-row block against the whole pool at offset r·n/4
+    (gather; the four blocks bitwise the single-device all-pairs search) and
+    block against block at offsets ±n/4 (ring; the four steps of block 1
+    merged bitwise its gather rows); block 1 held to the plain version
+    exactly (lattice), both shapes timed with events."""
+    from repro_torch.core.distributed_pipeline import merge_topk
+
+    x = pos[:N_SHARD].contiguous()
+    nl = NL_SHARD
+    blk = [x[r * nl:(r + 1) * nl] for r in range(SHARDS)]
+    gathered = [knn_ops.knn_topk(x, KNN_K, queries=blk[r], query_offset=r * nl)
+                for r in range(SHARDS)]
+    sd, si = knn_ops.knn_topk(x, KNN_K)
+    check(torch.equal(torch.cat([g[1] for g in gathered]), si)
+          and torch.equal(torch.cat([g[0] for g in gathered]), sd),
+          "knn_topk@shard: the gather blocks are not the all-pairs rows")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wd, wi = knn_topk_ref(x, KNN_K, queries=blk[1], query_offset=nl)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(gathered[1][0], wd) and torch.equal(gathered[1][1], wi),
+          "knn_topk@shard: block 1 against the pool differs from the plain version")
+    bd = torch.zeros((nl, 0), device=x.device)
+    bi = torch.zeros((nl, 0), dtype=torch.int32, device=x.device)
+    for src in range(SHARDS):
+        d, i = knn_ops.knn_topk(blk[src], KNN_K, queries=blk[1], query_offset=(1 - src) * nl)
+        if src in (0, 2):  # offsets +n/4 and −n/4
+            pd, pi = knn_topk_ref(blk[src], KNN_K, queries=blk[1], query_offset=(1 - src) * nl)
+            check(torch.equal(d, pd) and torch.equal(i, pi),
+                  f"knn_topk@shard: block 1 against block {src} differs from the plain version")
+        bd, bi = merge_topk(bd, bi, d, torch.where(i >= 0, i + src * nl, -1), KNN_K)
+    check(torch.equal(bi, gathered[1][1]) and torch.equal(bd, gathered[1][0]),
+          "knn_topk@shard: the ring's merged rows are not the gather rows")
+    xp = torch.nn.functional.pad(x, (0, 1)).contiguous()
+    qp = xp[nl:2 * nl]
+    ms = cuda_ms(lambda: knn_topk_cuda(qp, xp, KNN_K, query_offset=nl, d=3), iters=10)
+    ring_ms = cuda_ms(lambda: knn_topk_cuda(qp, xp[:nl], KNN_K, query_offset=nl, d=3), iters=20)
+
+    def library():  # cdist + topk, chunked
+        out = []
+        for s in range(0, nl, 8192):
+            q = blk[1][s:s + 8192]
+            d2 = torch.cdist(q, x) ** 2
+            d2[torch.arange(q.shape[0], device=x.device),
+               torch.arange(nl + s, nl + s + q.shape[0], device=x.device)] = math.inf
+            out.append(torch.topk(d2, KNN_K, largest=False))
+        return out
+
+    library_ms = cuda_ms(library, iters=3)
+    n_bytes = (N_SHARD + nl) * 3 * 4 + nl * KNN_K * 8
+    t_ops, t_bytes = issue_ms(float(nl) * N_SHARD * 3), n_bytes / PEAK_HBM_BYTES * 1e3
+    bms, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    log(f"[sharded] kernel knn_topk@shard (tol: lattice exact; gather blocks = all pairs, ring "
+        f"merge = gather, bitwise): [{nl} × {N_SHARD} × 3] offset {nl}, k={KNN_K}: "
+        f"kernel_ms={ms:.3f} (ring step [{nl} × {nl}] offset {nl}: {ring_ms:.3f}) "
+        f"plain_ms={plain_ms:.1f} library_ms={library_ms:.2f} (cdist + topk) "
+        f"bound_ms={bms:.4f} ({by}, fp32 issue slots)")
+    return dict(name="knn_topk@shard", route="cuda", source="src/repro_torch/csrc/knn_topk.cu",
+                replaces="src/repro/kernels/knn_topk/kernel.py:91", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
+                ring_step_ms=ring_ms, shape=f"[{nl} × {N_SHARD} × 3] offset {nl}, k={KNN_K}")
+
+
+def kmeans_shard_record(emb, labels) -> dict:
+    """``kmeans_iter`` on a 4-rank plan's shard: the first 35,635 rows of the
+    first path's embedding and the centroids of its final labels (k = 500),
+    held to the plain version (labels up to float64 near-ties) and timed."""
+    x = emb.float().contiguous()
+    c = tkm.update_centroids(x, labels, K_FULL, torch.zeros(K_FULL, x.shape[1], device=x.device))
+    x = x[:NL_SHARD].contiguous()
+    rows, gap, scale = hold_iter_near_ties(x, c, "@shard")
+    _, gd, gs, _ = km_ops.kmeans_iter(x, c)
+    _, wd, ws, _ = kmeans_iter_ref(x, c)
+    err = max(float((gd - wd).abs().max()), float((gs - ws).abs().max()))
+    cn = (c * c).sum(1)
+    ms = cuda_ms(lambda: kmeans_iter_cuda(x, c, cn), iters=20)
+    plain_ms = cuda_ms(lambda: kmeans_iter_ref(x, c), iters=3)
+    library_ms = cuda_ms(lambda: kmeans_library(x, c), iters=3)
+    n, d = x.shape
+    bms, by = kmeans_bound(iter_bytes(n, K_FULL, d), n, K_FULL, d)
+    log(f"[sharded] kernel kmeans_iter@shard (tol: labels up to float64 near-ties, dmin atol "
+        f"1e-5·(‖x‖²+‖c‖²), counts and sums those of its labels): [{n} × {d}], k={K_FULL}: "
+        f"{rows.numel()} labels differ (largest gap {gap:.3e}); kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.3f} library_ms={library_ms:.3f} bound_ms={bms:.4f} ({by})")
+    return dict(name="kmeans_iter@shard", route="cuda",
+                source="src/repro_torch/csrc/kmeans_iter.cu",
+                replaces="src/repro/kernels/kmeans_iter/kernel.py:98", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
+                shape=f"[{n} × {d}], k={K_FULL}")
+
+
+def hash_shard_record(pos) -> dict:
+    """``hash_codes`` on a 4-rank plan's ring block: the first 35,635 lattice
+    points with the scalable path's planes (16 tables of 16 bits, seed 0),
+    held with ``hold_hash``; device time cold."""
+    dev = pos.device
+    x = pos[:NL_SHARD].contiguous()
+    planes = lsh_ops.make_planes(3, LSH_TABLES, LSH_BITS, 0).to(dev)
+    near, differ, err = hold_hash(x, planes)
+    copies = [(x.clone(),) for _ in range(8)]
+    ms = device_ms(lambda a: hash_codes_cuda(a, planes), copies, iters=80)
+    plain_ms = cuda_ms(lambda: hash_codes_ref(x, planes), iters=10)
+    pows = 2 ** torch.arange(LSH_BITS, device=dev, dtype=torch.int32)
+
+    def library(a):  # x @ P, then the pack
+        proj = a @ planes
+        return ((proj[..., :-1] >= 0).int() * pows).sum(-1), proj[..., -1]
+
+    library_ms = device_ms(library, copies, iters=80)
+    cols, n = LSH_BITS + 1, NL_SHARD
+    bms, by = bound(n * 3 * 4 + LSH_TABLES * 3 * cols * 4 + LSH_TABLES * n * 8,
+                    2.0 * n * LSH_TABLES * cols * 3)
+    log(f"[sharded] kernel hash_codes@shard (tol: codes exact where every |proj| >= "
+        f"{HASH_EPS:g}, tie rtol 1e-5): [{n} × 3] T={LSH_TABLES} bits={LSH_BITS}: {near} "
+        f"pairs near 0, {differ} codes differ, max|Δtie|={err:.2e}; kernel_ms device "
+        f"cold={ms:.4f} plain_ms={plain_ms:.4f} library_ms device cold={library_ms:.4f} "
+        f"bound_ms={bms:.5f} ({by})")
+    return dict(name="hash_codes@shard", route="cuda", source="src/repro_torch/csrc/hash_codes.cu",
+                replaces="src/repro/kernels/lsh_candidates/kernel.py:48", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
+                shape=f"[{n} × 3], {LSH_TABLES} tables × {LSH_BITS} bits")
+
+
+def run_example(*args) -> tuple:
+    """One example as its own process: (exit code, stdout lines, seconds)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *map(str, args)], capture_output=True, text=True,
+                          env=env, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for ln in lines:
+        log(f"[example] {ln[:300]}")
+    if proc.returncode:
+        log(proc.stderr[-3000:])
+    return proc.returncode, lines, wall
+
+
+def examples_phase() -> dict:
+    """Both examples on the card at their default sizes (exit 0), and
+    ``dti_pointcloud_torch.py --device-stage1 --n 4000`` on the card and on
+    the CPU: purities within 0.01."""
+    ex = ROOT / "examples"
+    out = {}
+    for name, args in (("dti", ()), ("ann", ())):
+        script = ex / ("dti_pointcloud_torch.py" if name == "dti" else "ann_retrieval_torch.py")
+        rc, _, wall = run_example(script, *args)
+        check(rc == 0, f"examples: {script.name} exited {rc}")
+        out[name] = dict(wall_s=wall)
+    pur = {}
+    for dev in ("cuda", "cpu"):
+        rc, lines, wall = run_example(ex / "dti_pointcloud_torch.py", "--device-stage1",
+                                      "--n", "4000", "--device", dev)
+        check(rc == 0, f"examples: dti_pointcloud_torch.py --device-stage1 on {dev} exited {rc}")
+        pur[dev] = float([ln for ln in lines if "purity" in ln][-1].split()[-1])
+        out[f"dti_stage1_{dev}"] = dict(wall_s=wall, purity=pur[dev])
+    log(f"[examples] dti --device-stage1 --n 4000 purity: card {pur['cuda']:.3f}, CPU "
+        f"{pur['cpu']:.3f}")
+    check(abs(pur["cuda"] - pur["cpu"]) <= 0.01,
+          "examples: the card's DTI purity is not within 0.01 of the CPU's")
+    return out
+
+
+def sharded_phase(pos, prof, region, first, scalable) -> tuple:
+    """The sharded plan: the layout path; the mesh path on a world-size-1
+    NCCL mesh (its process group made here, in this process, and destroyed
+    at the end); card vs CPU; 4 gloo ranks sharing the card; the three
+    @shard kernel rows; both examples.  Returns the kernel records
+    (launches from the mesh path's runs) and the phase's record."""
+    import shutil
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    rec = {}
+    rec["layout"], w = layout_path(pos, prof, region, first)
+    tmp = ROOT / "build" / "sharded"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        rec["mesh_operator"] = mesh_operator_path(w, region, first, mesh)
+        del w
+        rec["mesh"] = mesh_paths(pos, prof, region, mesh, first, scalable)
+        rec["card_vs_cpu"], spec, card = card_vs_cpu_sharded(mesh, tmp)
+    finally:
+        dist.destroy_process_group()
+    rec["ranks_on_one_card"] = ranks_on_one_card(spec, card, tmp)
+    kernels = [knn_shard_record(pos), kmeans_shard_record(first[0].embedding, first[0].labels),
+               hash_shard_record(pos)]
+    # the launches are counted on the world-size-1 mesh runs, whose one rank
+    # gives each kernel the whole problem, not the 4-rank shapes timed here
+    launches = dict(
+        knn_topk=(rec["mesh"]["gather"]["launches"]["knn_topk"],
+                  f"[{N_FULL} × {N_FULL} × 3] (world-size-1 mesh run, gather)"),
+        kmeans_iter=(rec["mesh"]["gather"]["launches"]["kmeans_iter"],
+                     f"[{N_FULL} × {K_FULL}], k={K_FULL} (world-size-1 mesh run, gather)"),
+        hash_codes=(rec["mesh"]["lsh-ring"]["launches"]["hash_codes"],
+                    f"[{N_FULL} × 3] (world-size-1 mesh run, LSH ring)"))
+    for kern in kernels:
+        kern["launches"], kern["launches_at"] = launches[kern["name"].split("@")[0]]
+    rec["examples"] = examples_phase()
+    shutil.rmtree(tmp, ignore_errors=True)
+    return kernels, rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script needs a GPU",
@@ -2019,6 +2556,9 @@ def main() -> int:
         coarsen=reduced_path("coarsen", coarsen_pipeline(K_FULL), COARSEN_KERNELS, pos, prof,
                              region, scalable))
     resume_rec = resume_phase(pos, prof, first[0])
+    t_shard = time.perf_counter()
+    shard_kernels, shard_rec = sharded_phase(pos, prof, region, first, scalable)
+    t_shard_done = time.perf_counter()
     main_rec, scal_rec = first[1], scalable[1]
     del first, scalable
     t_e2e = time.perf_counter()
@@ -2044,19 +2584,23 @@ def main() -> int:
         rec = main_rec if kern["name"] in MAIN_KERNELS else scal_rec
         kern["launches"] = rec["launches"][kern["name"]]
     kernels += serve_kernels  # launches from the serving path's run
+    kernels += shard_kernels  # launches from the sharded plan's mesh runs
     summary = dict(device=smi, torch=torch.__version__, cuda=torch.version.cuda,
                    build_s=build_s, random=random_rec, guard=guard_rec, blockell=blockell_rec,
                    kernels=kernels, main=main_rec, scalable=scal_rec, reduced=reduced,
-                   resume=resume_rec, e2e=e2e, serve=serve_rec, profile=profiled,
+                   resume=resume_rec, sharded=shard_rec, e2e=e2e, serve=serve_rec,
+                   profile=profiled,
                    phase_s=dict(kernels=t_main - t_start, main=t_scal - t_main,
-                                scalable=t_red - t_scal, reduced_and_resume=t_e2e - t_red,
-                                e2e=t_serve - t_e2e, serve=t_done - t_serve,
-                                total=time.perf_counter() - t_start))
+                                scalable=t_red - t_scal, reduced_and_resume=t_shard - t_red,
+                                sharded=t_shard_done - t_shard, e2e=t_serve - t_e2e,
+                                serve=t_done - t_serve, total=time.perf_counter() - t_start))
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     log(f"[done] {summary['phase_s']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
+    extra = ("shape", "launches_at")  # the @shard rows: the timed shape, the counted run's
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
+                                  for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,17 +1,21 @@
 """Device resolution for the port's entry points."""
 from __future__ import annotations
 
+import os
 from typing import Union
 
 import torch
+import torch.distributed as dist
 
 DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
-    another.  Raises when ``cuda`` is asked for (explicitly or by default)
-    and no card is present — there is no silent CPU fallback.
+    another — in a rank of an initialized ``torch.distributed`` group,
+    ``cuda:<local rank>`` (``LOCAL_RANK``, else the rank modulo the cards).
+    Raises when ``cuda`` is asked for (explicitly or by default) and no card
+    is present — there is no silent CPU fallback.
 
     On the card this switches TF32 off for matmuls and cuDNN convolutions:
     k-means labels and kNN ids are compared against fp32 references, and
@@ -26,6 +30,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "run the plain PyTorch path on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        if device is None and dist.is_available() and dist.is_initialized():
+            local = os.environ.get("LOCAL_RANK")
+            dev = torch.device("cuda", int(local) if local is not None
+                               else dist.get_rank() % torch.cuda.device_count())
     return dev
 
 

@@ -20,6 +20,7 @@ from repro_torch.core.reduce import ReduceInfo, ReductionState
 from repro_torch.core.spectral import EmbedState, GraphState, SpectralPipeline
 from repro_torch.kernels.lsh_candidates.ops import LshTables
 from repro_torch.serve.oos import OOSConfig, ServingIndex
+from repro_torch.sparse.distributed import ShardedCOO
 from repro_torch.sparse.formats import COO, CSR, BlockELL
 
 
@@ -42,6 +43,15 @@ def csr(m: Any, *, device: DeviceLike = None) -> CSR:
     return CSR(_t(m.indptr, dev, torch.int64), _t(m.indices, dev, torch.int64),
                _t(m.data, dev), _t(m.row, dev, torch.int64),
                tuple(int(s) for s in m.shape))
+
+
+def sharded_coo(m: Any, *, device: DeviceLike = None) -> ShardedCOO:
+    """A reference ``ShardedCOO`` (row_local, col, val, shape,
+    rows_per_shard, num_shards, edges_per_shard)."""
+    dev = resolve_device(device)
+    return ShardedCOO(_t(m.row_local, dev, torch.int64), _t(m.col, dev, torch.int64),
+                      _t(m.val, dev), tuple(int(s) for s in m.shape),
+                      int(m.rows_per_shard), int(m.num_shards), int(m.edges_per_shard))
 
 
 def blockell(m: Any, *, device: DeviceLike = None) -> BlockELL:

@@ -8,7 +8,7 @@ streams, padding included) and the ``device`` their tensors live on.
 
 Operators may also provide the optional ``cheb_step(x, prev, ca, cb)``
 hook (``ca·(A x) + cb·x − prev``), which the Chebyshev filter uses when it
-is there.  ``ShardedCooOperator`` is not ported yet (ROADMAP A12).
+is there.
 """
 from __future__ import annotations
 
@@ -108,6 +108,77 @@ class BlockEllOperator:
         from repro_torch.kernels.ell_spmm.ops import ell_spmm_cheb_step
 
         return ell_spmm_cheb_step(self.a, x, prev, ca, cb)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedCooOperator:
+    """Row-block-partitioned operator over a
+    :class:`~repro_torch.sparse.distributed.ShardedCOO`.
+
+    Without a mesh (``variant="gspmd"``) it is the single-process layout
+    path: one index-add over the global rows.  With a mesh (a
+    ``DeviceMesh``; required by ``variant="shard_map"``) each rank
+    index-adds its own bucket into its row block of the product and
+    all-gathers it, one collective an application, whichever variant is
+    named; ``gather_dtype`` casts the gathered block.  ``mm`` moves one
+    [n, b] block a collective (the block-Lanczos amortization).
+    """
+
+    sm: Any  # ShardedCOO
+    variant: str = "gspmd"
+    mesh: Any = None
+    axis: Any = "data"
+    gather_dtype: Any = None
+    # the mesh path's product closures, built once (None without a mesh)
+    _spmv: Any = dataclasses.field(default=None, init=False, repr=False, compare=False)
+    _spmm: Any = dataclasses.field(default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        from repro_torch.sparse.distributed import make_sharded_spmm, make_sharded_spmv
+
+        if self.variant not in ("gspmd", "shard_map"):
+            raise ValueError(
+                f"ShardedCooOperator.variant must be 'gspmd' or 'shard_map', "
+                f"got {self.variant!r}")
+        if self.variant == "shard_map" and self.mesh is None:
+            raise ValueError(
+                "ShardedCooOperator(variant='shard_map') needs a mesh — the "
+                "explicit-collective SpMV is built per mesh axis")
+        if self.mesh is not None:
+            kw = dict(axis=self.axis, gather_dtype=self.gather_dtype)
+            object.__setattr__(self, "_spmv", make_sharded_spmv(self.mesh, self.sm, **kw))
+            object.__setattr__(self, "_spmm", make_sharded_spmm(self.mesh, self.sm, **kw))
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self.sm.shape
+
+    @property
+    def dtype(self):
+        return self.sm.val.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.sm.device
+
+    @property
+    def nnz(self) -> int:
+        # per-shard padding (null edges) is streamed like real entries
+        return int(self.sm.val.shape[0])
+
+    def mv(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.sparse.distributed import spmv_gspmd
+
+        if self.mesh is None:
+            return spmv_gspmd(self.sm, x)
+        return self._spmv(self.sm.row_local, self.sm.col, self.sm.val, x)
+
+    def mm(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.sparse.distributed import spmm_gspmd
+
+        if self.mesh is None:
+            return spmm_gspmd(self.sm, x)
+        return self._spmm(self.sm.row_local, self.sm.col, self.sm.val, x)
 
 
 @dataclasses.dataclass(frozen=True)

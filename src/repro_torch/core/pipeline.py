@@ -9,11 +9,12 @@ identical results, emitting a ``DeprecationWarning``.  Migration map:
     spectral_cluster(w, cfg, gen)             → cfg.to_pipeline().run(w, gen)
     spectral_cluster_from_points(x, cfg, gen) → SpectralPipeline(...,
                                                   graph=GraphConfig(...)).run(x, gen)
+    spectral_cluster_sharded(sm, cfg, ...)    → plan=Plan(device="sharded", ...)
+    spectral_cluster_from_points_sharded(...) → same plan, raw-points input
 
-The sharded shims of the reference live in its ``distributed_pipeline``
-module, which is not ported (ROADMAP A12); ``cfg.to_pipeline(plan=
-Plan(device="sharded"))`` raises ``NotImplementedError`` naming A12 when
-run.  ``SpectralResult`` and ``default_basis_size`` are re-exported.
+The two sharded shims live in :mod:`repro_torch.core.distributed_pipeline`,
+as in the reference.  ``SpectralResult`` and ``default_basis_size`` are
+re-exported.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Stage-graph API: the paper's three-stage pipeline as one configured object
-(mirrors :mod:`repro.core.spectral`, single device)::
+(mirrors :mod:`repro.core.spectral`)::
 
     pipe  = SpectralPipeline(n_clusters=8)
     state = pipe.build_graph(x)        # Stage 1 (or pipe.prepare(w))
@@ -16,8 +16,15 @@ reference's meaning ("single" | "sharded") so the reference's JSON loads.
 
 Stages ``("prepare", "sparsify", "coarsen", "embed", "refine",
 "cluster")`` as in the reference, with checkpoint-on-error and resume
-(:mod:`repro_torch.core.state_io`).  Not ported yet: ``Plan(device="sharded")``,
-which raises ``NotImplementedError`` naming ROADMAP A12.
+(:mod:`repro_torch.core.state_io`).
+
+Plan dispatch as in the reference: one device (``Plan()``); a row-partitioned
+:class:`~repro_torch.sparse.distributed.ShardedCOO` input (the layout path
+in one process without a mesh, one all-gather a product over a
+``torch.distributed`` ``DeviceMesh`` with one); and ``Plan(device="sharded",
+mesh=...)`` on raw points, whose Stage 1 runs row-block-parallel
+(:mod:`repro_torch.core.distributed_pipeline`).  Under a mesh every rank
+runs the same call on the same inputs.
 """
 from __future__ import annotations
 
@@ -35,11 +42,15 @@ import repro_torch.core.laplacian as lap
 import repro_torch.core.reduce as red
 from repro_torch._device import DeviceLike, cpu_generator, fold_in, resolve_device
 from repro_torch.core.health import HealthConfig, PipelineError, StageReport
-from repro_torch.core.operator import BlockEllOperator, CooOperator, LinearOperator
+from repro_torch.core.operator import (BlockEllOperator, CooOperator, LinearOperator,
+                                       ShardedCooOperator)
 from repro_torch.core.reduce import CoarsenConfig, ReduceInfo, ReductionState, SparsifyConfig
 from repro_torch.core.similarity import build_knn_graph
 from repro_torch.kernels.lsh_candidates.ops import (DEFAULT_N_BITS, DEFAULT_N_TABLES,
                                                     MAX_N_BITS)
+from repro_torch.sparse.distributed import (ShardedCOO, all_gather, broadcast,
+                                            global_rows, mesh_axis, normalize_sharded,
+                                            partition_coo_by_rows, spmv_gspmd)
 from repro_torch.sparse.formats import COO, coo_to_csr, csr_to_blockell
 
 KMeansConfig = km.KMeansConfig  # the Stage-3 nested config (re-exported)
@@ -181,10 +192,27 @@ class EigConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """Execution plan, as in the reference: ``device`` is "single" or
-    "sharded" (where the stage graph runs, not a torch device).  Only the
-    single-device plan is ported; a sharded plan loads but raises when run
-    (ROADMAP A12)."""
+    """Execution plan, as in the reference.
+
+    device        "single" (default) or "sharded" — where the stage graph
+                  runs, not a torch device.  A ShardedCOO input always runs
+                  the sharded Stage 2; ``"sharded"`` also row-block-shards
+                  Stage 1 on raw points (needs ``mesh``) and, with
+                  ``variant="shard_map"`` and ``KMeansConfig(iter="fused")``,
+                  routes Stage 3 to ``kmeans_sharded``.
+    mesh          a ``torch.distributed.device_mesh.DeviceMesh`` (not
+                  serialized by :meth:`to_dict`); every rank of it calls the
+                  pipeline with the same inputs, and every rank leaves Stage 2
+                  with coordinate 0's embedding (:meth:`embed` broadcasts it).
+    axis          the mesh dimension the rows are partitioned over.
+    variant       "gspmd" | "shard_map": the reference's two collective
+                  schedules.  Both values load; under a mesh both run the one
+                  all-gather a product, and without one the layout path.
+    gather_dtype  optional cast of the gathered product (e.g. "bfloat16").
+    stage1_exchange
+                  "gather" (every rank all-gathers the points) | "ring"
+                  (blocks stream round the ring; no rank holds the pool).
+    """
 
     device: str = "single"
     mesh: Any = None
@@ -235,7 +263,7 @@ class Plan:
 class GraphState(NamedTuple):
     """Stage-1 output: the sym-normalized adjacency + degree bookkeeping."""
 
-    adj: COO  # D^{-1/2} W D^{-1/2}
+    adj: Any  # COO or ShardedCOO: D^{-1/2} W D^{-1/2}
     deg: torch.Tensor  # [n] degrees of the raw graph
     inv_sqrt_deg: torch.Tensor  # [n] D^{-1/2} (0 where isolated)
 
@@ -269,7 +297,7 @@ class PipelineState:
 
     points: Optional[torch.Tensor] = None
     search_points: Optional[torch.Tensor] = None
-    input_graph: Optional[COO] = None
+    input_graph: Any = None  # COO or ShardedCOO
     graph: Optional[GraphState] = None
     embedding: Optional[EmbedState] = None
     result: Optional[SpectralResult] = None
@@ -299,15 +327,29 @@ def _as_points(x, dev: torch.device) -> torch.Tensor:
 def _raw_weights(state: GraphState) -> COO:
     """The raw similarity weights of a Stage-1 state, ``W = D^{1/2} A_sym
     D^{1/2}`` entrywise: the reduction stages resample or merge raw weights
-    and normalize the reduced graph again through :meth:`SpectralPipeline.prepare`."""
+    and normalize the reduced graph again through :meth:`SpectralPipeline.prepare`.
+    A ShardedCOO comes back as a COO over its global rows, null edges
+    included (:func:`_drop_null_edges`)."""
     sq = torch.sqrt(torch.clamp(state.deg.float(), min=0.0))
     adj = state.adj
+    sharded = isinstance(adj, ShardedCOO)
+    row = global_rows(adj) if sharded else adj.row
     # one product of the two scales, as in normalize_sym: the two
     # orientations of an edge keep one value, so the sparsifier's backbone
     # test (an exact comparison with the other endpoint's row maximum) is not
     # decided by rounding
-    val = adj.val.float() * (sq[adj.row] * sq[adj.col])
-    return COO(row=adj.row, col=adj.col, val=val, shape=adj.shape, sorted_rows=adj.sorted_rows)
+    val = adj.val.float() * (sq[row] * sq[adj.col])
+    return COO(row=row, col=adj.col, val=val, shape=adj.shape,
+               sorted_rows=False if sharded else adj.sorted_rows)
+
+
+def _drop_null_edges(w: COO) -> COO:
+    """``w`` without its zero-valued entries (a ShardedCOO's padding), so the
+    sharded reduction stages measure their ratios on real entries (the
+    reference's ``host_compact``, done here on the graph's device)."""
+    keep = w.val != 0
+    return COO(row=w.row[keep], col=w.col[keep], val=w.val[keep], shape=w.shape,
+               sorted_rows=False)
 
 
 # ---------------------------------------------------------------------------
@@ -363,12 +405,6 @@ class SpectralPipeline:
 
     # -- config plumbing ----------------------------------------------------
 
-    def _check_plan(self) -> None:
-        if self.plan.device != "single":
-            raise NotImplementedError(
-                "Plan(device='sharded') is not ported yet — ROADMAP A12 "
-                "(multi-GPU over torch.distributed)")
-
     def _lanczos_config(self, n: int, eig: Optional[EigConfig] = None) -> lz.LanczosConfig:
         e = eig if eig is not None else self.eig
         k = e.n_eigvecs or self.n_clusters
@@ -400,37 +436,89 @@ class SpectralPipeline:
         return self._lanczos_config(n, e)
 
     def operator(self, state: GraphState) -> LinearOperator:
-        """The Stage-2 operator for this graph: the COO index-add operator,
-        or with ``eig.representation="blockell"`` a BlockELL(+tail) built on
-        the graph's device, whose products are the ``ell_spmv``/``ell_spmm``
-        kernels."""
-        self._check_plan()
+        """The Stage-2 operator for this graph: a ShardedCOO's
+        :class:`ShardedCooOperator` under this plan's mesh and variant; else
+        the COO index-add operator, or with ``eig.representation="blockell"``
+        a BlockELL(+tail) built on the graph's device, whose products are the
+        ``ell_spmv``/``ell_spmm`` kernels."""
+        if isinstance(state.adj, ShardedCOO):
+            p = self.plan
+            return ShardedCooOperator(state.adj, variant=p.variant, mesh=p.mesh, axis=p.axis,
+                                      gather_dtype=p.gather_dtype)
         if self.eig.representation == "blockell":
             return BlockEllOperator(csr_to_blockell(coo_to_csr(state.adj)))
         return CooOperator(state.adj)
 
     # -- Stage 1 ------------------------------------------------------------
 
-    def prepare(self, w: COO, *, device: DeviceLike = None) -> GraphState:
-        """Admit a prebuilt similarity graph as Stage-1 output (normalize +
-        degree bookkeeping)."""
-        self._check_plan()
-        g = lap.normalized_graph(w.to(resolve_device(device)))
+    def prepare(self, w, *, device: DeviceLike = None) -> GraphState:
+        """Admit a prebuilt similarity graph — a COO or a row-partitioned
+        ShardedCOO — as Stage-1 output (normalize + degree bookkeeping)."""
+        w = w.to(resolve_device(device))
+        if isinstance(w, ShardedCOO):
+            # the degree pass; under a mesh each rank sums its own rows and
+            # the blocks are gathered, so every rank holds the same degrees
+            # (an index-add on the card rounds differently from run to run)
+            ones = torch.ones(w.shape[0], device=w.device)
+            deg = spmv_gspmd(w, ones) if self.plan.mesh is None else ShardedCooOperator(
+                w, mesh=self.plan.mesh, axis=self.plan.axis).mv(ones)
+            d32 = deg.float()
+            isd = torch.where(d32 > 0, torch.rsqrt(torch.clamp(d32, min=1e-30)),
+                              torch.zeros_like(d32)).to(w.val.dtype)
+            return GraphState(adj=normalize_sharded(w, deg), deg=deg, inv_sqrt_deg=isd)
+        g = lap.normalized_graph(w)
         return GraphState(adj=g.adj_sym, deg=g.deg, inv_sqrt_deg=g.inv_sqrt_deg)
 
     def build_graph(self, x, *, points=None, device: DeviceLike = None) -> GraphState:
         """Stage 1 from raw points: kNN search → similarity → normalized
         COO.  ``points`` separates the search coordinates from the
-        similarity features (DTI: spatial kNN, profile cross-correlation)."""
-        self._check_plan()
+        similarity features (DTI: spatial kNN, profile cross-correlation).
+        Under ``Plan(device="sharded")`` the neighbour search runs
+        row-block-parallel over the mesh (``graph.method`` exact or LSH,
+        ``plan.stage1_exchange`` gather or ring), its [n, k] results are
+        all-gathered, and every rank assembles the same graph."""
         dev = resolve_device(device)
         g = self.graph
+        if self.plan.device == "sharded":
+            return self._build_graph_sharded(_as_points(x, dev),
+                                             None if points is None else _as_points(points, dev),
+                                             dev)
         w = build_knn_graph(
             _as_points(x, dev), g.knn_k,
             points=None if points is None else _as_points(points, dev),
             measure=g.measure, sigma=g.sigma, eps=g.eps, method=g.method,
             n_tables=g.n_tables, n_bits=g.n_bits, candidates=g.candidates,
             lsh_seed=g.lsh_seed, block_q=g.block_q)
+        return self.prepare(w, device=dev)
+
+    def _build_graph_sharded(self, x, points, dev) -> GraphState:
+        from repro_torch.core.distributed_pipeline import make_knn_rowblock
+        from repro_torch.core.similarity import graph_from_knn
+
+        g, plan = self.graph, self.plan
+        if points is not None and points.shape[0] != x.shape[0]:
+            raise ValueError(
+                f"points rows ({points.shape[0]}) must match feature rows "
+                f"({x.shape[0]}) — one search point per feature row")
+        if plan.mesh is None:
+            raise ValueError(
+                "Plan(device='sharded') needs a mesh for the row-block Stage 1 (build_graph)")
+        p = x if points is None else points
+        ax = mesh_axis(plan.mesh, plan.axis)
+        n = p.shape[0]
+        if n % ax.size:
+            raise ValueError(
+                f"the row-block Stage 1 needs n divisible by the mesh axis' size: "
+                f"n={n}, {ax.size} ranks")
+        nl = n // ax.size
+        knn = make_knn_rowblock(
+            plan.mesh, g.knn_k, axis=plan.axis, block_q=g.block_q or 1024, method=g.method,
+            n_tables=g.n_tables, n_bits=g.n_bits, candidates=g.candidates,
+            lsh_seed=g.lsh_seed, exchange=plan.stage1_exchange)
+        d_blk, i_blk = knn(p[ax.rank * nl:(ax.rank + 1) * nl])
+        w = graph_from_knn(x, all_gather(d_blk, ax), all_gather(i_blk, ax),
+                           measure=g.measure, sigma=g.sigma, eps=g.eps,
+                           dist2_in_x_space=points is None)
         return self.prepare(w, device=dev)
 
     # -- Stage 2 ------------------------------------------------------------
@@ -457,12 +545,41 @@ class SpectralPipeline:
         vecs, vals = res.eigenvectors, res.eigenvalues
         if ecfg.drop_first:
             vecs, vals = vecs[:, 1:], vals[1:]
-        return EmbedState(
+        return self._one_across_ranks(EmbedState(
             embedding=lap.embed_rows(vecs, state.inv_sqrt_deg),
             eigenvalues=lap.smallest_laplacian_eigs_from_adj(vals),
             residuals=res.residuals,
             restarts=res.restarts,
             converged=res.converged,
+        ))
+
+    def _one_across_ranks(self, emb: EmbedState) -> EmbedState:
+        """Under a mesh of more than one rank, coordinate 0's Stage-2 output
+        on every rank: the embedding in one broadcast, the eigenvalues,
+        residuals, convergence flag and restart count in a second.  The
+        ranks computed their copies alike, but a replicated index-add
+        rounds its own way on each card run, which can flip an
+        eigenvector's sign between ranks; from here on they share one
+        embedding, so every Stage-3 route and the health ladder's verdicts
+        agree."""
+        if self.plan.mesh is None:
+            return emb
+        ax = mesh_axis(self.plan.mesh, self.plan.axis)
+        if ax.size == 1:
+            return emb
+        e = broadcast(emb.embedding.contiguous().clone(), ax)
+        vals, resid = emb.eigenvalues.reshape(-1), emb.residuals.reshape(-1)
+        tail = torch.cat([vals.double(), resid.double(), torch.tensor(
+            [float(bool(emb.converged)), float(emb.restarts)], dtype=torch.float64,
+            device=vals.device)])
+        tail = broadcast(tail, ax)
+        nv, nr = vals.numel(), resid.numel()
+        return EmbedState(
+            embedding=e,
+            eigenvalues=tail[:nv].to(vals.dtype).reshape(emb.eigenvalues.shape),
+            residuals=tail[nv:nv + nr].to(resid.dtype).reshape(emb.residuals.shape),
+            restarts=int(tail[-1]),
+            converged=bool(tail[-2]),
         )
 
     # -- Stage 3 ------------------------------------------------------------
@@ -474,12 +591,11 @@ class SpectralPipeline:
         """Stage 3: k-means over a (possibly cached) spectral embedding;
         ``n_clusters`` re-clusters at another k, ``kmeans`` overrides the
         Stage-3 config."""
-        self._check_plan()
         state = state.to(resolve_device(device))
         base = kmeans if kmeans is not None else self.kmeans
         kcfg = base.resolved(n_clusters or self.n_clusters)
-        res = km.kmeans(state.embedding, kcfg,
-                        cpu_generator(0) if generator is None else generator)
+        res = self._run_kmeans(state.embedding, kcfg,
+                               cpu_generator(0) if generator is None else generator)
         return SpectralResult(
             labels=res.labels,
             embedding=state.embedding,
@@ -489,6 +605,26 @@ class SpectralPipeline:
             lanczos_restarts=state.restarts,
             kmeans_iterations=res.iterations,
         )
+
+    def _shards(self) -> int:
+        return mesh_axis(self.plan.mesh, self.plan.axis).size
+
+    def _kmeans_sharded_dispatch(self, n: int, kcfg: KMeansConfig) -> bool:
+        """True iff Stage 3 routes to ``kmeans_sharded``: the sharded plan
+        under ``variant="shard_map"`` with a mesh, the fused iteration, and
+        rows that tile the mesh axis."""
+        plan = self.plan
+        if not (plan.device == "sharded" and plan.variant == "shard_map"
+                and kcfg.iter == "fused" and plan.mesh is not None):
+            return False
+        return n % self._shards() == 0
+
+    def _run_kmeans(self, h: torch.Tensor, kcfg: KMeansConfig, generator):
+        if self._kmeans_sharded_dispatch(h.shape[0], kcfg):
+            from repro_torch.core.distributed_pipeline import kmeans_sharded
+
+            return kmeans_sharded(h, kcfg, generator, mesh=self.plan.mesh, axis=self.plan.axis)
+        return km.kmeans(h, kcfg, generator)
 
     # -- the stage DAG ------------------------------------------------------
 
@@ -518,11 +654,16 @@ class SpectralPipeline:
     def _stage_sparsify(self, st: PipelineState) -> PipelineState:
         if st.graph is None:
             raise ValueError("sparsify runs after prepare (no graph in state)")
+        sharded = isinstance(st.graph.adj, ShardedCOO)
         w = _raw_weights(st.graph)
+        if sharded:
+            w = _drop_null_edges(w)
         ws = red.sparsify_coo(w, self.sparsify)
-        g = self.prepare(ws, device=st.device)
         info = ReduceInfo(kind="sparsify", n_before=w.shape[0], n_after=w.shape[0],
                           nnz_before=w.nnz, nnz_after=ws.nnz)
+        if sharded:  # the same shard count, so the plan's collectives are unchanged
+            ws = partition_coo_by_rows(ws, st.graph.adj.num_shards)
+        g = self.prepare(ws, device=st.device)
         return dataclasses.replace(
             st, graph=g, reductions=st.reductions + (info,),
             provenance=st.provenance + (f"sparsify[nnz {info.nnz_before}→{info.nnz_after}]",))
@@ -530,10 +671,15 @@ class SpectralPipeline:
     def _stage_coarsen(self, st: PipelineState) -> PipelineState:
         if st.graph is None:
             raise ValueError("coarsen runs after prepare (no graph in state)")
+        sharded = isinstance(st.graph.adj, ShardedCOO)
         w = _raw_weights(st.graph)
+        if sharded:
+            w = _drop_null_edges(w)
         wc, prolong = red.coarsen_coo(w, self.coarsen)
         info = ReduceInfo(kind="coarsen", n_before=w.shape[0], n_after=wc.shape[0],
                           nnz_before=w.nnz, nnz_after=wc.nnz)
+        if sharded:
+            wc = partition_coo_by_rows(wc, st.graph.adj.num_shards)
         g = self.prepare(wc, device=st.device)
         reduction = ReductionState(fine_graph=st.graph, prolong=prolong, info=info)
         return dataclasses.replace(
@@ -553,13 +699,13 @@ class SpectralPipeline:
         u0 = st.embedding.embedding[st.reduction.prolong]
         u, theta, resid = red.lift_and_smooth(self.operator(fine), u0,
                                               steps=self.coarsen.refine_steps)
-        emb = EmbedState(
+        emb = self._one_across_ranks(EmbedState(
             embedding=lap.embed_rows(u, fine.inv_sqrt_deg),
             eigenvalues=lap.smallest_laplacian_eigs_from_adj(theta),
             residuals=resid,
             restarts=st.embedding.restarts,
             converged=st.embedding.converged,
-        )
+        ))
         return dataclasses.replace(st, graph=fine, embedding=emb, reduction=None,
                                    provenance=st.provenance + ("refine",))
 
@@ -664,7 +810,12 @@ class SpectralPipeline:
                            "embedding before re-clustering")
             empty = kcfg.k - int(torch.unique(res.labels).numel())
             bad = bool(health.nonfinite_count(res.kmeans_inertia))
-            if (empty > 0 or bad) and attempts < hc.max_attempts and kcfg.empty == "keep":
+            # one reseed rung; under kmeans_sharded it needs k rows a shard
+            n_rows = st.embedding.embedding.shape[0]
+            can_reseed = kcfg.empty == "keep"
+            if can_reseed and self._kmeans_sharded_dispatch(n_rows, kcfg):
+                can_reseed = n_rows // self._shards() >= kcfg.k
+            if (empty > 0 or bad) and attempts < hc.max_attempts and can_reseed:
                 rungs.append(f"kmeans_reseed_farthest[empty={empty}]")
                 retry = dataclasses.replace(self.kmeans, empty="reseed_farthest")
                 res = self.cluster(st.embedding, fold_in(st.gen_cluster, attempts),
@@ -721,8 +872,9 @@ class SpectralPipeline:
             checkpoint_dir: Optional[str] = None, resume_from: Optional[str] = None,
             device: DeviceLike = None) -> SpectralResult:
         """Points/graph in, labels out — the whole stage DAG under one call.
-        ``data`` is raw points ([n, d] tensor or array → Stage 1 runs) or a
-        COO similarity graph; ``generator`` is a CPU ``torch.Generator``.
+        ``data`` is raw points ([n, d] tensor or array → Stage 1 runs), a
+        COO similarity graph or a row-partitioned ShardedCOO; ``generator``
+        is a CPU ``torch.Generator``.
         ``checkpoint_dir`` saves the completed-stage prefix when a stage
         raises :class:`PipelineError`; ``resume_from`` loads such a prefix
         onto ``device`` in place of ``data``/``generator``/``points`` (pass
@@ -749,8 +901,8 @@ class SpectralPipeline:
                 state = dataclasses.replace(state, operator_override=operator)
             return self.run_stages(state, checkpoint_dir=checkpoint_dir)
         if data is None:
-            raise ValueError("run needs data (points or a COO graph) — or resume_from=")
-        if isinstance(data, COO):
+            raise ValueError("run needs data (points, a COO or a ShardedCOO) — or resume_from=")
+        if isinstance(data, (COO, ShardedCOO)):
             if points is not None:
                 raise ValueError(
                     "points= only applies to Stage 1 (raw-points input); a "

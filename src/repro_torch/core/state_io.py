@@ -21,6 +21,11 @@ wrote holds its PRNG keys ``key_embed``/``key_cluster`` (two uint32 words)
 instead; each becomes a generator seeded with ``word0 · 2³² + word1``.  The
 port's random stream is not JAX's, so stages resumed from such a checkpoint
 draw the port's numbers, not the reference's.
+
+A :class:`~repro_torch.sparse.distributed.ShardedCOO` slot is the
+reference's ``"sharded"`` kind: its (row_local, col, val) buckets plus
+``rows_per_shard`` / ``num_shards`` / ``edges_per_shard`` in the meta.  The
+layout is pure data; the mesh is a runtime resource of the plan.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from repro_torch._device import DeviceLike, cpu_generator, resolve_device
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.core.health import StageReport
 from repro_torch.core.reduce import ReduceInfo, ReductionState
+from repro_torch.sparse.distributed import ShardedCOO
 from repro_torch.sparse.formats import COO
 
 _META_KEY = "__meta__"
@@ -50,19 +56,30 @@ def _t(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dev)  # a writable copy
 
 
-def _put_coo(tree: Dict[str, np.ndarray], meta: dict, name: str, coo: COO) -> None:
+def _put_coo(tree: Dict[str, np.ndarray], meta: dict, name: str, coo) -> None:
+    if isinstance(coo, ShardedCOO):
+        tree[f"{name}.row_local"] = _np(coo.row_local)
+        tree[f"{name}.col"] = _np(coo.col)
+        tree[f"{name}.val"] = _np(coo.val)
+        meta[name] = {"kind": "sharded", "shape": list(coo.shape),
+                      "rows_per_shard": int(coo.rows_per_shard),
+                      "num_shards": int(coo.num_shards),
+                      "edges_per_shard": int(coo.edges_per_shard)}
+        return
     tree[f"{name}.row"] = _np(coo.row)
     tree[f"{name}.col"] = _np(coo.col)
     tree[f"{name}.val"] = _np(coo.val)
     meta[name] = {"kind": "coo", "shape": list(coo.shape), "sorted_rows": bool(coo.sorted_rows)}
 
 
-def _get_coo(tree, meta: dict, name: str, dev) -> COO:
+def _get_coo(tree, meta: dict, name: str, dev):
     m = meta[name]
     if m.get("kind", "coo") == "sharded":
-        raise NotImplementedError(
-            f"checkpoint slot {name!r} holds a sharded COO (Plan(device='sharded')), "
-            f"which is not ported yet — ROADMAP A12")
+        return ShardedCOO(row_local=_t(tree[f"{name}.row_local"], dev).long(),
+                          col=_t(tree[f"{name}.col"], dev).long(),
+                          val=_t(tree[f"{name}.val"], dev), shape=tuple(m["shape"]),
+                          rows_per_shard=m["rows_per_shard"], num_shards=m["num_shards"],
+                          edges_per_shard=m["edges_per_shard"])
     return COO(row=_t(tree[f"{name}.row"], dev).long(), col=_t(tree[f"{name}.col"], dev).long(),
                val=_t(tree[f"{name}.val"], dev), shape=tuple(m["shape"]),
                sorted_rows=m["sorted_rows"])

@@ -226,3 +226,37 @@ def test_wrap_stage_keeps_the_pipeline_config():
     x = _blobs(k=4, n_per=20)
     assert torch.equal(wrapped.run(x, _gen(), device=CPU).labels,
                        pipe.run(x, _gen(), device=CPU).labels)
+
+
+# ---------------------------------------------------------------------------
+# Sharded-path faults (the reference's two cases)
+# ---------------------------------------------------------------------------
+
+def test_sharded_graph_nan_weights_guarded_eagerly():
+    """A poisoned graph re-bucketed onto row blocks is refused at prepare
+    with the reference's words."""
+    from repro.sparse.distributed import partition_coo_by_rows as j_partition
+    from repro_torch.sparse.distributed import partition_coo_by_rows
+
+    coo, _ = j_sbm(20, 3, 0.4, 0.02, seed=5)
+    jsm = j_partition(jfaults.poison_graph(coo), 1)
+    tsm = partition_coo_by_rows(faults.poison_graph(convert.coo(coo, device=CPU)), 1)
+    je, te = _raises_both(lambda: JPipeline(n_clusters=3).run(jsm, KEY),
+                          lambda: SpectralPipeline(n_clusters=3).run(tsm, _gen(), device=CPU))
+    assert te.stage == je.stage == "prepare" and te.detail == je.detail
+    assert "non-finite" in te.detail
+
+
+def test_sharded_graph_nan_caught_post_hoc_with_guards_off():
+    """The reference's guards idle under ``jit`` and ``result_problems``
+    names the poison afterwards; the port has no trace, so the same run
+    with the guards switched off is the case: it finishes, and
+    ``health.result_problems`` reports the non-finite output."""
+    from repro_torch.sparse.distributed import partition_coo_by_rows
+
+    coo, _ = j_sbm(20, 3, 0.4, 0.02, seed=5)
+    tsm = partition_coo_by_rows(faults.poison_graph(convert.coo(coo, device=CPU)), 1)
+    out = SpectralPipeline(n_clusters=3, health=HealthConfig(enabled=False)).run(
+        tsm, _gen(), device=CPU)
+    problems = health.result_problems(out)
+    assert any("non-finite" in p for p in problems), problems

@@ -37,7 +37,8 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + sorted((ROOT / "examples").glob("*_torch.py"))
     assert len(files) > 20
     offenders = {str(f.relative_to(ROOT)): sorted({m for m in _imported_roots(f)
                                                    if m in ("jax", "jaxlib", "repro")})

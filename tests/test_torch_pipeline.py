@@ -139,15 +139,27 @@ def test_escalation_ladders_and_guards():
     (dict(plan=tsp.Plan(device="sharded")), "A12", ()),
 ])
 def test_unported_features_raise(kw, item, done):
-    """Each unported feature raises naming its ROADMAP item; ``done`` marks
-    stages as already run, to reach a later stage."""
-    x = np.random.default_rng(0).normal(size=(60, 3)).astype(np.float32)
-    pipe = tsp.SpectralPipeline(n_clusters=2, **kw)
-    with pytest.raises(NotImplementedError, match=item):
-        if done:
-            pipe.run_stages(tsp.PipelineState(provenance=done, device=torch.device(CPU)))
-        else:
-            pipe.run(x, _gen(), device=CPU)
+    """Each feature that raised naming its ROADMAP item until it was ported
+    now runs: the sharded plan (A12) on a row-partitioned graph, the layout
+    path in one process, beside the reference's on its own layout (ARI ≥
+    0.99, eigenvalues within 1e-4).  ``done`` marks stages as already run,
+    to reach a later stage."""
+    from repro.sparse.distributed import partition_coo_by_rows as j_partition
+    from repro_torch.sparse.distributed import ShardedCOO, partition_coo_by_rows
+
+    coo, truth = sbm_graph(60, 4, 0.3, 0.02, seed=2)
+    pipe = tsp.SpectralPipeline(n_clusters=4, **kw)
+    jpipe = jsp.SpectralPipeline.from_dict(pipe.to_dict())
+    sm = partition_coo_by_rows(convert.coo(coo, device=CPU), 4)
+    st = pipe.run_stages(tsp.PipelineState(input_graph=sm, provenance=done,
+                                           gen_embed=_gen(1), gen_cluster=_gen(2),
+                                           device=torch.device(CPU)))
+    assert isinstance(st.graph.adj, ShardedCOO), item
+    want = jpipe.run(j_partition(coo, 4), jax.random.PRNGKey(0))
+    assert adjusted_rand_index(np.asarray(want.labels), to_np(st.result.labels)) >= 0.99
+    assert adjusted_rand_index(truth, to_np(st.result.labels)) >= 0.99
+    np.testing.assert_allclose(to_np(st.result.eigenvalues), np.asarray(want.eigenvalues),
+                               atol=1e-4)
 
 
 def _dup_rows():

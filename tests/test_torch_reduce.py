@@ -505,3 +505,30 @@ def test_gumbel_draw_is_the_ports_stream():
     assert abs(float(g.mean()) - 0.5772) < 0.01 and abs(float(g.var()) - 1.6449) < 0.03
     assert torch.equal(g[:100], tred.draw_gumbel(5, 100, CPU))
     assert not torch.equal(g[:100], tred.draw_gumbel(6, 100, CPU))
+
+
+def test_reduction_stages_compose_with_sharded_plan():
+    """The reference's ``test_reduction_stages_compose_with_sharded_plan``:
+    sparsify and coarsen + refine on a ShardedCOO (compacted, reduced, and
+    re-bucketed onto the same 4 row blocks), ARI > 0.95 against the blobs,
+    and beside the reference's own run on its layout (ARI ≥ 0.99)."""
+    from repro.core.similarity import build_knn_graph as j_build
+    from repro.sparse.distributed import partition_coo_by_rows as j_partition
+    from repro_torch.core.similarity import build_knn_graph
+    from repro_torch.sparse.distributed import ShardedCOO, partition_coo_by_rows
+
+    x, truth = _blobs(n_per=64)
+    n = x.shape[0]
+    sm = partition_coo_by_rows(build_knn_graph(torch.as_tensor(x), 10, sigma=2.0), 4)
+    jsm = j_partition(j_build(jnp.asarray(x), 10, sigma=2.0), 4)
+    for kw in (dict(stages=("prepare", "sparsify", "embed", "cluster"),
+                    sparsify=tred.SparsifyConfig(target_nnz_ratio=0.5)),
+               dict(stages=("prepare", "coarsen", "embed", "refine", "cluster"),
+                    coarsen=tred.CoarsenConfig(levels=1, min_nodes=16))):
+        pipe = tsp.SpectralPipeline(n_clusters=2, **kw)
+        st = pipe.run_state(sm, _gen(), device=CPU)
+        assert isinstance(st.graph.adj, ShardedCOO) and st.graph.adj.num_shards == 4
+        labels = to_np(st.result.labels)[:n]
+        assert adjusted_rand_index(labels, truth) > 0.95
+        want = jsp.SpectralPipeline.from_dict(pipe.to_dict()).run(jsm, jax.random.PRNGKey(0))
+        assert adjusted_rand_index(labels, np.asarray(want.labels)[:n]) >= 0.99

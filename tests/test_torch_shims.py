@@ -3,7 +3,8 @@
 generator, each with its ``DeprecationWarning``, as the reference's
 ``tests/test_spectral_api.py`` holds its shims; and beside the reference's
 shims, labels as partitions (ARI ≥ 0.99; the two packages draw from
-different generators).  A sharded plan raises naming ROADMAP A12.
+different generators).  The sharded shims of
+``repro_torch.core.distributed_pipeline`` are bitwise the facade too.
 """
 import numpy as np
 import jax
@@ -88,7 +89,24 @@ def test_shim_spectral_cluster_from_points_bitwise_identical():
 
 
 def test_sharded_shim_plan_raises_naming_a12():
-    x, _ = _blobs(3, 20, 4)
-    pipe = SpectralClusteringConfig(n_clusters=3).to_pipeline(plan=Plan(device="sharded"))
-    with pytest.raises(NotImplementedError, match="A12"):
-        pipe.run(x, _gen(), device=CPU)
+    """The sharded plan that raised naming ROADMAP A12 before it was ported:
+    ``spectral_cluster_sharded`` on a row-partitioned graph (the layout
+    path, no mesh) is bitwise ``cfg.to_pipeline(plan=Plan(device="sharded"))
+    .run``, with its warning, and ARI ≥ 0.99 against the reference's shim."""
+    from repro.core import distributed_pipeline as jdp
+    from repro.sparse.distributed import partition_coo_by_rows as j_partition
+    from repro_torch.core.distributed_pipeline import spectral_cluster_sharded
+    from repro_torch.sparse.distributed import partition_coo_by_rows
+
+    w, truth = sbm_graph(50, 4, 0.35, 0.02, seed=5)
+    sm = partition_coo_by_rows(convert.coo(w, device=CPU), 4)
+    cfg = SpectralClusteringConfig(n_clusters=4)
+    with pytest.warns(DeprecationWarning, match="spectral_cluster_sharded"):
+        old = spectral_cluster_sharded(sm, cfg, _gen(), device=CPU)
+    _bitwise(old, cfg.to_pipeline(plan=Plan(device="sharded")).run(sm, _gen(), device=CPU))
+    with pytest.warns(DeprecationWarning):
+        want = jdp.spectral_cluster_sharded(
+            j_partition(w, 4), jpl.SpectralClusteringConfig(n_clusters=4),
+            jax.random.PRNGKey(0))
+    assert adjusted_rand_index(np.asarray(want.labels), to_np(old.labels)) >= 0.99
+    assert adjusted_rand_index(truth, to_np(old.labels)) >= 0.99

@@ -259,13 +259,54 @@ def test_port_checkpoint_restored_by_reference(tmp_path):
 
 
 def test_sharded_checkpoint_raises_naming_a12():
-    tree = tio.state_to_tree(tsp.PipelineState(input_graph=convert.coo(
-        sbm_graph(10, 2, 0.5, 0.1, seed=0)[0], device=CPU)))
-    meta = json.loads(bytes(tree["__meta__"]).decode())
-    meta["input_graph"]["kind"] = "sharded"
-    tree["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8).copy()
-    with pytest.raises(NotImplementedError, match="A12"):
-        tio.state_from_tree(tree, device=CPU)
+    """The ``"sharded"`` slot kind that raised naming ROADMAP A12 before it
+    was ported: a ShardedCOO state written by the port restores in the
+    reference as its ShardedCOO, bucket for bucket, and the reference's
+    restores here; a checkpoint-on-error resume lands bitwise on the
+    uninterrupted sharded run (the reference's ``tests/test_serving.py``
+    case)."""
+    import tempfile
+
+    from repro.sparse.distributed import ShardedCOO as JShardedCOO
+    from repro.sparse.distributed import partition_coo_by_rows as j_partition
+    from repro_torch.sparse.distributed import ShardedCOO, partition_coo_by_rows
+
+    coo, _ = sbm_graph(100, 4, 0.2, 0.01, seed=3)
+    pipe = tsp.SpectralPipeline(n_clusters=4, eig=tsp.EigConfig(strict=True, max_restarts=60),
+                                health=tsp.HealthConfig(max_attempts=1))
+    sm = partition_coo_by_rows(convert.coo(coo, device=CPU), 4)
+    tst = pipe.run_state(sm, _gen(), device=CPU)
+    with tempfile.TemporaryDirectory() as d:
+        tio.save_state(d, tst, pipe)
+        jst, _ = jio.load_state(d)
+    jpipe = jsp.SpectralPipeline.from_dict(pipe.to_dict())
+    jref = jpipe.run_state(j_partition(coo, 4), jax.random.PRNGKey(0))
+    with tempfile.TemporaryDirectory() as d:
+        jio.save_state(d, jref, jpipe)
+        back, _ = tio.load_state(d, device=CPU)
+    for ours, theirs in ((tst, jst), (back, jref)):
+        for slot in ("input_graph", "graph"):
+            a = getattr(ours, slot)
+            a = a if slot == "input_graph" else a.adj
+            b = getattr(theirs, slot)
+            b = b if slot == "input_graph" else b.adj
+            assert isinstance(a, ShardedCOO) and isinstance(b, JShardedCOO)
+            assert (a.shape, a.rows_per_shard, a.num_shards, a.edges_per_shard) == \
+                (tuple(b.shape), b.rows_per_shard, b.num_shards, b.edges_per_shard)
+            for f in ("row_local", "col", "val"):
+                np.testing.assert_array_equal(to_np(getattr(a, f)), np.asarray(getattr(b, f)))
+    # checkpoint-on-error, then resume: bitwise the no-fault run
+    with tempfile.TemporaryDirectory() as d:
+        with pytest.MonkeyPatch.context() as m:
+            def fail(self, st):
+                raise PipelineError("embed", "forced failure", remedy="none")
+
+            m.setattr(tsp.SpectralPipeline, "_stage_embed", fail)
+            with pytest.raises(PipelineError):
+                pipe.run(sm, _gen(), checkpoint_dir=d, device=CPU)
+        out = pipe.run(resume_from=d, device=CPU)
+    assert torch.equal(out.labels, tst.result.labels)
+    assert torch.equal(out.eigenvalues, tst.result.eigenvalues)
 
 
 # ---------------------------------------------------------------------------
