@@ -93,6 +93,20 @@ result line):
    the card against the CPU at n = 4000 (OOS labels ARI ≥ 0.99); with
    ``--profile`` the serving of the queries under ``torch.profiler`` too.
 
+7. decode — the model zoo's serving path (``launch/serve.py --mode
+   decode``) at published widths and depths in bf16: qwen3-0.6b (batch 8,
+   a 1,024-token prompt, 2,048 cache slots, 64 steps) and
+   granite-moe-3b-a800m (batch 8, 512 + 32 tokens in 1,024 slots) through
+   the launcher with the launch counters zeroed just before and read just
+   after (the path runs none of the repo's kernels), then on the
+   launcher's parameters and prompt: prefill ms, decode ms a step, tok/s,
+   peak memory and the step's bound; gates: every logit finite, a second
+   decode bitwise the first, no device → host copy in the decode loop, one
+   decode step = the forward on the extended sequence within 2⁻⁴ of
+   max|logit| (the MoE model dropless); and each LM arch's SMOKE config
+   card = CPU in fp32 (logits within 1e-5 of max|logit|, greedy tokens
+   equal); with ``--profile`` the decode loops' device busy share.
+
 With ``--profile`` each path runs once more under ``torch.profiler``
 (device busy share, top kernels, host → device copies) and once more under
 the host clocks of ``tools/host_clock.py`` (the draws, the host assembly,
@@ -111,6 +125,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -124,7 +139,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch.core.chebyshev as cheb  # noqa: E402
-from repro_torch import _random  # noqa: E402
+from repro_torch import _random, convert  # noqa: E402
+from repro_torch._device import cpu_generator  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
 import repro_torch.core.health as health  # noqa: E402
 import repro_torch.core.kmeans as tkm  # noqa: E402
 import repro_torch.core.reduce as red  # noqa: E402
@@ -154,6 +171,8 @@ from repro_torch.kernels.lsh_candidates.ref import hash_codes_ref  # noqa: E402
 from repro_torch.sparse import distributed as tdist  # noqa: E402
 from repro_torch.sparse.ops import spmm_coo, spmv_coo  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serve import (BatchConfig, EmbeddingRegistry, MicroBatcher,  # noqa: E402
                                OOSConfig, OOSResult, adjusted_rand_index, build_index,
                                serve_fn)
@@ -2509,6 +2528,297 @@ def sharded_phase(pos, prof, region, first, scalable) -> tuple:
     return kernels, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 7: LM decode (the model zoo's serving path)
+# ---------------------------------------------------------------------------
+
+# (arch, --batch, --seq, --tokens): published widths and depths, bf16, nothing
+# cut — a dense model, and the one MoE config whose padded vocab (49,155 →
+# 49,184) and padded experts (40 → 48) are both live
+DECODE_RUNS = (("qwen3-0.6b", 8, 2048, 64), ("granite-moe-3b-a800m", 8, 1024, 32))
+LM_ARCHS = ("glm4-9b", "qwen2-7b", "qwen3-0.6b", "granite-moe-3b-a800m", "olmoe-1b-7b")
+# decode step vs forward on the extended sequence, bf16, as a fraction of
+# max|logit|: the two paths round to bf16 (2⁻⁹ relative) after differently
+# ordered GEMMs, some ten times a layer, and the differences add over the
+# layers, a random walk of ~28 · 10 steps — a few percent of the scale
+DECODE_BF16_FRAC = 2.0 ** -4
+# card vs CPU at SMOKE size, fp32 with TF32 off, as a fraction of max|logit|
+# (two layers of fp32 GEMMs summed in another order: ~1e-6)
+DECODE_F32_FRAC = 1e-5
+PEAK_BF16_FLOPS = 989e12
+DECODE_LINE = re.compile(r"decoded (\d+) tokens x batch (\d+): ([0-9.]+) tok/s "
+                         r"\(([0-9.]+) ms/step\)")
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+class MoESpy:
+    """Wraps the transformer's ``moe_ffn``: keeps each call's token count,
+    ``dropped_frac`` and the number of distinct experts routed, as device
+    tensors (read after the run).  Its extra routing launches belong to no
+    timed run."""
+
+    def __enter__(self):
+        self.calls = []
+        self._orig = tfm.moe_ffn
+
+        def spy(p, x, cfg):
+            y, aux = self._orig(p, x, cfg)
+            ids = tmoe.route(p, x, cfg)[3]
+            hit = torch.zeros(p["w_gate"].shape[0], device=x.device).index_fill_(
+                0, ids.reshape(-1), 1.0)
+            self.calls.append((x.shape[0], aux["dropped_frac"], hit.sum()))
+            return y, aux
+
+        tfm.moe_ffn = spy
+        return self
+
+    def __exit__(self, *exc):
+        tfm.moe_ffn = self._orig
+
+    def read(self, tokens: int):
+        """(mean dropped_frac, mean distinct experts) over the calls on
+        ``tokens`` tokens."""
+        rows = [(float(d), float(h)) for t, d, h in self.calls if t == tokens]
+        return float(np.mean([d for d, _ in rows])), float(np.mean([h for _, h in rows]))
+
+
+def decode_bound(cfg, params, B: int, prompt: int, steps: int, slots: int,
+                 experts_hit=None) -> dict:
+    """The least time of one decode step on this run's data: each byte the
+    step needs read once (every parameter but the embedding table, of which
+    B rows; of the experts, the ones routed — ``experts_hit`` a layer, this
+    run's mean; the KV cache's valid prefix, P + i + 1 rows at step i, the
+    run's mean) and each output written once (the new KV rows, the logits),
+    over 3.35 TB/s; against the operations (2 a weight a token in bf16, the
+    attention's 4·len·dh a head in fp32).  Also the count with the whole
+    cache read."""
+    L, d = cfg.n_layers, cfg.d_model
+    el = torch.finfo(cfg.dtype).bits // 8
+    weights = tree_bytes(params) - params["embed"].numel() * el + B * d * el
+    active = cfg.active_param_count() - cfg.vocab * d  # multiply-adds a token
+    if cfg.moe is not None:
+        m = params["layers"]["mlp"]
+        expert = (m["w_gate"][0, 0].numel() + m["w_up"][0, 0].numel()
+                  + m["w_down"][0, 0].numel()) * el
+        E_pad = m["w_gate"].shape[1]
+        weights -= L * (E_pad - experts_hit) * expert
+    row = 2 * L * B * cfg.n_kv_heads * cfg.d_head * el  # one position of k and v
+    mean_len = prompt + (steps + 1) / 2
+    kv_read = row * mean_len
+    out = row + B * cfg.vocab_padded * el
+    n_bytes = weights + kv_read + out
+    t_bytes = n_bytes / PEAK_HBM_BYTES * 1e3
+    t_ops = max(2 * active * B / PEAK_BF16_FLOPS,
+                4 * B * cfg.n_heads * L * mean_len * cfg.d_head / PEAK_FP32_FLOPS) * 1e3
+    full_cache = (weights + row * slots + out) / PEAK_HBM_BYTES
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops
+                else "operations", weight_gb=weights / 1e9, kv_gb=kv_read / 1e9,
+                ops_ms=t_ops, full_cache_ms=full_cache * 1e3)
+
+
+def step_vs_forward(params, prompt, cfg):
+    """The reference's check (``tests/test_arch_smoke.py``) at full width:
+    (decode step vs the forward on the prompt extended by the greedy token,
+    prefill vs the forward's last prompt position — each as a fraction of
+    max|logit| over the logical vocab —, argmax agreement of the step,
+    max|logit|)."""
+    last, cache, cl = launch_serve.prefill_cache(params, prompt, cfg, prompt.shape[1] + 1)
+    tok = last.argmax(-1)
+    step, _ = tfm.decode_step(params, cache, cl, tok, cfg)
+    ext, _ = tfm.forward(params, torch.cat([prompt, tok[:, None]], 1), cfg)
+    V = cfg.vocab  # the padded vocab's logits are −1e30 on both sides
+    ext, step, last = ext[:, -2:, :V].float(), step[:, 0, :V].float(), last[:, :V].float()
+    scale = float(ext.abs().max())
+    return (float((step - ext[:, 1]).abs().max()) / scale,
+            float((last - ext[:, 0]).abs().max()) / scale,
+            float((step.argmax(-1) == ext[:, 1].argmax(-1)).float().mean()), scale)
+
+
+def decode_busy(params, prompt, cfg, S: int, steps: int) -> dict:
+    """The decode loop under ``torch.profiler``: device busy share of its
+    wall and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    logits, cache, cl = launch_serve.prefill_cache(params, prompt, cfg, S)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_:
+        t0 = time.perf_counter()
+        launch_serve.decode_loop(params, cache, cl, logits.argmax(-1), cfg, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof_.key_averages()
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    (ROOT / "chiprun_out" / f"profile_decode_{cfg.name}.txt").write_text(
+        events.table(sort_by="self_device_time_total", row_limit=30))
+    launches = sum(e.count for e in events if e.self_device_time_total > 0)
+    log(f"[decode] {cfg.name} under the profiler: {steps} steps {wall * 1e3:.1f} ms wall, "
+        f"device busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f} %), {launches / steps:.0f} "
+        f"device records (kernels, copies, fills) a step")
+    for e in top:
+        log(f"[decode]   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
+    return dict(wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
+                ops_per_step=launches / steps,
+                top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
+
+
+def decode_full(arch: str, B: int, S: int, steps: int, profile: bool) -> dict:
+    """One arch at its published config through the launcher's decode mode
+    (the counters zeroed just before and read just after: the path runs
+    none of the repo's kernels), then, on the launcher's own parameters and
+    prompt: the timed greedy decode (prefill ms, decode ms a step, tok/s,
+    peak memory, the bound); the gates — every logit finite; a second decode
+    bitwise equal to the first (tokens, prefill and step logits); no device
+    → host copy inside the decode loop; one decode step = the forward on
+    the prompt extended by that token, and the prefill = the forward's
+    last prompt position, within ``DECODE_BF16_FRAC`` of max|logit| — for
+    an MoE model at capacity factor E/K, where no slot is dropped (at its
+    own capacity a token's output depends on which other tokens of the
+    batch share its experts, so prefill, forward and decode drop different
+    slots; those numbers are printed, not gated)."""
+    dev = torch.device("cuda")
+    cfg = ARCHS[arch].config
+    P = S // 2
+    for _, fn in COUNTERS:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rc, lines, wall = run_launcher(["--mode", "decode", "--arch", arch, "--batch", str(B),
+                                    "--seq", str(S), "--tokens", str(steps)])
+    launcher_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {name: fn.launches for name, fn in COUNTERS}
+    check(rc == 0, f"decode {arch}: the launcher exited {rc}")
+    hit = DECODE_LINE.fullmatch(lines[-1]) if lines else None
+    check(hit is not None and (int(hit[1]), int(hit[2])) == (steps, B),
+          f"decode {arch}: the launcher printed {lines[-1:]!r}")
+    check(not any(launches.values()), f"decode {arch}: a pipeline kernel launched: {launches}")
+
+    params, prompt = launch_serve.decode_inputs(cfg, B, P, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = launch_serve.greedy_decode(params, prompt, cfg, S, steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(torch.isfinite(out.logits).all() and torch.isfinite(out.prefill_logits).all()),
+          f"decode {arch}: non-finite logits")
+    check(bool((out.tokens < cfg.vocab).all()), f"decode {arch}: a token in the padded vocab")
+    with MoESpy() as spy:
+        again = launch_serve.greedy_decode(params, prompt, cfg, S, steps)
+    same = (torch.equal(out.tokens, again.tokens) and torch.equal(out.logits, again.logits)
+            and torch.equal(out.prefill_logits, again.prefill_logits))
+    check(same, f"decode {arch}: a second decode differs (tokens or logits)")
+    moe_rec = None
+    if cfg.moe is not None:
+        drop_prefill, _ = spy.read(B * P)
+        drop_decode, experts_hit = spy.read(B)
+        moe_rec = dict(dropped_frac_prefill=drop_prefill, dropped_frac_decode=drop_decode,
+                       experts_hit=experts_hit)
+    del again
+
+    # no device → host copy inside the decode loop
+    logits, cache, cl = launch_serve.prefill_cache(params, prompt, cfg, S)
+    tok = logits.argmax(-1)
+    d2h = d2h_copy_bytes(lambda: launch_serve.decode_loop(params, cache, cl, tok, cfg, 4))
+    check(not d2h, f"decode {arch}: the decode loop copied {d2h} bytes to the host")
+    del logits, cache
+
+    # one decode step = the forward on the extended sequence; an MoE model
+    # checked dropless, reported at its own capacity
+    gate_cfg = cfg
+    if cfg.moe is not None:
+        gate_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    err_step, err_prefill, agree, scale = step_vs_forward(params, prompt, gate_cfg)
+    check(err_step <= DECODE_BF16_FRAC and err_prefill <= DECODE_BF16_FRAC,
+          f"decode {arch}: decode step vs extended forward {err_step:.3e}, prefill vs forward "
+          f"{err_prefill:.3e} of max|logit| (gate {DECODE_BF16_FRAC:.3e})")
+    if cfg.moe is not None:
+        with MoESpy() as spy:
+            moe_rec["at_capacity"] = dict(zip(("step_vs_forward", "prefill_vs_forward",
+                                                "argmax_agreement"),
+                                               step_vs_forward(params, prompt, cfg)[:3]))
+        moe_rec["at_capacity"]["dropped_frac_forward"] = spy.read(B * (P + 1))[0]
+
+    bound = decode_bound(cfg, params, B, P, steps, S,
+                         moe_rec["experts_hit"] if moe_rec else None)
+    ms_step = out.decode_s / steps * 1e3
+    rec = dict(arch=arch, batch=B, seq=S, prompt=P, steps=steps, launcher_line=lines[-1],
+               launcher_wall_s=wall, launcher_peak_gb=launcher_peak_gb, launches=launches,
+               prefill_ms=out.prefill_s * 1e3, decode_ms_step=ms_step,
+               tok_s=steps * B / out.decode_s, peak_gb=peak_gb, d2h_copies=len(d2h),
+               step_vs_forward=err_step, prefill_vs_forward=err_prefill,
+               argmax_agreement=agree, deterministic=same, moe=moe_rec, **bound)
+    log(f"[decode] {arch} (published config, bf16) batch {B}, prompt {P}, cache {S}, {steps} "
+        f"steps: prefill {rec['prefill_ms']:.2f} ms; decode {ms_step:.3f} ms/step, "
+        f"{rec['tok_s']:.1f} tok/s; peak device memory {peak_gb:.2f} GB (launcher run "
+        f"{launcher_peak_gb:.2f} GB); launcher: {lines[-1]!r}; kernel launches {launches}")
+    log(f"[decode] {arch} bound a step {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+        f"weights {bound['weight_gb']:.3f} GB + KV prefix {bound['kv_gb']:.3f} GB over "
+        f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s; operations {bound['ops_ms']:.4f} ms; with the "
+        f"whole {S}-slot cache {bound['full_cache_ms']:.4f} ms) — {ms_step / bound['bound_ms']:.1f}"
+        f"× the bound")
+    log(f"[decode] {arch} gates: logits finite; second decode bitwise equal; device→host "
+        f"copies in the loop {len(d2h)}; decode step vs extended forward {err_step:.3e}, prefill "
+        f"vs forward {err_prefill:.3e} of max|logit| {scale:.3f} (gate {DECODE_BF16_FRAC:.4f}"
+        + ("; dropless, capacity factor E/K" if moe_rec else "")
+        + f"); argmax agreement {agree:.3f}")
+    if moe_rec:
+        cap = moe_rec["at_capacity"]
+        log(f"[decode] {arch} dropped_frac prefill {moe_rec['dropped_frac_prefill']:.4f}, "
+            f"decode {moe_rec['dropped_frac_decode']:.4f}, extended forward "
+            f"{cap['dropped_frac_forward']:.4f}; experts routed a layer a step "
+            f"{moe_rec['experts_hit']:.2f}; at capacity factor {cfg.moe.capacity_factor} "
+            f"(not gated: a dropped slot depends on the other tokens of the batch) decode step "
+            f"vs extended forward {cap['step_vs_forward']:.3e}, prefill vs forward "
+            f"{cap['prefill_vs_forward']:.3e}, argmax agreement {cap['argmax_agreement']:.3f}")
+    if profile:
+        rec["profile"] = decode_busy(params, prompt, cfg, S, steps)
+    return rec
+
+
+def decode_card_vs_cpu(steps: int = 8) -> dict:
+    """Each LM arch's SMOKE config in fp32 (TF32 off): one parameter tree
+    made on the CPU from a seed and copied to the card, one prompt; the
+    prefill's and ``steps`` decode steps' logits on the card within
+    ``DECODE_F32_FRAC`` of max|logit| of the CPU's, and the greedy tokens
+    equal."""
+    out = {}
+    for arch in LM_ARCHS:
+        cfg = ARCHS[arch].smoke_config
+        check(cfg.dtype == torch.float32, f"{arch}: SMOKE is not fp32")
+        params = tfm.init_params(cfg, cpu_generator(0), device="cpu")
+        prompt = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (4, 24)))
+        cpu = launch_serve.greedy_decode(params, prompt, cfg, 32, steps)
+        card = launch_serve.greedy_decode(convert.transformer_params(params, device="cuda"),
+                                          prompt.cuda(), cfg, 32, steps)
+        V = cfg.vocab
+        scale = max(float(cpu.logits[..., :V].abs().max()),
+                    float(cpu.prefill_logits[..., :V].abs().max()))
+        err = max(float((card.logits.cpu() - cpu.logits).abs().max()),
+                  float((card.prefill_logits.cpu() - cpu.prefill_logits).abs().max())) / scale
+        same = torch.equal(card.tokens.cpu(), cpu.tokens)
+        out[arch] = dict(err=err, tokens_equal=same)
+        check(same, f"decode card vs CPU ({arch} SMOKE): greedy tokens differ")
+        check(err <= DECODE_F32_FRAC, f"decode card vs CPU ({arch} SMOKE): logits "
+                                      f"{err:.3e} of max|logit| (gate {DECODE_F32_FRAC})")
+    log("[decode] card vs CPU at SMOKE size (fp32, TF32 off), prefill + "
+        f"{steps} steps: " + ", ".join(f"{a} {r['err']:.2e}" for a, r in out.items())
+        + f" of max|logit| (gate {DECODE_F32_FRAC}); greedy tokens equal on all five")
+    return out
+
+
+def decode_phase(profile: bool) -> dict:
+    """The model zoo's serving path: the full-width decode runs, then card
+    vs CPU at SMOKE size."""
+    rec = {arch: decode_full(arch, B, S, steps, profile) for arch, B, S, steps in DECODE_RUNS}
+    torch.cuda.empty_cache()
+    rec["card_vs_cpu"] = decode_card_vs_cpu()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script needs a GPU",
@@ -2574,6 +2884,8 @@ def main() -> int:
         ("sparsify", sparsify_pipeline), ("coarsen", coarsen_pipeline))}
     t_serve = time.perf_counter()
     serve_kernels, serve_rec = serve_phase()
+    t_decode = time.perf_counter()
+    decode_rec = decode_phase("--profile" in sys.argv[1:])
     t_done = time.perf_counter()
     profiled = None
     if "--profile" in sys.argv[1:]:
@@ -2589,11 +2901,12 @@ def main() -> int:
                    build_s=build_s, random=random_rec, guard=guard_rec, blockell=blockell_rec,
                    kernels=kernels, main=main_rec, scalable=scal_rec, reduced=reduced,
                    resume=resume_rec, sharded=shard_rec, e2e=e2e, serve=serve_rec,
-                   profile=profiled,
+                   decode=decode_rec, profile=profiled,
                    phase_s=dict(kernels=t_main - t_start, main=t_scal - t_main,
                                 scalable=t_red - t_scal, reduced_and_resume=t_shard - t_red,
                                 sharded=t_shard_done - t_shard, e2e=t_serve - t_e2e,
-                                serve=t_done - t_serve, total=time.perf_counter() - t_start))
+                                serve=t_decode - t_serve, decode=t_done - t_decode,
+                                total=time.perf_counter() - t_start))
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     log(f"[done] {summary['phase_s']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

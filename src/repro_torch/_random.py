@@ -149,10 +149,16 @@ def gumbel(key: Key, draw: int, shape: Shape, device, *, row0: int = 0) -> torch
     return -torch.log(-torch.log(_tiny(uniform(key, draw, shape, device, row0=row0))))
 
 
+def integers(key: Key, draw: int, shape: Shape, n: int, device, *, row0: int = 0) -> torch.Tensor:
+    """int64 indices uniform on [0, n): ``(w · n) >> 32`` of one word each
+    (n < 2³¹)."""
+    shape, rows, cols = _grid(shape)
+    return ((words(key, draw, rows, cols, device, row0=row0) * int(n)) >> 32).reshape(shape)
+
+
 def index(key: Key, draw: int, n: int, device) -> torch.Tensor:
-    """One index uniform on [0, n) as a ``[1]`` int64 tensor: ``(w · n) >> 32``
-    of one word (n < 2³¹)."""
-    return (words(key, draw, 1, 1, device)[0] * int(n)) >> 32
+    """One index uniform on [0, n) as a ``[1]`` int64 tensor."""
+    return integers(key, draw, 1, n, device)
 
 
 class Stream:
@@ -181,6 +187,9 @@ class Stream:
 
     def index(self, n: int, device) -> torch.Tensor:
         return index(self.key, self.take(), n, device)
+
+    def integers(self, shape: Shape, n: int, device) -> torch.Tensor:
+        return integers(self.key, self.take(), shape, n, device)
 
     def words(self, rows: int, cols: int, device) -> torch.Tensor:
         return words(self.key, self.take(), rows, cols, device)

@@ -1,11 +1,11 @@
 """Carry the reference's state across into this package's objects.
 
-The system has no weights: its state is the graph, the embedding and the
-centroids.  Each function takes the reference's arrays — anything
-``numpy.asarray`` accepts, such as the fields of a ``repro`` container —
-and returns the port's counterpart on ``device`` (the card unless the
-caller asks for the CPU).  Nothing here imports the reference: containers
-are read by field name.
+The pipeline has no weights: its state is the graph, the embedding and the
+centroids; the model zoo's LMs have parameter trees.  Each function takes
+the reference's arrays — anything ``numpy.asarray`` accepts, such as the
+fields of a ``repro`` container — and returns the port's counterpart on
+``device`` (the card unless the caller asks for the CPU).  Nothing here
+imports the reference: containers are read by field name.
 """
 from __future__ import annotations
 
@@ -123,3 +123,22 @@ def serving_index(i: Any, *, device: DeviceLike = None) -> ServingIndex:
                         centroids=_t(i.centroids, dev, torch.float32),
                         labels=_t(i.labels, dev, torch.int32),
                         config=OOSConfig(**i.config.to_dict()), lsh_tables=tables)
+
+
+def _leaf(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, which torch cannot read:
+        # widened to float32 and narrowed back, both exact
+        return torch.from_numpy(a.astype(np.float32)).to(dev).to(torch.bfloat16)
+    return torch.as_tensor(np.array(a), device=dev)
+
+
+def transformer_params(tree: Any, *, device: DeviceLike = None) -> Any:
+    """A reference transformer parameter tree (nested dicts of arrays,
+    ``repro.models.transformer.init_params``'s layout, MoE included) — or a
+    KV cache ``{"k", "v"}`` — as the same tree of tensors, each leaf's dtype
+    kept (bfloat16 included)."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: transformer_params(v, device=dev) for k, v in tree.items()}
+    return _leaf(tree, dev)

@@ -1,22 +1,24 @@
-"""Serving launcher: batched spectral-clustering jobs and online OOS labels
-(mirrors :mod:`repro.launch.serve`).
+"""Serving launcher: batched spectral-clustering jobs, online OOS labels and
+LM decode (mirrors :mod:`repro.launch.serve`).
 
     python -m repro_torch.launch.serve --mode cluster --n 20000 --clusters 64
     python -m repro_torch.launch.serve --mode serve --n 4000 --clusters 8 \\
         --requests 64 --registry-dir /tmp/reg
+    python -m repro_torch.launch.serve --mode decode --arch qwen3-0.6b --smoke
     python -m repro_torch.launch.serve --mode serve --device cpu ...
 
 ``cluster`` mode accepts graphs and returns labels; ``serve`` mode trains one
 index and answers point queries by out-of-sample extension through the
-micro-batcher — no eigensolve per request.  Both run on the card unless
-``--device cpu`` is given.  The exit code is the failure count (clamped
-below 126).  ``decode`` mode, the LM decode path, belongs to the model zoo
-(ROADMAP A14) and is not ported: it exits with code 2 before importing any
-model.
+micro-batcher — no eigensolve per request; ``decode`` mode runs the LM
+decode path of the model zoo: a prompt prefilled into a KV cache, then
+greedy decode steps against it.  All run on the card unless ``--device
+cpu`` is given.  The exit code is the failure count (clamped below 126;
+decode mode has no requests and exits 0).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import math
@@ -134,8 +136,6 @@ def serve_online(args) -> int:
     :func:`~repro_torch.core.health.numeric_problems` on its rows),
     ``--deadline-s``, and the failure count as the return value.
     ``--inject-fault nan-query`` poisons every odd request."""
-    import dataclasses
-
     from repro_torch.core.health import numeric_problems
     from repro_torch.core.spectral import SpectralPipeline
     from repro_torch.serve import (BatchConfig, EmbeddingRegistry, MicroBatcher, OOSConfig,
@@ -230,6 +230,102 @@ def serve_online(args) -> int:
     return failures[0]
 
 
+@dataclasses.dataclass
+class Decoded:
+    """One greedy decode: the prefill's last-position logits [B, V], every
+    step's token [B, steps] and logits [steps, B, V] (V the padded vocab),
+    and the prefill's and the decode loop's seconds (host clock, each ended
+    by a device synchronisation)."""
+
+    prefill_logits: torch.Tensor
+    tokens: torch.Tensor
+    logits: torch.Tensor
+    prefill_s: float
+    decode_s: float
+
+
+def decode_loop(params, cache, cache_len, token, cfg, steps: int):
+    """``steps`` greedy decode steps from ``token`` [B] at ``cache_len`` [B]:
+    (each step's token, each step's logits [B, V]).  The cache is updated in
+    place; nothing is read back to the host."""
+    from repro_torch.models import transformer as tfm
+
+    tokens, logits_seen = [], []
+    for _ in range(steps):
+        logits, cache = tfm.decode_step(params, cache, cache_len, token, cfg)
+        token = logits[:, 0].argmax(-1)
+        cache_len = cache_len + 1
+        tokens.append(token)
+        logits_seen.append(logits[:, 0])
+    return tokens, logits_seen
+
+
+def prefill_cache(params, prompt: torch.Tensor, cfg, max_len: int):
+    """Prefill ``prompt`` [B, P] and pad its KV cache to ``max_len`` slots:
+    (last-position logits [B, V], cache, cache_len [B] = P)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import transformer as tfm
+
+    B, P = prompt.shape
+    logits, cache = tfm.prefill(params, prompt, cfg)
+    cache = {k: F.pad(v, (0, 0, 0, 0, 0, max_len - P)) for k, v in cache.items()}
+    return logits[:, -1], cache, torch.full((B,), P, dtype=torch.int64, device=prompt.device)
+
+
+def greedy_decode(params, prompt: torch.Tensor, cfg, max_len: int, steps: int) -> Decoded:
+    """Prefill ``prompt`` [B, P] into a cache of ``max_len`` slots, decode
+    ``steps`` tokens greedily.  Raises when the cache has no room for them
+    (the reference drops the writes past its end)."""
+    P = prompt.shape[1]
+    if P + steps > max_len:
+        raise ValueError(f"a {P}-token prompt and {steps} decode steps need {P + steps} "
+                         f"cache slots, the cache has {max_len}")
+    dev = prompt.device
+    t0 = time.perf_counter()
+    logits, cache, cache_len = prefill_cache(params, prompt, cfg, max_len)
+    token = logits.argmax(-1)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tokens, step_logits = decode_loop(params, cache, cache_len, token, cfg, steps)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    return Decoded(prefill_logits=logits, tokens=torch.stack(tokens, 1),
+                   logits=torch.stack(step_logits), prefill_s=prefill_s, decode_s=decode_s)
+
+
+def decode_inputs(cfg, batch: int, prompt_len: int, dev):
+    """The launcher's parameters (seed 0) and prompt [batch, prompt_len]
+    (seed 1), drawn on ``dev`` from the counter-based stream."""
+    from repro_torch import _random
+    from repro_torch._device import cpu_generator
+    from repro_torch.models import transformer as tfm
+
+    params = tfm.init_params(cfg, cpu_generator(0), device=dev)
+    prompt = _random.Stream.from_generator(cpu_generator(1)).integers(
+        (batch, prompt_len), cfg.vocab, dev)
+    return params, prompt
+
+
+def serve_decode(args) -> int:
+    """LM decode: ``--arch``'s config (``--smoke``: its reduced config) with
+    random weights, a prompt of ``--seq // 2`` tokens prefilled into a cache
+    of ``--seq`` slots, ``--tokens`` greedy steps timed; prints the
+    reference's line.  Returns 0."""
+    from repro_torch.configs import ARCHS
+
+    arch = ARCHS[args.arch]
+    cfg = arch.smoke_config if args.smoke else arch.config
+    B, S = args.batch, args.seq
+    params, prompt = decode_inputs(cfg, B, S // 2, torch.device(args.device))
+    out = greedy_decode(params, prompt, cfg, S, args.tokens)
+    print(f"decoded {args.tokens} tokens x batch {B}: "
+          f"{args.tokens * B / out.decode_s:.1f} tok/s "
+          f"({out.decode_s / args.tokens * 1e3:.1f} ms/step)", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     """Parse ``argv`` and run the mode; returns the process exit code (the
     failure count, clamped below the shell's reserved range)."""
@@ -268,14 +364,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--tokens", type=int, default=16)
     args = ap.parse_args(argv)
-    if args.mode == "decode":
-        print("--mode decode runs the LM decode path of the model zoo, which is not "
-              "ported (ROADMAP A14)", file=sys.stderr)
-        return 2
     from repro_torch._device import resolve_device
 
     args.device = str(resolve_device(args.device))
-    run = serve_cluster if args.mode == "cluster" else serve_online
+    run = {"cluster": serve_cluster, "serve": serve_online, "decode": serve_decode}[args.mode]
     return min(run(args), 125)
 
 

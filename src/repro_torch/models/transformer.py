@@ -1,0 +1,297 @@
+"""Decoder-only LM transformer: RoPE, GQA, optional qk-norm / QKV bias / MoE
+(mirrors :mod:`repro.models.transformer`).
+
+Covers the five LM architectures (glm4-9b, qwen2-7b, qwen3-0.6b,
+granite-moe-3b-a800m, olmoe-1b-7b) from one config.  Layers are stacked on a
+leading ``L`` axis, as in the reference, and applied by a Python loop over
+``l`` (each layer's parameters are views of the stacked tensors).
+
+Entry points:
+  ``forward`` / ``train_loss`` — full-sequence logits / next-token CE
+                                 (forward only; training is ROADMAP A14b),
+  ``prefill``                  — run a prompt, return last-position logits
+                                 + KV cache,
+  ``decode_step``              — one token against a KV cache, updated in
+                                 place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import _random
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.models import common as cm
+from repro_torch.models.moe import MoEConfig, init_moe_params, moe_ffn
+
+Tensor = torch.Tensor
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """The reference's config field for field; ``dtype`` is a torch dtype.
+
+    ``remat``, ``remat_policy`` and ``scan_unroll`` are training and
+    compile knobs of the reference, kept so the configs compare field for
+    field; they do nothing here (rematerialization arrives with the training
+    slice, ROADMAP A14b)."""
+
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    moe: Optional[MoEConfig] = None
+    dtype: Any = torch.bfloat16
+    attn_chunk: int = 1024
+    remat: bool = True
+    remat_policy: str = "nothing"
+    scan_unroll: bool = False
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.d_head
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.d_head
+
+    @property
+    def vocab_padded(self) -> int:
+        """Embedding/logits rows padded to a multiple of 32 (the logical
+        vocab stays exact; padded logits are masked to -1e30)."""
+        return ((self.vocab + 31) // 32) * 32
+
+    def param_count(self) -> int:
+        c = self.vocab * self.d_model * 2  # embed + head
+        per = self.d_model * (self.q_dim + 2 * self.kv_dim) + self.q_dim * self.d_model
+        if self.moe:
+            per += self.d_model * self.moe.n_experts + 3 * self.moe.n_experts * self.d_model * self.moe.d_ff_expert
+        else:
+            per += 3 * self.d_model * self.d_ff
+        return c + self.n_layers * per
+
+    def active_param_count(self) -> int:
+        if not self.moe:
+            return self.param_count()
+        per_active = (
+            self.d_model * (self.q_dim + 2 * self.kv_dim)
+            + self.q_dim * self.d_model
+            + self.d_model * self.moe.n_experts
+            + 3 * self.moe.top_k * self.d_model * self.moe.d_ff_expert
+        )
+        return self.vocab * self.d_model * 2 + self.n_layers * per_active
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: TransformerConfig, gen: torch.Generator, *,
+                device: DeviceLike = None) -> Params:
+    """The reference's parameter tree (layers stacked on a leading ``L``
+    axis, the same keys), drawn on ``device`` — the card unless the caller
+    asks for the CPU — from the counter-based stream keyed by one draw of
+    ``gen``: the same bits on every device, and no parameter is drawn on
+    the host."""
+    dev = resolve_device(device)
+    stream = _random.Stream.from_generator(gen)
+    Ln, d, dt = cfg.n_layers, cfg.d_model, cfg.dtype
+
+    def nrm(*shape, scale):
+        return cm.normal_init(stream, shape, dt, scale, dev)
+
+    def const(value, *shape):
+        return torch.full(shape, value, dtype=dt, device=dev)
+
+    attn = {
+        "wq": nrm(Ln, d, cfg.q_dim, scale=d ** -0.5),
+        "wk": nrm(Ln, d, cfg.kv_dim, scale=d ** -0.5),
+        "wv": nrm(Ln, d, cfg.kv_dim, scale=d ** -0.5),
+        "wo": nrm(Ln, cfg.q_dim, d, scale=cfg.q_dim ** -0.5),
+    }
+    if cfg.qkv_bias:
+        attn["bq"] = const(0.0, Ln, cfg.q_dim)
+        attn["bk"] = const(0.0, Ln, cfg.kv_dim)
+        attn["bv"] = const(0.0, Ln, cfg.kv_dim)
+    if cfg.qk_norm:
+        attn["q_norm"] = const(1.0, Ln, cfg.d_head)
+        attn["k_norm"] = const(1.0, Ln, cfg.d_head)
+
+    if cfg.moe is not None:
+        mlp = init_moe_params(stream, d, cfg.moe, Ln, dt, device=dev)
+    else:
+        mlp = {
+            "w_gate": nrm(Ln, d, cfg.d_ff, scale=d ** -0.5),
+            "w_up": nrm(Ln, d, cfg.d_ff, scale=d ** -0.5),
+            "w_down": nrm(Ln, cfg.d_ff, d, scale=cfg.d_ff ** -0.5),
+        }
+
+    return {
+        "embed": cm.embed_init(stream, cfg.vocab_padded, d, dt, device=dev),
+        "layers": {
+            "attn": attn,
+            "mlp": mlp,
+            "ln1": const(1.0, Ln, d),
+            "ln2": const(1.0, Ln, d),
+        },
+        "final_norm": const(1.0, d),
+        "lm_head": cm.dense_init(stream, d, cfg.vocab_padded, dt, device=dev),
+    }
+
+
+def _mask_padded_logits(logits: Tensor, cfg: TransformerConfig) -> Tensor:
+    if cfg.vocab_padded == cfg.vocab:
+        return logits
+    valid = torch.arange(cfg.vocab_padded, device=logits.device) < cfg.vocab
+    return logits.masked_fill(~valid, -1e30)
+
+
+def _layer(tree, l: int):
+    """Layer ``l``'s parameters: views of the stacked ``[L, ...]`` tensors."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, l) for k, v in tree.items()}
+    return tree[l]
+
+
+# ---------------------------------------------------------------------------
+# layer
+# ---------------------------------------------------------------------------
+
+def _project_qkv(lp, x, cfg: TransformerConfig, positions):
+    B, S, _ = x.shape
+    a = lp["attn"]
+    q = x @ a["wq"]
+    k = x @ a["wk"]
+    v = x @ a["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
+    q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    if cfg.qk_norm:
+        q = cm.rmsnorm(q, a["q_norm"])
+        k = cm.rmsnorm(k, a["k_norm"])
+    q = cm.apply_rope(q, positions, cfg.rope_theta)
+    k = cm.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _mlp(lp, x, cfg: TransformerConfig):
+    B, S, d = x.shape
+    if cfg.moe is not None:
+        y, aux = moe_ffn(lp["mlp"], x.reshape(B * S, d), cfg.moe)
+        return y.reshape(B, S, d), aux["load_balance"] + aux["router_z"]
+    m = lp["mlp"]
+    h = F.silu(x @ m["w_gate"]) * (x @ m["w_up"])
+    return h @ m["w_down"], torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def layer_forward(lp, x, cfg: TransformerConfig, positions, q_offset=0):
+    """Full-sequence layer (train / prefill). Returns (x, aux, k, v)."""
+    h = cm.rmsnorm(x, lp["ln1"])
+    q, k, v = _project_qkv(lp, h, cfg, positions)
+    o = cm.flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk, q_offset=q_offset)
+    o = o.reshape(*x.shape[:2], cfg.q_dim) @ lp["attn"]["wo"]
+    x = x + o
+    h = cm.rmsnorm(x, lp["ln2"])
+    m, aux = _mlp(lp, h, cfg)
+    return x + m, aux, k, v
+
+
+def layer_decode(lp, x, k_cache, v_cache, cache_len, cfg: TransformerConfig):
+    """Single-token layer against a cache. x: [B, 1, d].  Writes the new KV
+    row at each batch row's ``cache_len`` into ``k_cache``/``v_cache`` in
+    place (``cache_len`` < the cache's length)."""
+    B = x.shape[0]
+    h = cm.rmsnorm(x, lp["ln1"])
+    q, k, v = _project_qkv(lp, h, cfg, cache_len[:, None])
+    bidx = torch.arange(B, device=x.device)
+    k_cache[bidx, cache_len] = k[:, 0]
+    v_cache[bidx, cache_len] = v[:, 0]
+    o = cm.decode_attention(q, k_cache, v_cache, cache_len + 1)
+    o = o.reshape(B, 1, cfg.q_dim) @ lp["attn"]["wo"]
+    x = x + o
+    h = cm.rmsnorm(x, lp["ln2"])
+    m, _ = _mlp(lp, h, cfg)
+    return x + m, k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# model entry points (a loop over the stacked layers)
+# ---------------------------------------------------------------------------
+
+def _layers(params, x, cfg: TransformerConfig, positions, collect_kv: bool):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ks, vs = [], []
+    for l in range(cfg.n_layers):
+        x, a, k, v = layer_forward(_layer(params["layers"], l), x, cfg, positions)
+        aux = aux + a
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    return x, aux, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+
+
+def _positions(B: int, S: int, device) -> Tensor:
+    return torch.arange(S, device=device).expand(B, S)
+
+
+def forward(params: Params, tokens: Tensor, cfg: TransformerConfig) -> Tuple[Tensor, Tensor]:
+    """tokens [B, S] -> logits [B, S, vocab_padded], aux loss."""
+    B, S = tokens.shape
+    x = params["embed"][tokens].to(cfg.dtype)
+    x, aux, _ = _layers(params, x, cfg, _positions(B, S, x.device), collect_kv=False)
+    x = cm.rmsnorm(x, params["final_norm"])
+    return _mask_padded_logits(x @ params["lm_head"], cfg), aux
+
+
+def train_loss(params: Params, batch: Dict[str, Tensor], cfg: TransformerConfig) -> Tensor:
+    """Next-token cross-entropy + aux (forward only)."""
+    logits, aux = forward(params, batch["tokens"], cfg)
+    return cm.cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:]) + aux
+
+
+def prefill(params: Params, tokens: Tensor, cfg: TransformerConfig):
+    """Prompt pass. Returns (last-position logits [B, 1, vocab_padded], kv
+    cache ``{"k", "v"}`` stacked [L, B, S, Hkv, dh])."""
+    B, S = tokens.shape
+    x = params["embed"][tokens].to(cfg.dtype)
+    x, _, (k_cache, v_cache) = _layers(params, x, cfg, _positions(B, S, x.device),
+                                       collect_kv=True)
+    x = cm.rmsnorm(x[:, -1:], params["final_norm"])
+    logits = _mask_padded_logits(x @ params["lm_head"], cfg)
+    return logits, {"k": k_cache, "v": v_cache}
+
+
+def decode_step(params: Params, cache: Dict[str, Tensor], cache_len: Tensor, token: Tensor,
+                cfg: TransformerConfig):
+    """One decode step. token [B], cache_len [B] (each < the cache's length).
+    Returns (logits [B, 1, vocab_padded], cache): ``cache`` is updated in
+    place — the new KV rows written at ``cache_len`` — and returned, the
+    contract of the reference's launcher, which donates the cache."""
+    x = params["embed"][token[:, None]].to(cfg.dtype)
+    for l in range(cfg.n_layers):
+        x, _, _ = layer_decode(_layer(params["layers"], l), x, cache["k"][l], cache["v"][l],
+                               cache_len, cfg)
+    x = cm.rmsnorm(x, params["final_norm"])
+    return _mask_padded_logits(x @ params["lm_head"], cfg), cache
+
+
+def make_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, *,
+               device: DeviceLike = None) -> Dict[str, Tensor]:
+    dt = dtype or cfg.dtype
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}

@@ -2,12 +2,13 @@
 the CPU (``--device cpu``) at small sizes with its faults injected: each mode
 returns exactly the number of poisoned requests (the exit code), logs one
 structured JSON error line for each, and prints its summary; ``--mode
-decode`` names ROADMAP A14 and imports no model.  Beside it, the reference's
-``serve_cluster`` on the same arguments counts the same failures.
+decode`` runs the LM decode path and prints the reference's line.  Beside
+it, the reference's ``serve_cluster`` on the same arguments counts the same
+failures.
 """
 import argparse
 import json
-import sys
+import re
 
 import pytest
 
@@ -65,9 +66,13 @@ def test_cluster_mode_matches_reference_failure_count():
     assert got == want == 1
 
 
-def test_decode_mode_names_a14_and_imports_no_model(capsys):
-    before = set(sys.modules)
-    assert serve.main(["--mode", "decode"]) == 2
-    assert "A14" in capsys.readouterr().err
-    assert not any(m.startswith(("repro_torch.models", "repro.models"))
-                   for m in set(sys.modules) - before)
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-3b-a800m"])
+def test_decode_mode_runs_on_cpu(capsys, arch):
+    """``--mode decode --smoke`` on a dense and an MoE arch: exit 0 and the
+    reference's line."""
+    rc = serve.main(["--mode", "decode", "--smoke", "--device", "cpu", "--arch", arch,
+                     "--batch", "2", "--seq", "16", "--tokens", "5"])
+    assert rc == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert re.fullmatch(r"decoded 5 tokens x batch 2: [0-9.]+ tok/s \([0-9.]+ ms/step\)",
+                        out[-1])

@@ -49,16 +49,22 @@ def test_port_imports_neither_jax_nor_the_reference():
 def test_entry_points_refuse_a_missing_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
+    from repro_torch.configs import ARCHS
     from repro_torch.core.spectral import SpectralPipeline
     from repro_torch.data.pointcloud import dti_like_pointcloud
     from repro_torch.data.sbm import sbm_graph
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as tfm
 
     x = np.random.default_rng(0).normal(size=(30, 3)).astype(np.float32)
     pipe = SpectralPipeline(n_clusters=2)
     for call in (lambda: pipe.run(x, torch.Generator()),
                  lambda: pipe.build_graph(x),
                  lambda: sbm_graph(10, 2),
-                 lambda: dti_like_pointcloud(50, 4, 2)):
+                 lambda: dti_like_pointcloud(50, 4, 2),
+                 lambda: tfm.init_params(ARCHS["qwen3-0.6b"].smoke_config, torch.Generator()),
+                 lambda: tfm.make_cache(ARCHS["qwen3-0.6b"].smoke_config, 1, 4),
+                 lambda: launch_serve.main(["--mode", "decode", "--smoke"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     pipe.run(x, torch.Generator(), device="cpu")  # the explicit CPU path works
