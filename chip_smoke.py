@@ -106,6 +106,25 @@ result line):
    max|logit| (the MoE model dropless); and each LM arch's SMOKE config
    card = CPU in fp32 (logits within 1e-5 of max|logit|, greedy tokens
    equal); with ``--profile`` the decode loops' device busy share.
+8. train — the training path (``launch/train.py``, ``train/``, ``optim/``)
+   with the launch counters zeroed just before and read just after (it
+   runs none of the repo's kernels): qwen3-0.6b at its published widths
+   and depth in bf16 through ``launch.train.main`` (8 steps of batch 8 ×
+   1,024 tokens, LM_ACCUM = 2, remat ``"nothing"``, OPT_CFG): step ms (the
+   median of steps 2–8), tokens/s, peak memory and the step's bound; gates:
+   every loss and grad_norm finite, every parameter leaf changed, no device
+   → host copy inside a step; one step each with remat off, ``"nothing"``
+   and ``"dots"`` from one state (losses bitwise equal, grad_norm within
+   1e-2, ``"nothing"`` the lowest peak); the step-8 state (6.6 GB) through
+   ``CheckpointManager`` and back onto the card bitwise; the launcher's
+   resume at ``--smoke`` (6 then 10 steps against 10, within 1e-6 of
+   max|p|, bitwise reported); AutoInt at its published config (2.5 GB of
+   tables): 5 train steps at batch 65,536 (bound, peak, the loss changes),
+   ``serve_p99`` p50/p99, ``serve_bulk``, ``retrieval_cand``; and each LM
+   arch's and AutoInt's SMOKE config card = CPU in fp32 over 3 steps
+   (losses within 1e-5, parameters within 1e-5 of max|p|); with
+   ``--profile`` one qwen3 step's
+   device busy share.
 
 With ``--profile`` each path runs once more under ``torch.profiler``
 (device busy share, top kernels, host → device copies) and once more under
@@ -126,6 +145,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -139,7 +159,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch.core.chebyshev as cheb  # noqa: E402
-from repro_torch import _random, convert  # noqa: E402
+from repro_torch import _random, _tree, convert  # noqa: E402
 from repro_torch._device import cpu_generator  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 import repro_torch.core.health as health  # noqa: E402
@@ -170,9 +190,15 @@ from repro_torch.kernels.lsh_candidates.kernel import hash_codes_cuda  # noqa: E
 from repro_torch.kernels.lsh_candidates.ref import hash_codes_ref  # noqa: E402
 from repro_torch.sparse import distributed as tdist  # noqa: E402
 from repro_torch.sparse.ops import spmm_coo, spmv_coo  # noqa: E402
+from repro_torch.ckpt import CheckpointManager  # noqa: E402
+from repro_torch.configs.cells import LM_ACCUM, OPT_CFG  # noqa: E402
+from repro_torch.data.tokens import MarkovTokenStream  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models import recsys as trs  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.train.state import TrainState, init_state, make_train_step  # noqa: E402
 from repro_torch.serve import (BatchConfig, EmbeddingRegistry, MicroBatcher,  # noqa: E402
                                OOSConfig, OOSResult, adjusted_rand_index, build_index,
                                serve_fn)
@@ -2639,32 +2665,44 @@ def step_vs_forward(params, prompt, cfg):
             float((step.argmax(-1) == ext[:, 1].argmax(-1)).float().mean()), scale)
 
 
-def decode_busy(params, prompt, cfg, S: int, steps: int) -> dict:
-    """The decode loop under ``torch.profiler``: device busy share of its
-    wall and the kernels that take the most device time."""
+def busy_record(fn, tag: str, table: str, rows: int = 8) -> dict:
+    """``fn()`` under ``torch.profiler``: its wall, the device busy share of
+    it, the device records, the ``rows`` kernels that take the most device
+    time (logged under ``tag``; the full table to ``chiprun_out/<table>``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    logits, cache, cl = launch_serve.prefill_cache(params, prompt, cfg, S)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof_:
         t0 = time.perf_counter()
-        launch_serve.decode_loop(params, cache, cl, logits.argmax(-1), cfg, steps)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof_.key_averages()
     busy = sum(e.self_device_time_total for e in events) / 1e6
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    (ROOT / "chiprun_out" / f"profile_decode_{cfg.name}.txt").write_text(
-        events.table(sort_by="self_device_time_total", row_limit=30))
-    launches = sum(e.count for e in events if e.self_device_time_total > 0)
-    log(f"[decode] {cfg.name} under the profiler: {steps} steps {wall * 1e3:.1f} ms wall, "
-        f"device busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f} %), {launches / steps:.0f} "
-        f"device records (kernels, copies, fills) a step")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:rows]
+    (ROOT / "chiprun_out" / table).write_text(
+        events.table(sort_by="self_device_time_total", row_limit=40))
     for e in top:
-        log(f"[decode]   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
-    return dict(wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
-                ops_per_step=launches / steps,
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
+    return dict(wall_s=wall, device_busy_s=busy, busy_share=busy / wall, events=events,
+                records=sum(e.count for e in events if e.self_device_time_total > 0),
                 top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
+
+
+def decode_busy(params, prompt, cfg, S: int, steps: int) -> dict:
+    """The decode loop under ``torch.profiler``: device busy share of its
+    wall and the kernels that take the most device time."""
+    logits, cache, cl = launch_serve.prefill_cache(params, prompt, cfg, S)
+    rec = busy_record(lambda: launch_serve.decode_loop(params, cache, cl, logits.argmax(-1),
+                                                       cfg, steps),
+                      "decode", f"profile_decode_{cfg.name}.txt")
+    del rec["events"]
+    log(f"[decode] {cfg.name} under the profiler: {steps} steps {rec['wall_s'] * 1e3:.1f} ms "
+        f"wall, device busy {rec['device_busy_s'] * 1e3:.1f} ms "
+        f"({100 * rec['busy_share']:.1f} %), {rec['records'] / steps:.0f} device records "
+        f"(kernels, copies, fills) a step")
+    rec["ops_per_step"] = rec["records"] / steps
+    return rec
 
 
 def decode_full(arch: str, B: int, S: int, steps: int, profile: bool) -> dict:
@@ -2819,6 +2857,480 @@ def decode_phase(profile: bool) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8: train — the LM training path and AutoInt (no kernel of the repo)
+# ---------------------------------------------------------------------------
+
+# qwen3-0.6b at its published widths and depth in bf16: 8 steps of batch 8 ×
+# 1,024 tokens (LM_ACCUM = 2: microbatches of 4), remat "nothing", OPT_CFG
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "qwen3-0.6b", 8, 8, 1024
+# remat variants of one step: the forward is the same operations, so the
+# losses are bitwise equal; grad_norm within this relative difference (bf16
+# gradients, the embedding's backward summing with atomics)
+REMAT_GN_RTOL = 1e-2
+# a resumed run against an uninterrupted one on the card, each leaf's max
+# difference over its max|p| (atomics in the backward pass may reorder sums)
+RESUME_RTOL = 1e-6
+# card vs CPU at SMOKE size in fp32 (TF32 off), 3 steps: losses relative,
+# parameters of max|p| over the tree.  Not of each leaf's own max: AdamW's
+# step lr·m̂/(√v̂ + ε) is steep where a gradient is within rounding of ε —
+# a key bias's gradient is zero but for rounding (softmax ignores a shift
+# shared by all keys), and such elements differ by a good part of lr
+TRAIN_F32_RTOL = 1e-5
+TRAIN_CARD_VS_CPU_STEPS = 3
+AUTOINT_STEPS, SERVE_CALLS, RETRIEVAL_CALLS, BULK_CALLS = 5, 100, 20, 3
+# device records of a train step by kind (first match): fp32 GEMMs on the
+# CUDA cores (the attention's products, TF32 off), tensor-core GEMMs (the
+# bf16 projections, MLP and head), AdamW's multi-tensor passes, reductions,
+# copies and fills, and the elementwise passes
+TRAIN_KERNEL_KINDS = (("gemm fp32", r"f32f32|sgemm"), ("gemm bf16", r"nvjet|gemm|xmma|cutlass"),
+                      ("foreach", r"multi_tensor"), ("reduce", r"reduce_kernel|softmax"),
+                      ("copy/convert", r"Memcpy|Memset|copy"), ("elementwise", r"elementwise"))
+STEP_LINE = re.compile(r"\[step +(\d+)\] loss=([0-9.]+) grad_norm=([0-9.]+) dt=([0-9.]+)s")
+
+
+class StepClock:
+    """Wraps ``launch.train.make_train_step``: each step of the launcher's
+    run timed on the host clock between two synchronisations, with its peak
+    memory and its metrics (device tensors, read after the run)."""
+
+    def __enter__(self):
+        self.ms, self.peak_gb, self.metrics = [], [], []
+        self._orig = launch_train.make_train_step
+
+        def make(*args, **kw):
+            step = self._orig(*args, **kw)
+
+            def timed(state, batch):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                self.peak_gb.append(torch.cuda.max_memory_allocated() / 1e9)
+                self.metrics.append(metrics)
+                return state, metrics
+
+            return timed
+
+        launch_train.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        launch_train.make_train_step = self._orig
+
+
+def run_train_launcher(argv) -> tuple:
+    """``launch.train.main(argv)`` in process: (final state, its stdout
+    lines, host seconds), the lines echoed."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        state = launch_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        log(f"[launcher] {ln[:400]}")
+    return state, lines, wall
+
+
+def lm_train_bound(cfg, params, tokens: int, seq: int, accum: int, remat: bool) -> dict:
+    """The least time of one train step on this run's data: the products'
+    operations — the layers' and the head's GEMMs in bf16 (2 a weight a
+    token), the causal attention's two products in fp32 (2·B·H·S²·dh a
+    layer: half the S×S scores are needed) — three forwards' worth for the
+    forward and backward passes plus the layers' re-forward under remat, at
+    the bf16 dense and fp32 peaks; plus AdamW's bytes at the HBM rate (p,
+    the gradient — fp32 when accumulated —, m and v read once; p, m and v
+    written once)."""
+    layer = cfg.active_param_count() - 2 * cfg.vocab * cfg.d_model  # weights a token
+    head = cfg.vocab * cfg.d_model
+    attn = 2 * cfg.n_layers * (tokens // seq) * cfg.n_heads * seq * seq * cfg.d_head
+    gemm = 3 * 2 * (layer + head) * tokens + (2 * layer * tokens if remat else 0)
+    attn_ops = (3 + int(remat)) * attn
+    ops_ms = (gemm / PEAK_BF16_FLOPS + attn_ops / PEAK_FP32_FLOPS) * 1e3
+    opt_bytes = 0
+    for p in _tree.leaves(params):
+        el = p.element_size()
+        opt_bytes += p.numel() * (2 * el + (4 if accum > 1 else el) + 4 * 4)
+    bytes_ms = opt_bytes / PEAK_HBM_BYTES * 1e3
+    return dict(bound_ms=ops_ms + bytes_ms, ops_ms=ops_ms, bytes_ms=bytes_ms,
+                gemm_flop=gemm, attn_flop=attn_ops, opt_gb=opt_bytes / 1e9)
+
+
+def _named_leaves(tree, prefix=""):
+    """(path, leaf) in flatten order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named_leaves(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def clone_state(state) -> TrainState:
+    return _tree.map(torch.clone, state)
+
+
+def remat_compare(state, batch, cfg, accum: int) -> dict:
+    """One step each with remat off, ``"nothing"`` and ``"dots"`` from clones
+    of ``state`` on ``batch``: loss, grad_norm, step ms and peak memory (the
+    state and its clone included in every peak).  Remat off fits at this
+    shape (61.2 GB on an 80 GB H100); a shape where it does not raises."""
+    out = {}
+    for tag, remat, policy in (("off", False, "nothing"), ("nothing", True, "nothing"),
+                               ("dots", True, "dots")):
+        c = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
+        step = make_train_step(functools.partial(tfm.train_loss, cfg=c), OPT_CFG,
+                               accum_steps=accum)
+        st = clone_state(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        torch.cuda.synchronize()
+        out[tag] = dict(loss=m["loss"].clone(), grad_norm=float(m["grad_norm"]),
+                        ms=(time.perf_counter() - t0) * 1e3,
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del st
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_busy(step, state, batch) -> dict:
+    """One train step under ``torch.profiler``: device busy share of its
+    wall, its device time by kernel kind, the kernels that take the most."""
+    rec = busy_record(lambda: step(state, batch), "train", "profile_train.txt", rows=10)
+    groups = {}
+    for e in rec.pop("events"):
+        if e.self_device_time_total > 0:
+            kind = next((k for k, pat in TRAIN_KERNEL_KINDS if re.search(pat, e.key)), "other")
+            groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3
+    log(f"[train] one step under the profiler: {rec['wall_s'] * 1e3:.1f} ms wall, device busy "
+        f"{rec['device_busy_s'] * 1e3:.1f} ms ({100 * rec['busy_share']:.1f} %), "
+        f"{rec['records']} device records; by kind: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
+    rec["by_kind_ms"] = groups
+    return rec
+
+
+def train_checkpoint(state, step: int) -> dict:
+    """``state`` saved through ``CheckpointManager`` under ``build/`` and
+    restored onto the card: save s, restore s, MB; gate bitwise equal."""
+    d = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    free_gb = shutil.disk_usage(ROOT).free / 1e9
+    mgr = CheckpointManager(str(d), keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(step, state, blocking=True)
+    save_s = time.perf_counter() - t0
+    mb = sum(f.stat().st_size for f in (d / f"step_{step:08d}").iterdir()) / 1e6
+    t0 = time.perf_counter()
+    got = mgr.restore(step, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+               for a, b in zip(_tree.leaves(got), _tree.leaves(state)))
+    del got
+    shutil.rmtree(d, ignore_errors=True)
+    check(same, "train: the restored checkpoint differs from the saved state")
+    log(f"[train] checkpoint of the step-{step} state: {mb:.1f} MB, save {save_s:.2f} s, "
+        f"restore onto the card {restore_s:.2f} s, bitwise equal ({free_gb:.0f} GB free before)")
+    return dict(mb=mb, save_s=save_s, restore_s=restore_s, bitwise=same)
+
+
+def lm_train_full(profile: bool) -> dict:
+    """qwen3-0.6b through ``launch.train.main`` (counters zeroed just before
+    and read just after: the path runs none of the repo's kernels), every
+    step timed; then on the final state: the full-width checkpoint, the
+    remat comparison, no device → host copy inside a step."""
+    dev = torch.device("cuda")
+    cfg = ARCHS[TRAIN_ARCH].config
+    accum = LM_ACCUM[cfg.name]
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ)]
+    for _, fn in COUNTERS:
+        fn.launches = 0
+    with StepClock() as clock:
+        state, lines, wall = run_train_launcher(argv)
+    launches = {name: fn.launches for name, fn in COUNTERS}
+    check(not any(launches.values()), f"train: a pipeline kernel launched: {launches}")
+    hit = STEP_LINE.fullmatch(lines[-1]) if lines else None
+    check(hit is not None and int(hit[1]) == TRAIN_STEPS, f"train: the launcher printed "
+                                                          f"{lines[-1:]!r}")
+    check(len(clock.ms) == TRAIN_STEPS and int(state.step) == TRAIN_STEPS,
+          f"train: {len(clock.ms)} steps timed, state at step {int(state.step)}")
+    losses = [float(m["loss"]) for m in clock.metrics]
+    gnorms = [float(m["grad_norm"]) for m in clock.metrics]
+    check(all(map(math.isfinite, losses + gnorms)), f"train: losses {losses}, grad_norm {gnorms}")
+    # every drawn weight changed; the norm gains start at 1.0, where one
+    # bf16 ulp (2⁻⁸ below, 2⁻⁷ above) is far more than 8 warmup steps move
+    # them (Σ lr ≈ 1e-4; no master weights, as in the reference)
+    init = _named_leaves(tfm.init_params(cfg, cpu_generator(0), device=dev))
+    moved = {n: float((a != b).float().mean()) for (n, b), a in
+             zip(init, _tree.leaves(state.params))}
+    drawn = [n for n, b in init if bool(b.min() != b.max())]  # not a constant gain
+    del init
+    still = [n for n, f in moved.items() if f == 0.0]
+    check(all(moved[n] > 0 for n in drawn), f"train: drawn weights did not change: {still}")
+    ms = float(np.median(clock.ms[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bound = lm_train_bound(cfg, state.params, tokens, TRAIN_SEQ, accum, cfg.remat)
+    peak_gb = max(clock.peak_gb)
+    log(f"[train] {TRAIN_ARCH} (published config, bf16) batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"accum {accum}, remat {cfg.remat_policy!r}: step ms (median of steps 2-{TRAIN_STEPS}) "
+        f"{ms:.1f}, all {[round(x, 1) for x in clock.ms]}; {tokens / ms * 1e3:.0f} tokens/s; "
+        f"peak device memory {peak_gb:.2f} GB; launcher wall {wall:.1f} s; losses "
+        f"{[round(x, 4) for x in losses]}, grad_norm {[round(x, 3) for x in gnorms]}; "
+        f"leaves unchanged in bf16 (gains at 1.0): {still}")
+    log(f"[train] {TRAIN_ARCH} bound a step {bound['bound_ms']:.2f} ms: GEMMs "
+        f"{bound['gemm_flop']:.3e} flop at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s + fp32 "
+        f"attention {bound['attn_flop']:.3e} flop at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s = "
+        f"{bound['ops_ms']:.2f} ms, AdamW {bound['opt_gb']:.2f} GB at "
+        f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s = {bound['bytes_ms']:.2f} ms — "
+        f"{ms / bound['bound_ms']:.1f}× the bound")
+    ckpt_rec = train_checkpoint(state, TRAIN_STEPS)
+
+    stream = MarkovTokenStream(cfg.vocab, seed=0)
+    stream._step = TRAIN_STEPS
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.next_batch(TRAIN_BATCH, TRAIN_SEQ).items()}
+    remat = remat_compare(state, batch, cfg, accum)
+    base = remat["nothing"]
+    for t, r in remat.items():
+        check(torch.equal(r["loss"], base["loss"]),
+              f"train: remat {t} loss {float(r['loss'])!r} != {float(base['loss'])!r}")
+        check(abs(r["grad_norm"] - base["grad_norm"]) <= REMAT_GN_RTOL * base["grad_norm"],
+              f"train: remat {t} grad_norm {r['grad_norm']} vs {base['grad_norm']}")
+    for r in remat.values():
+        r["loss"] = float(r["loss"])
+    check(all(base["peak_gb"] <= r["peak_gb"] for r in remat.values()),
+          f"train: remat 'nothing' is not the lowest peak: "
+          f"{ {t: r['peak_gb'] for t, r in remat.items()} }")
+    log("[train] remat, one step each from one state and batch: " + "; ".join(
+        f"{t}: peak {r['peak_gb']:.2f} GB, {r['ms']:.1f} ms, loss {r['loss']:.6f}, grad_norm "
+        f"{r['grad_norm']:.5f}" for t, r in remat.items())
+        + " (losses bitwise equal; 'nothing' the lowest)")
+
+    step = make_train_step(functools.partial(tfm.train_loss, cfg=cfg), OPT_CFG,
+                           accum_steps=accum)
+    step(state, batch)  # warm: the profiler's window holds one steady step
+    d2h = d2h_copy_bytes(lambda: step(state, batch))
+    check(not d2h, f"train: a step copied {d2h} bytes to the host")
+    rec = dict(arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ, accum=accum,
+               launcher_lines=lines, launcher_wall_s=wall, launches=launches, step_ms=clock.ms,
+               step_ms_median=ms, tokens_s=tokens / ms * 1e3, peak_gb=peak_gb,
+               peak_gb_steps=clock.peak_gb, losses=losses, grad_norm=gnorms, d2h_copies=len(d2h),
+               changed_frac=moved,
+               checkpoint=ckpt_rec, remat=remat, **bound)
+    if profile:
+        rec["profile"] = train_busy(step, state, batch)
+    del state, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_resume() -> dict:
+    """The launcher at ``--smoke`` on the card: 6 steps with a checkpoint
+    dir, then 10 resumed from it, against 10 uninterrupted; each leaf within
+    ``RESUME_RTOL`` of its max|p|, and whether bitwise."""
+    d = ROOT / "build" / "train_resume"
+    shutil.rmtree(d, ignore_errors=True)
+    run_train_launcher(["--smoke", "--steps", "6", "--ckpt-dir", str(d)])
+    resumed, lines, _ = run_train_launcher(["--smoke", "--steps", "10", "--ckpt-dir", str(d)])
+    check("[resume] restored checkpoint at step 6" in lines, f"train: no resume line: {lines}")
+    whole, _, _ = run_train_launcher(["--smoke", "--steps", "10"])
+    pairs = list(zip(_tree.leaves(resumed), _tree.leaves(whole)))
+    err = max(float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()),
+                                                                1e-30) for a, b in pairs)
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    shutil.rmtree(d, ignore_errors=True)
+    check(err <= RESUME_RTOL, f"train: resumed vs uninterrupted {err:.3e} of max|p|")
+    log(f"[train] resume through the launcher (--smoke, 6 then 10 steps vs 10): max "
+        f"{err:.3e} of a leaf's max|p| (gate {RESUME_RTOL}); bitwise equal: {bitwise}")
+    return dict(err=err, bitwise=bitwise)
+
+
+def autoint_batch(cfg, n: int, seed: int, dev) -> dict:
+    """Numpy-seeded single-hot ids, multi-hot bags and labels, on ``dev``."""
+    rng = np.random.default_rng(seed)
+    b = {"ids": rng.integers(0, cfg.rows_per_table, (n, cfg.n_fields - cfg.n_multihot)),
+         "bag_ids": rng.integers(0, cfg.rows_per_table, (n, cfg.n_multihot, cfg.hot_per_field)),
+         "labels": rng.integers(0, 2, (n,))}
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def autoint_flop(cfg, n: int) -> float:
+    """The forward's products for ``n`` rows: the four projections a layer
+    and the two attention products a head, the logit."""
+    F, H, da = cfg.n_fields, cfg.n_heads, cfg.d_attn
+    flop, d_in = 0, cfg.embed_dim
+    for _ in range(cfg.n_attn_layers):
+        flop += 4 * 2 * F * d_in * H * da + 2 * 2 * H * F * F * da
+        d_in = H * da
+    return n * (flop + 2 * F * d_in)
+
+
+def host_ms(fn, calls: int) -> list:
+    """Host-clock ms of each of ``calls`` calls, each ended by a
+    synchronisation (one warm call first)."""
+    fn()
+    out = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def autoint_full() -> dict:
+    """AutoInt at its published config (39 × 1,000,000 × 16 fp32 tables) at
+    the reference's ``RECSYS_SHAPES``: train steps, serving latency, bulk
+    scoring and retrieval, with bounds and peak memory."""
+    dev = torch.device("cuda")
+    arch = ARCHS["autoint"]
+    cfg, shapes = arch.config, {k: v.dims for k, v in arch.shapes.items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = trs.init_params(cfg, cpu_generator(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in _tree.leaves(params))
+    state = init_state(params)
+    B = shapes["train_batch"]["batch"]
+    batch = autoint_batch(cfg, B, 0, dev)
+    step = make_train_step(functools.partial(trs.train_loss, cfg=cfg), OPT_CFG)
+    ms, losses = [], []
+    for _ in range(AUTOINT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(map(math.isfinite, losses)), f"autoint: losses {losses}")
+    check(losses[-1] != losses[0], f"autoint: the loss did not change: {losses}")
+    gathered = B * (cfg.n_fields - cfg.n_multihot + cfg.n_multihot * cfg.hot_per_field)
+    # AdamW: p, g, m, v read and p, m, v written (fp32); the dense table
+    # gradient zeroed; the gathered rows read and their gradient scattered
+    t_bytes = (28 * n_params + 4 * params["tables"].numel()
+               + 2 * 4 * gathered * cfg.embed_dim) / PEAK_HBM_BYTES * 1e3
+    t_ops = 3 * autoint_flop(cfg, B) / PEAK_FP32_FLOPS * 1e3
+    train_ms = float(np.median(ms[1:]))
+
+    def serve_rec(n, calls, seed):
+        b = autoint_batch(cfg, n, seed, dev)
+        with torch.no_grad():
+            times = host_ms(lambda: trs.forward_logits(state.params, b, cfg), calls)
+            logits = trs.forward_logits(state.params, b, cfg)
+        check(logits.shape == (n,) and bool(torch.isfinite(logits).all()),
+              f"autoint: serving logits at {n} rows")
+        rows = n * (cfg.n_fields - cfg.n_multihot + cfg.n_multihot * cfg.hot_per_field)
+        b_ms = (rows * cfg.embed_dim * 4 + 4 * sum(p.numel() for p in _tree.leaves(
+            state.params["layers"])) + 8 * n) / PEAK_HBM_BYTES * 1e3
+        o_ms = autoint_flop(cfg, n) / PEAK_FP32_FLOPS * 1e3
+        return dict(batch=n, p50_ms=float(np.percentile(times, 50)),
+                    p99_ms=float(np.percentile(times, 99)), ms=times,
+                    bound_ms=max(b_ms, o_ms), bound_by="bytes" if b_ms >= o_ms else "operations")
+
+    torch.cuda.reset_peak_memory_stats()
+    serve = serve_rec(shapes["serve_p99"]["batch"], SERVE_CALLS, 1)
+    bulk = serve_rec(shapes["serve_bulk"]["batch"], BULK_CALLS, 2)
+    n_cand = shapes["retrieval_cand"]["n_candidates"]
+    cand = _random.Stream.from_generator(cpu_generator(3)).normal((n_cand, 64), dev)
+    qb = autoint_batch(cfg, shapes["retrieval_cand"]["batch"], 4, dev)
+    with torch.no_grad():
+        def retrieve():
+            return trs.retrieval_scores(trs.query_embedding(state.params, qb, cfg), cand)
+        r_ms = host_ms(retrieve, RETRIEVAL_CALLS)
+        scores = retrieve()
+    check(scores.shape == (1, n_cand) and bool(torch.isfinite(scores).all()),
+          "autoint: retrieval scores")
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    retr = dict(n_candidates=n_cand, ms_median=float(np.median(r_ms)), ms=r_ms,
+                bound_ms=n_cand * 64 * 4 * 2 / PEAK_HBM_BYTES * 1e3, bound_by="bytes")
+    rec = dict(n_params=n_params, init_s=init_s, train_batch=B, step_ms=ms,
+               step_ms_median=train_ms, rows_s=B / train_ms * 1e3, losses=losses,
+               train_bound_ms=t_bytes + t_ops, train_bytes_ms=t_bytes, train_ops_ms=t_ops,
+               train_peak_gb=train_peak, serve_p99=serve, serve_bulk=bulk, retrieval=retr,
+               serve_peak_gb=serve_peak)
+    log(f"[train] autoint (published config: {n_params / 1e6:.1f} M parameters, "
+        f"{params['tables'].numel() * 4 / 1e9:.2f} GB of tables) drawn on the card in "
+        f"{init_s:.2f} s; train batch {B}: step ms (median of 2-{AUTOINT_STEPS}) {train_ms:.2f}, "
+        f"all {[round(x, 2) for x in ms]}, {B / train_ms * 1e3:.0f} rows/s; bound "
+        f"{t_bytes + t_ops:.2f} ms (bytes {t_bytes:.2f} + fp32 operations {t_ops:.2f}) — "
+        f"{train_ms / (t_bytes + t_ops):.1f}× the bound; losses {[round(x, 6) for x in losses]}; "
+        f"peak {train_peak:.2f} GB")
+    log(f"[train] autoint serve_p99 (batch {serve['batch']}, {SERVE_CALLS} calls): p50 "
+        f"{serve['p50_ms']:.3f} ms, p99 {serve['p99_ms']:.3f} ms (bound {serve['bound_ms']:.4f} "
+        f"ms, {serve['bound_by']}); serve_bulk (batch {bulk['batch']}): p50 {bulk['p50_ms']:.2f} "
+        f"ms (bound {bulk['bound_ms']:.3f} ms, {bulk['bound_by']}); retrieval_cand (query "
+        f"embedding + {n_cand} × 64 scores): {retr['ms_median']:.3f} ms (bound "
+        f"{retr['bound_ms']:.4f} ms, bytes); peak {serve_peak:.2f} GB")
+    del state, params, cand
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_card_vs_cpu(steps: int = TRAIN_CARD_VS_CPU_STEPS) -> dict:
+    """Each LM arch's SMOKE config and AutoInt's in fp32 (TF32 off): weights
+    made on the CPU from a seed and carried to the card by ``convert``,
+    ``steps`` steps of ``make_train_step(train_loss, OPT_CFG)`` on both; the
+    losses within ``TRAIN_F32_RTOL`` relative and the parameters within
+    ``TRAIN_F32_RTOL`` of max|p| over the tree (each leaf's error over its
+    own max printed)."""
+    out = {}
+    for arch in LM_ARCHS + ("autoint",):
+        cfg = ARCHS[arch].smoke_config
+        check(cfg.dtype == torch.float32, f"{arch}: SMOKE is not fp32")
+        if arch == "autoint":
+            params = trs.init_params(cfg, cpu_generator(0), device="cpu")
+            card_params = convert.autoint_params(params, device="cuda")
+            loss_fn = functools.partial(trs.train_loss, cfg=cfg)
+            batches = [autoint_batch(cfg, 64, 10 + i, "cpu") for i in range(steps)]
+        else:
+            params = tfm.init_params(cfg, cpu_generator(0), device="cpu")
+            card_params = convert.transformer_params(params, device="cuda")
+            loss_fn = functools.partial(tfm.train_loss, cfg=cfg)
+            batches = []
+            for i in range(steps):
+                toks = torch.from_numpy(np.random.default_rng(10 + i).integers(0, cfg.vocab,
+                                                                               (4, 32)))
+                batches.append({"tokens": toks, "labels": toks})
+        step = make_train_step(loss_fn, OPT_CFG)
+        cpu, card = init_state(params), init_state(card_params)
+        loss_err = 0.0
+        for b in batches:
+            cpu, cm_ = step(cpu, b)
+            card, gm = step(card, {k: v.cuda() for k, v in b.items()})
+            loss_err = max(loss_err, abs(float(gm["loss"]) - float(cm_["loss"]))
+                           / abs(float(cm_["loss"])))
+        diff = [(float((a.cpu() - b).abs().max()), float(b.abs().max()))
+                for a, b in zip(_tree.leaves(card.params), _tree.leaves(cpu.params))]
+        p_err = max(d for d, _ in diff) / max(m for _, m in diff)
+        leaf_err = max(d / max(m, 1e-30) for d, m in diff)
+        out[arch] = dict(loss=loss_err, params=p_err, worst_leaf=leaf_err)
+        check(loss_err <= TRAIN_F32_RTOL and p_err <= TRAIN_F32_RTOL,
+              f"train card vs CPU ({arch} SMOKE): losses {loss_err:.3e}, params {p_err:.3e}")
+    log(f"[train] card vs CPU at SMOKE size (fp32, TF32 off), {steps} steps: "
+        + ", ".join(f"{a} loss {r['loss']:.2e} params {r['params']:.2e} (worst leaf "
+                    f"{r['worst_leaf']:.2e} of its own max)" for a, r in out.items())
+        + f"; gate {TRAIN_F32_RTOL} of the loss, and of max|p| over the tree")
+    return out
+
+
+def train_phase(profile: bool) -> dict:
+    """The training path: qwen3-0.6b through the launcher at full width,
+    the launcher's resume on the card, AutoInt at its published config, and
+    card vs CPU at SMOKE size."""
+    rec = dict(lm=lm_train_full(profile), resume=train_resume(), autoint=autoint_full())
+    rec["card_vs_cpu"] = train_card_vs_cpu()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script needs a GPU",
@@ -2886,6 +3398,13 @@ def main() -> int:
     serve_kernels, serve_rec = serve_phase()
     t_decode = time.perf_counter()
     decode_rec = decode_phase("--profile" in sys.argv[1:])
+    t_train = time.perf_counter()
+    for _, fn in COUNTERS:
+        fn.launches = 0
+    train_rec = train_phase("--profile" in sys.argv[1:])
+    train_launches = {name: fn.launches for name, fn in COUNTERS}
+    check(not any(train_launches.values()),
+          f"train phase: a pipeline kernel launched: {train_launches}")
     t_done = time.perf_counter()
     profiled = None
     if "--profile" in sys.argv[1:]:
@@ -2901,11 +3420,12 @@ def main() -> int:
                    build_s=build_s, random=random_rec, guard=guard_rec, blockell=blockell_rec,
                    kernels=kernels, main=main_rec, scalable=scal_rec, reduced=reduced,
                    resume=resume_rec, sharded=shard_rec, e2e=e2e, serve=serve_rec,
-                   decode=decode_rec, profile=profiled,
+                   decode=decode_rec, train=train_rec, profile=profiled,
                    phase_s=dict(kernels=t_main - t_start, main=t_scal - t_main,
                                 scalable=t_red - t_scal, reduced_and_resume=t_shard - t_red,
                                 sharded=t_shard_done - t_shard, e2e=t_serve - t_e2e,
-                                serve=t_decode - t_serve, decode=t_done - t_decode,
+                                serve=t_decode - t_serve, decode=t_train - t_decode,
+                                train=t_done - t_train,
                                 total=time.perf_counter() - t_start))
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     log(f"[done] {summary['phase_s']}")

@@ -13,10 +13,16 @@ Layout::
     <dir>/step_00000100/manifest.json
     <dir>/step_00000100/leaf_00000.npy ...
 
-The trees are flat dicts of arrays (numpy or torch), the one tree shape the
-pipeline stores.  Leaves are in sorted-name order, as ``jax.tree.flatten``
-orders a dict, and the manifest's ``treedef`` is the JSON of ``{name: leaf
-index}``, which the reference's ``restore_dict`` reads.
+A tree is nested dicts, lists and dataclasses (a ``TrainState``) over
+arrays (numpy or torch).  Leaves are written in ``jax.tree.flatten``'s order
+(:mod:`repro_torch._tree`: dict keys sorted, then a dataclass's fields in
+order), and the manifest's ``treedef`` is the JSON the reference writes:
+``{name: leaf index}`` for a flat dict — which ``restore_dict`` reads with
+no template — and the repr of the index tree for a dataclass.  bfloat16
+leaves are written as the reference writes them (2-byte void records,
+manifest dtype ``bfloat16``).  ``restore(step, template)`` puts the leaves
+back into a template tree of either package: a reference ``TrainState``
+checkpoint restores into the port's and back.
 """
 from __future__ import annotations
 
@@ -24,14 +30,34 @@ import json
 import os
 import shutil
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import _tree
+
 
 def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    """A host copy of a leaf (never a view: the caller may go on updating
+    the tensor in place while an async save writes)."""
+    if not isinstance(x, torch.Tensor):
+        return np.array(x)
+    x = x.detach().to("cpu", copy=True)
+    if x.dtype == torch.bfloat16:  # numpy has no bfloat16: its 2-byte records
+        return x.view(torch.int16).numpy().view(np.dtype("V2"))
+    return x.numpy()
+
+
+def _leaf(a: np.ndarray, dtype: str, like) -> Any:
+    """A restored leaf: a tensor on ``like``'s device when the template's
+    leaf is a tensor, else the numpy array."""
+    if not isinstance(like, torch.Tensor):
+        return a
+    if dtype == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
+            torch.bfloat16).to(like.device)
+    return torch.from_numpy(a).to(like.device)
 
 
 class CheckpointManager:
@@ -43,16 +69,18 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, tree: Dict[str, object], *, blocking: bool = True) -> None:
-        names = sorted(tree)
-        host_leaves = [_host(tree[k]) for k in names]  # device → host snapshot
-        index = {k: i for i, k in enumerate(names)}
+    def save(self, step: int, tree: Any, *, blocking: bool = True) -> None:
+        leaves = _tree.leaves(tree)
+        dtypes = ["bfloat16" if getattr(x, "dtype", None) == torch.bfloat16 else None
+                  for x in leaves]
+        host_leaves = [_host(x) for x in leaves]  # device → host snapshot
+        index = _tree.unflatten(tree, range(len(leaves)))
         self.wait()  # serialize with any in-flight async save (same-step race)
+        args = (step, host_leaves, dtypes, index)
         if blocking:
-            self._write(step, host_leaves, index)
+            self._write(*args)
         else:
-            self._thread = threading.Thread(target=self._write,
-                                            args=(step, host_leaves, index), daemon=True)
+            self._thread = threading.Thread(target=self._write, args=args, daemon=True)
             self._thread.start()
 
     def wait(self) -> None:
@@ -60,7 +88,7 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def _write(self, step: int, host_leaves, index: Dict[str, int]) -> None:
+    def _write(self, step: int, host_leaves, dtypes, index) -> None:
         name = f"step_{step:08d}"
         tmp = os.path.join(self.dir, name + ".tmp")
         final = os.path.join(self.dir, name)
@@ -70,10 +98,11 @@ class CheckpointManager:
         manifest = {
             "step": step,
             "n_leaves": len(host_leaves),
-            "treedef": json.dumps(index),
+            "treedef": json.dumps(index, default=repr),
             "leaves": [
-                {"file": f"leaf_{i:05d}.npy", "shape": list(x.shape), "dtype": str(x.dtype)}
-                for i, x in enumerate(host_leaves)
+                {"file": f"leaf_{i:05d}.npy", "shape": list(x.shape),
+                 "dtype": dt or str(x.dtype)}
+                for i, (x, dt) in enumerate(zip(host_leaves, dtypes))
             ],
         }
         for i, x in enumerate(host_leaves):
@@ -138,11 +167,30 @@ class CheckpointManager:
         leaves = [np.load(os.path.join(p, leaf["file"])) for leaf in manifest["leaves"]]
         return {name: leaves[i] for name, i in index.items()}
 
-    def restore_latest(self) -> Optional[Tuple[int, Dict[str, np.ndarray]]]:
-        """``(step, flat dict)`` of the newest intact checkpoint, or None."""
+    def restore(self, step: int, example_tree: Any) -> Any:
+        """The tree saved at ``step`` in ``example_tree``'s structure (leaves
+        in flatten order): a tensor leaf of the template comes back as a
+        tensor on its device, in the saved dtype; other leaves as numpy."""
+        p = os.path.join(self.dir, f"step_{step:08d}")
+        with open(os.path.join(p, "manifest.json")) as f:
+            manifest = json.load(f)
+        like = _tree.leaves(example_tree)
+        if len(like) != len(manifest["leaves"]):
+            raise ValueError(f"checkpoint step {step} holds {len(manifest['leaves'])} leaves, "
+                             f"the template {len(like)}")
+        leaves = [_leaf(np.load(os.path.join(p, leaf["file"])), leaf["dtype"], t)
+                  for leaf, t in zip(manifest["leaves"], like)]
+        return _tree.unflatten(example_tree, leaves)
+
+    def restore_latest(self, example_tree: Any = None) -> Optional[Tuple[int, Any]]:
+        """``(step, tree)`` of the newest intact checkpoint, or None: the tree
+        in ``example_tree``'s structure, or without a template the flat dict
+        (``restore_dict``)."""
         for step in reversed(self.all_steps()):
             if self._complete(step):
-                return step, self.restore_dict(step)
+                if example_tree is None:
+                    return step, self.restore_dict(step)
+                return step, self.restore(step, example_tree)
         return None
 
     def delete(self, step: int) -> None:

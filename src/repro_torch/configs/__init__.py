@@ -1,9 +1,10 @@
 """Architecture registry (mirrors :mod:`repro.configs`): the five LM archs of
-the model zoo and the paper's own pipeline.
+the model zoo, the AutoInt recsys model and the paper's own pipeline.
 
 ``ARCHS`` maps arch id → :class:`repro_torch.configs.base.ArchDef`.  The GNN
-and recsys archs (equiformer-v2, pna, nequip, gcn-cora, autoint) join with
-their models (ROADMAP A14c, A14d).
+archs (equiformer-v2, pna, nequip, gcn-cora) join with their models
+(ROADMAP A14c); ``configs.cells`` holds the launcher's training knobs (the
+dry-run cells come with ROADMAP A14e).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ _MODULES = [
     "qwen3_0p6b",
     "granite_moe_3b_a800m",
     "olmoe_1b_7b",
+    "autoint",
     "spectral",
 ]
 

@@ -1,11 +1,12 @@
 """Carry the reference's state across into this package's objects.
 
 The pipeline has no weights: its state is the graph, the embedding and the
-centroids; the model zoo's LMs have parameter trees.  Each function takes
-the reference's arrays — anything ``numpy.asarray`` accepts, such as the
-fields of a ``repro`` container — and returns the port's counterpart on
-``device`` (the card unless the caller asks for the CPU).  Nothing here
-imports the reference: containers are read by field name.
+centroids; the model zoo's models have parameter trees, and training has a
+``TrainState``.  Each function takes the reference's arrays — anything
+``numpy.asarray`` accepts, such as the fields of a ``repro`` container —
+and returns the port's counterpart on ``device`` (the card unless the
+caller asks for the CPU).  Nothing here imports the reference: containers
+are read by field name.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.kernels.lsh_candidates.ops import LshTables
 from repro_torch.serve.oos import OOSConfig, ServingIndex
 from repro_torch.sparse.distributed import ShardedCOO
 from repro_torch.sparse.formats import COO, CSR, BlockELL
+from repro_torch.train.state import TrainState
 
 
 def _t(a, dev: torch.device, dtype=None) -> torch.Tensor:
@@ -142,3 +144,29 @@ def transformer_params(tree: Any, *, device: DeviceLike = None) -> Any:
     if isinstance(tree, dict):
         return {k: transformer_params(v, device=dev) for k, v in tree.items()}
     return _leaf(tree, dev)
+
+
+def _tensors(tree: Any, dev: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tensors(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v, dev) for v in tree]
+    return _leaf(tree, dev)
+
+
+def autoint_params(tree: Any, *, device: DeviceLike = None) -> Any:
+    """A reference AutoInt parameter tree (``repro.models.recsys.init_params``'s
+    layout: a dict whose ``layers`` is a list of dicts) as the same tree of
+    tensors."""
+    return _tensors(tree, resolve_device(device))
+
+
+def train_state(state: Any, *, device: DeviceLike = None) -> TrainState:
+    """A reference ``TrainState`` (params, opt ``{m, v, step}``, step) — of an
+    LM or of AutoInt — as the port's, each leaf's dtype kept."""
+    dev = resolve_device(device)
+    opt = state.opt
+    return TrainState(params=_tensors(state.params, dev),
+                      opt={"m": _tensors(opt["m"], dev), "v": _tensors(opt["v"], dev),
+                           "step": _leaf(opt["step"], dev)},
+                      step=_leaf(state.step, dev))

@@ -4,11 +4,16 @@
 Covers the five LM architectures (glm4-9b, qwen2-7b, qwen3-0.6b,
 granite-moe-3b-a800m, olmoe-1b-7b) from one config.  Layers are stacked on a
 leading ``L`` axis, as in the reference, and applied by a Python loop over
-``l`` (each layer's parameters are views of the stacked tensors).
+``l``: each stacked tensor is unbound once a pass (``torch.unbind``), so a
+layer's parameters are views whose backward is one ``stack`` — not a
+select per layer, each of which would materialize a zero tensor the size
+of the whole stack in the backward pass.
 
 Entry points:
-  ``forward`` / ``train_loss`` — full-sequence logits / next-token CE
-                                 (forward only; training is ROADMAP A14b),
+  ``forward`` / ``train_loss`` — full-sequence logits / next-token CE + the
+                                 MoE aux loss; with gradients on, each layer
+                                 is rematerialized as ``cfg.remat`` and
+                                 ``cfg.remat_policy`` say,
   ``prefill``                  — run a prompt, return last-position logits
                                  + KV cache,
   ``decode_step``              — one token against a KV cache, updated in
@@ -17,12 +22,14 @@ Entry points:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 
-from repro_torch import _random
+from repro_torch import _random, _tree
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models.moe import MoEConfig, init_moe_params, moe_ffn
@@ -35,10 +42,14 @@ Params = Dict[str, Any]
 class TransformerConfig:
     """The reference's config field for field; ``dtype`` is a torch dtype.
 
-    ``remat``, ``remat_policy`` and ``scan_unroll`` are training and
-    compile knobs of the reference, kept so the configs compare field for
-    field; they do nothing here (rematerialization arrives with the training
-    slice, ROADMAP A14b)."""
+    ``remat`` rematerializes each layer in the backward pass (when gradients
+    are on): ``remat_policy="nothing"`` saves nothing inside a layer,
+    ``"dots"`` saves the outputs of the products with no batch dims
+    (``aten.mm``/``addmm``: the projections and the MLP) and recomputes the
+    rest, the attention's batched products included — the reference's
+    ``nothing_saveable`` and ``dots_with_no_batch_dims_saveable``.
+    ``scan_unroll`` is the reference's compile knob, kept so the configs
+    compare field for field; the layer loop here is a Python loop."""
 
     name: str
     n_layers: int
@@ -157,11 +168,38 @@ def _mask_padded_logits(logits: Tensor, cfg: TransformerConfig) -> Tensor:
     return logits.masked_fill(~valid, -1e30)
 
 
-def _layer(tree, l: int):
-    """Layer ``l``'s parameters: views of the stacked ``[L, ...]`` tensors."""
+def _per_layer(tree, n_layers: int):
+    """Each layer's parameters, from one ``torch.unbind`` of every stacked
+    ``[L, ...]`` tensor: views, and in the backward pass one ``stack`` a
+    tensor."""
     if isinstance(tree, dict):
-        return {k: _layer(v, l) for k, v in tree.items()}
-    return tree[l]
+        per = {k: _per_layer(v, n_layers) for k, v in tree.items()}
+        return [{k: v[l] for k, v in per.items()} for l in range(n_layers)]
+    return torch.unbind(tree, 0)
+
+
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the outputs of the products with no
+    batch dims, recompute everything else."""
+    if op in _SAVED_BY_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: TransformerConfig, tensors):
+    """``fn`` (a layer) rematerialized as the config asks when a gradient
+    will be taken (grad mode on and one of ``tensors`` requires grad); else
+    ``fn`` itself."""
+    if not (cfg.remat and torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
+        return fn
+    kw = {}  # any policy but "dots" saves nothing, as in the reference
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                             _dots_policy)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -234,13 +272,23 @@ def layer_decode(lp, x, k_cache, v_cache, cache_len, cfg: TransformerConfig):
 def _layers(params, x, cfg: TransformerConfig, positions, collect_kv: bool):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
-    for l in range(cfg.n_layers):
-        x, a, k, v = layer_forward(_layer(params["layers"], l), x, cfg, positions)
+    per_layer = _per_layer(params["layers"], cfg.n_layers)
+    layer = _remat(layer_forward, cfg, [x, *_tree.leaves(params["layers"])])
+    for lp in per_layer:
+        x, a, k, v = layer(lp, x, cfg, positions)
         aux = aux + a
         if collect_kv:
             ks.append(k)
             vs.append(v)
     return x, aux, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+
+
+def _embed(params, tokens: Tensor, cfg: TransformerConfig) -> Tensor:
+    """The tokens' embedding rows: a gather whose backward sums each row's
+    gradient in a fixed order (``embedding``'s sorted segments, not the
+    racing adds of an indexing backward), so a step is reproducible bit for
+    bit on one device."""
+    return F.embedding(tokens, params["embed"]).to(cfg.dtype)
 
 
 def _positions(B: int, S: int, device) -> Tensor:
@@ -250,14 +298,14 @@ def _positions(B: int, S: int, device) -> Tensor:
 def forward(params: Params, tokens: Tensor, cfg: TransformerConfig) -> Tuple[Tensor, Tensor]:
     """tokens [B, S] -> logits [B, S, vocab_padded], aux loss."""
     B, S = tokens.shape
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = _embed(params, tokens, cfg)
     x, aux, _ = _layers(params, x, cfg, _positions(B, S, x.device), collect_kv=False)
     x = cm.rmsnorm(x, params["final_norm"])
     return _mask_padded_logits(x @ params["lm_head"], cfg), aux
 
 
 def train_loss(params: Params, batch: Dict[str, Tensor], cfg: TransformerConfig) -> Tensor:
-    """Next-token cross-entropy + aux (forward only)."""
+    """Next-token cross-entropy + the MoE aux loss."""
     logits, aux = forward(params, batch["tokens"], cfg)
     return cm.cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:]) + aux
 
@@ -266,7 +314,7 @@ def prefill(params: Params, tokens: Tensor, cfg: TransformerConfig):
     """Prompt pass. Returns (last-position logits [B, 1, vocab_padded], kv
     cache ``{"k", "v"}`` stacked [L, B, S, Hkv, dh])."""
     B, S = tokens.shape
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = _embed(params, tokens, cfg)
     x, _, (k_cache, v_cache) = _layers(params, x, cfg, _positions(B, S, x.device),
                                        collect_kv=True)
     x = cm.rmsnorm(x[:, -1:], params["final_norm"])
@@ -280,10 +328,9 @@ def decode_step(params: Params, cache: Dict[str, Tensor], cache_len: Tensor, tok
     Returns (logits [B, 1, vocab_padded], cache): ``cache`` is updated in
     place — the new KV rows written at ``cache_len`` — and returned, the
     contract of the reference's launcher, which donates the cache."""
-    x = params["embed"][token[:, None]].to(cfg.dtype)
-    for l in range(cfg.n_layers):
-        x, _, _ = layer_decode(_layer(params["layers"], l), x, cache["k"][l], cache["v"][l],
-                               cache_len, cfg)
+    x = _embed(params, token[:, None], cfg)
+    for l, lp in enumerate(_per_layer(params["layers"], cfg.n_layers)):
+        x, _, _ = layer_decode(lp, x, cache["k"][l], cache["v"][l], cache_len, cfg)
     x = cm.rmsnorm(x, params["final_norm"])
     return _mask_padded_logits(x @ params["lm_head"], cfg), cache
 

@@ -229,8 +229,9 @@ def test_configs_match_reference_field_for_field(name):
 
 
 def test_registry_holds_the_lm_archs_and_the_pipeline():
-    assert sorted(a.name for a in ASSIGNED) == sorted(LM_ARCHS)
-    assert set(ARCHS) == set(LM_ARCHS) | {"spectral"}
+    # and AutoInt, the recsys model (its configs: tests/test_torch_recsys.py)
+    assert sorted(a.name for a in ASSIGNED) == sorted(LM_ARCHS + ["autoint"])
+    assert set(ARCHS) == set(LM_ARCHS) | {"autoint", "spectral"}
     assert dataclasses.asdict(ARCHS["spectral"].config) == dataclasses.asdict(
         J_ARCHS["spectral"].config)
     granite = ARCHS["granite-moe-3b-a800m"].config
