@@ -125,6 +125,24 @@ result line):
    (losses within 1e-5, parameters within 1e-5 of max|p|); with
    ``--profile`` one qwen3 step's
    device busy share.
+9. gnn — the GNN family's training (``models/gnn/``, ``data/sampler.py``)
+   with the launch counters zeroed just before and read just after (it
+   runs none of the repo's kernels): gcn-cora, pna, nequip and
+   equiformer-v2 at their published configs through ``gnn_shape_config``
+   and ``make_train_step(loss, OPT_CFG)`` on runs G1–G6 (``GNN_RUNS``:
+   Cora's size and ogb_products for gcn-cora, a ``NeighborSampler``
+   subgraph of a Reddit-size CSR for pna, 128 molecules for nequip and
+   equiformer-v2 in bf16, nequip on 4.2 M edges in 5 chunks), batches drawn
+   on the card from a seed: step ms, nodes and edges a second, peak memory,
+   the step's bound (``gnn_bound``), the sampler's host ms; gates: every
+   loss and grad_norm finite, every leaf the loss reaches got a gradient
+   and, in fp32, changed; nequip's chunked step's peak below its unchunked
+   step's on one graph of 2.62 M edges; each GNN's SMOKE config card = CPU
+   over 3 steps on the tiny graph and the molecule layout (losses and
+   parameters within 1e-5, two card runs' spread printed); rotation +
+   translation moving the loss of tests/test_e3.py's configs by < 5e-5 on
+   the card (at full width in fp32, printed); with ``--profile`` one step of
+   each run's device busy share.
 
 With ``--profile`` each path runs once more under ``torch.profiler``
 (device busy share, top kernels, host → device copies) and once more under
@@ -198,7 +216,7 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import recsys as trs  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
-from repro_torch.train.state import TrainState, init_state, make_train_step  # noqa: E402
+from repro_torch.train.state import TrainState, _grads_of, init_state, make_train_step  # noqa: E402
 from repro_torch.serve import (BatchConfig, EmbeddingRegistry, MicroBatcher,  # noqa: E402
                                OOSConfig, OOSResult, adjusted_rand_index, build_index,
                                serve_fn)
@@ -2961,9 +2979,11 @@ def lm_train_bound(cfg, params, tokens: int, seq: int, accum: int, remat: bool) 
 
 
 def _named_leaves(tree, prefix=""):
-    """(path, leaf) in flatten order."""
+    """(path, leaf) in flatten order, through dicts and lists."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _named_leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _named_leaves(v, f"{prefix}/{i}")]
     return [(prefix, tree)]
 
 
@@ -3331,6 +3351,454 @@ def train_phase(profile: bool) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 9: gnn — the GNN family's training (no kernel of the repo)
+# ---------------------------------------------------------------------------
+
+# (run, arch, shape): published configs at full width and depth through
+# gnn_shape_config and make_train_step(loss, OPT_CFG), synthetic batches
+# drawn from a seed on the card.  G5 is cut: nequip at ogb_products would be
+# ~59 edge chunks × 5 layers of tensor products, each run 3 times (forward,
+# remat re-forward, the chunked backward's re-forward), a minute or more a
+# step; 4,200,000 edges (5 chunks, the last ragged) over 166,000 nodes keep
+# products' mean degree (≈ 25.3) and run sum_over_chunks on the card.
+GNN_RUNS = (("G1", "gcn-cora", "full_graph_sm"), ("G2", "gcn-cora", "ogb_products"),
+            ("G3", "pna", "minibatch_lg"), ("G4", "nequip", "molecule"),
+            ("G5", "nequip", "ogb_products"), ("G6", "equiformer-v2", "molecule"))
+GNN_STEPS = {"G5": 2, "G5-gate": 2}  # steps a run (the first a warmup); 3 unless named
+G5_NODES, G5_EDGES = 166_000, 4_200_000
+# G5's memory gate: the chunked step against the unchunked step of one graph.
+# Unchunked at 4.2 M edges would hold the per-edge radial weights ([E, 15, 32]
+# f32, 8.1 GB, twice), the 15 paths' messages (51 rows of 32 f32 an edge,
+# 27 GB) and the gathered features (4.8 GB) of a layer at once: too near an
+# 80 GB card's capacity.  So the gate runs on 2.5 chunks' worth of edges (3
+# chunks, the last half full) at the same mean degree, ~40 GB unchunked.
+G5_GATE_EDGES = 5 * (1 << 20) // 2
+EQUIV_RTOL = 5e-5  # rotation + translation, tests/test_e3.py's gate
+
+
+def gnn_graph(run: str, arch: str, shape: str, cfg, dev, seed: int, csr=None) -> tuple:
+    """The run's batch on ``dev`` (synthetic, from ``seed``) and (nodes,
+    edges, the sampler's host ms or None).  Sizes are GNN_SHAPES padded by
+    ``_pad_div``; padding nodes and edges are masked out."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.cells import _pad_div
+    from repro_torch.data.sampler import NeighborSampler, subgraph_capacities
+    from repro_torch.models.gnn.graph import GraphBatch
+
+    d = GNN_SHAPES[shape].dims
+    g = torch.Generator(device=dev).manual_seed(seed)
+    geometric = arch in ("nequip", "equiformer-v2")
+    sample_ms = None
+
+    def randint(hi, n):
+        return torch.randint(0, hi, (n,), generator=g, device=dev, dtype=torch.int32)
+
+    if shape == "molecule":
+        G_, n1, e1 = d["batch"], d["n_nodes"], d["n_edges"]
+        N, E = _pad_div(G_ * n1), _pad_div(G_ * e1)
+        check((N, E) == (G_ * n1, G_ * e1), "gnn: the molecule batch would need padding")
+        base = torch.arange(G_, device=dev, dtype=torch.int32).repeat_interleave(e1) * n1
+        src, dst = base + randint(n1, G_ * e1), base + randint(n1, G_ * e1)
+        gid = torch.arange(G_, device=dev, dtype=torch.int32).repeat_interleave(n1)
+        labels = torch.randn(G_, generator=g, device=dev)
+        batch = GraphBatch(
+            node_feat=torch.zeros((N, 1), device=dev), edge_src=src, edge_dst=dst,
+            edge_mask=torch.ones(E, device=dev), labels=labels,
+            label_mask=torch.ones(G_, device=dev),
+            positions=torch.randn((N, 3), generator=g, device=dev) * 2,
+            species=randint(cfg.n_species, N), graph_id=gid, n_graphs=G_)
+        return batch, N, E, sample_ms
+    if shape == "minibatch_lg":
+        indptr, indices, feat, node_labels = csr
+        sampler = NeighborSampler(indptr, indices, seed=seed)
+        t0 = time.perf_counter()
+        seeds = np.random.default_rng(seed).choice(len(indptr) - 1, d["batch_nodes"],
+                                                   replace=False)
+        sub = sampler.sample(seeds, (d["fanout0"], d["fanout1"]))
+        sample_ms = (time.perf_counter() - t0) * 1e3
+        N, E = subgraph_capacities(d["batch_nodes"], (d["fanout0"], d["fanout1"]))
+        ids = torch.from_numpy(sub.node_ids).to(dev)
+        lmask = torch.zeros(N, device=dev)
+        lmask[:sub.seed_count] = 1.0
+        batch = GraphBatch(
+            node_feat=feat.index_select(0, ids), edge_src=torch.from_numpy(sub.edge_src).to(dev),
+            edge_dst=torch.from_numpy(sub.edge_dst).to(dev),
+            edge_mask=torch.from_numpy(sub.edge_mask).to(dev),
+            labels=node_labels.index_select(0, ids), label_mask=lmask)
+        return batch, N, E, sample_ms
+    n_real, e_real = (G5_NODES, G5_EDGES) if run == "G5" else (d["n_nodes"], d["n_edges"])
+    if run == "G5-gate":
+        n_real, e_real = round(G5_GATE_EDGES * G5_NODES / G5_EDGES), G5_GATE_EDGES
+    N, E = _pad_div(n_real), _pad_div(e_real)
+    emask = torch.zeros(E, device=dev)
+    emask[:e_real] = 1.0
+    lmask = torch.zeros(N, device=dev)
+    lmask[:n_real] = 1.0
+    src, dst = randint(n_real, E), randint(n_real, E)
+    batch = GraphBatch(
+        node_feat=(torch.zeros((N, 1), device=dev) if geometric
+                   else torch.randn((N, d["d_feat"]), generator=g, device=dev)),
+        edge_src=src, edge_dst=dst, edge_mask=emask,
+        labels=randint(d["n_classes"], N), label_mask=lmask,
+        positions=torch.randn((N, 3), generator=g, device=dev) * 2 if geometric else None,
+        species=randint(cfg.n_species, N) if geometric else None)
+    return batch, N, E, sample_ms
+
+
+def reddit_csr(dev) -> tuple:
+    """A synthetic CSR of Reddit's size (232,965 nodes, 114,615,892 edges:
+    degree ≈ 492, neighbours uniform) on the host, int32 indices (458 MB),
+    and a [232,965, 602] feature table and labels on the card; host
+    seconds to build."""
+    from repro_torch.configs.base import GNN_SHAPES
+
+    d = GNN_SHAPES["minibatch_lg"].dims
+    n, e = d["n_nodes"], d["n_edges"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    indptr = np.arange(n + 1, dtype=np.int64) * e // n
+    indices = rng.integers(0, n, e, dtype=np.int32)
+    build_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(1)
+    feat = torch.randn((n, d["d_feat"]), generator=g, device=dev)
+    labels = torch.randint(0, d["n_classes"], (n,), generator=g, device=dev, dtype=torch.int32)
+    return (indptr, indices, feat, labels), build_s
+
+
+def _gnn_layer_cost(arch: str, cfg, N: int, E: int) -> tuple:
+    """(bytes, flops) of one forward pass on this graph: each gather, scatter
+    and node tensor read or written once (node tensors at their storage
+    dtype, edge tensors fp32, 4-byte indices), the dense products' flops."""
+    if arch == "gcn-cora":
+        dims = [cfg.d_in] + [cfg.d_hidden] * (cfg.n_layers - 1) + [cfg.n_classes]
+        nb = eb = fl = 0
+        for a, b in zip(dims[:-1], dims[1:]):
+            nb += N * (a + b) * 4  # h in, h out
+            eb += E * (2 * b * 4 + 12)  # the gather and the scatter, src/dst/weight
+            fl += 2 * N * a * b
+        return nb + eb, fl
+    if arch == "pna":
+        d = cfg.d_hidden
+        nb = N * (cfg.d_in + d) * 4 + N * (d + cfg.n_classes) * 4
+        fl = 2 * N * cfg.d_in * d + 2 * N * d * cfg.n_classes
+        for _ in range(cfg.n_layers):
+            nb += N * (13 * d + d) * 4  # [h, 12 aggregates] in, h out
+            nb += E * (2 * d + 4 * d) * 4 + E * 12  # 2 gathers, 4 scatters, indices+mask
+            fl += 2 * E * (2 * d * d + d * d) + 2 * N * 13 * d * d
+        return nb, fl
+    if arch == "nequip":
+        from repro_torch.models.gnn.nequip import _paths
+
+        C, dim, P = cfg.channels, (cfg.l_max + 1) ** 2, len(_paths(cfg.l_max))
+        # a path: CG against Y (a·b·c an edge), then [c, a] × [a, C] an edge
+        tp = sum((2 * a + 1) * (2 * c + 1) * ((2 * b + 1) + C) for a, b, c in _paths(cfg.l_max))
+        layer_b = N * dim * C * 4 * 4 + E * (2 * dim * C * 4 + 24)  # h ×4, gather, scatter
+        layer_f = (2 * 2 * N * dim * C * C + 2 * N * C * (cfg.l_max + 1) * C
+                   + 2 * E * (cfg.n_rbf * 64 + 64 * P * C) + 2 * E * tp)
+        return cfg.n_layers * layer_b, cfg.n_layers * layer_f
+    C, dim, L = cfg.channels, (cfg.l_max + 1) ** 2, cfg.l_max
+    el = torch.finfo(cfg.dtype).bits // 8
+    rows = sum((2 * l + 1) ** 2 for l in range(L + 1))
+    so2 = 2 * E * (L + 1) * 2 * C * (L + 1) * C + sum(
+        4 * 2 * E * (L + 1 - m) * 2 * C * (L + 1 - m) * C for m in range(1, cfg.m_max + 1))
+    layer_f = (6 * E * rows * C + so2 + 2 * E * (cfg.n_rbf * 64 + 64 * C + 2 * C * C)
+               + 2 * 2 * N * dim * C * C + 2 * N * C * (2 * C + 2 * C + (L + 1) * C))
+    layer_b = N * dim * C * (4 * el + 4 * 4) + E * (3 * dim * C * 4 + 24)
+    return cfg.n_layers * layer_b, cfg.n_layers * layer_f
+
+
+def gnn_bound(arch: str, cfg, params, N: int, E: int) -> dict:
+    """The least time of one train step on this graph: the forward pass's
+    bytes and flops (``_gnn_layer_cost``) three times over for the forward
+    and backward passes (the backward of a gather is a scatter of its size,
+    of a product two products), once more for remat's re-forward and once
+    more for the chunked backward's re-forward; plus AdamW's bytes (p, g,
+    m, v read, p, m, v written).  Flops at the fp32 peak (equiformer's bf16
+    weights meet fp32 features, and TF32 is off), bytes at 3.35 TB/s."""
+    n_bytes, flops = _gnn_layer_cost(arch, cfg, N, E)
+    chunk = getattr(cfg, "edge_chunk", None)
+    passes = 3 + int(getattr(cfg, "remat", False)) + int(bool(chunk) and E > chunk)
+    opt = sum(p.numel() * (3 * p.element_size() + 4 * 4) for p in _tree.leaves(params))
+    bytes_ms = (passes * n_bytes + opt) / PEAK_HBM_BYTES * 1e3
+    ops_ms = passes * flops / PEAK_FP32_FLOPS * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms
+                else "operations", bytes_ms=bytes_ms, ops_ms=ops_ms, passes=passes,
+                gb=passes * n_bytes / 1e9, gflop=passes * flops / 1e9)
+
+
+def gnn_run(run: str, arch: str, shape: str, profile: bool, csr=None, cfg_over=None) -> dict:
+    """One run: the published config through ``gnn_shape_config``, ``steps``
+    train steps (the first a warmup), each timed on the host clock between
+    two synchronisations with its peak memory; gates: every loss and
+    grad_norm finite, every parameter leaf the loss reaches changed (in
+    bf16, every drawn leaf: one bf16 ulp of a gain at 1.0 is far more than
+    a few warmup steps move it)."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.cells import _gnn_model, gnn_shape_config
+
+    dev = torch.device("cuda")
+    arch_def = ARCHS[arch]
+    mod = _gnn_model(arch_def)
+    cfg = gnn_shape_config(arch_def, GNN_SHAPES[shape])
+    if cfg_over:
+        cfg = dataclasses.replace(cfg, **cfg_over)
+    steps = GNN_STEPS.get(run, 3)
+    torch.cuda.empty_cache()
+    params = mod.init_params(cfg, cpu_generator(0), device=dev)
+    init = [p.clone() for p in _tree.leaves(params)]
+    state = init_state(params)
+    step = make_train_step(lambda p, b: mod.loss(p, b, cfg), OPT_CFG)
+    ms, peaks, metrics, sample_ms = [], [], [], []
+    for i in range(steps):
+        batch, N, E, smp = gnn_graph(run, arch, shape, cfg, dev, seed=100 + i, csr=csr)
+        if smp is not None:
+            sample_ms.append(smp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        metrics.append(m)
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    check(all(map(math.isfinite, losses + gnorms)),
+          f"gnn {run}: losses {losses}, grad_norm {gnorms}")
+    names = [n for n, _ in _named_leaves(state.params)]
+    # the leaves the loss reaches: a nonzero gradient on a small graph under
+    # this config (the last layer's gates of l > 0 features, and a node
+    # classifier's graph readout, are not read by the loss)
+    small = smoke_graph(arch in ("nequip", "equiformer-v2"), cfg.task, n=64, e=256,
+                        d_in=getattr(cfg, "d_in", 32), n_classes=cfg.n_classes,
+                        n_species=cfg.n_species if hasattr(cfg, "n_species") else 5)
+    _, g_small = _grads_of(lambda p, b: mod.loss(p, b, cfg),
+                           _tree.unflatten(state.params, init),
+                           convert.graph_batch(small, device=dev))
+    reached = {n for n, g in zip(names, g_small) if bool(g.abs().max() > 0)}
+    del g_small
+    moved = {n: float((a != b).float().mean()) for n, a, b in
+             zip(names, _tree.leaves(state.params), init)}
+    # every reached leaf got a gradient (its fp32 first moment is nonzero)
+    # and, in fp32, changed; a bf16 leaf may keep its value through a few
+    # warmup steps (Σ lr ≈ 2e-5 is below half an ulp of most of its
+    # elements; no master weights, as in the reference)
+    no_grad = [n for n, m in zip(names, _tree.leaves(state.opt["m"]))
+               if n in reached and not bool(m.abs().max() > 0)]
+    still = [n for n, p in zip(names, init) if n in reached and moved[n] == 0.0
+             and p.dtype == torch.float32]
+    check(not no_grad and not still, f"gnn {run}: parameter leaves with no gradient "
+                                     f"{no_grad}, unchanged {still}")
+    t = float(np.median(ms[1:]))
+    bound = gnn_bound(arch, cfg, state.params, N, E)
+    rec = dict(arch=arch, shape=shape, nodes=N, edges=E, steps=steps, ms=ms, ms_median=t,
+               nodes_per_s=N / t * 1e3, edges_per_s=E / t * 1e3, peak_gb=max(peaks[1:]),
+               peak_gb_all=peaks, losses=losses, grad_norm=gnorms, bound=bound,
+               x_bound=t / bound["bound_ms"], dtype=str(cfg.dtype).replace("torch.", ""),
+               edge_chunk=getattr(cfg, "edge_chunk", None), sample_ms=sample_ms,
+               unreached=sorted(set(names) - reached),
+               unchanged=[n for n, f in moved.items() if f == 0.0])
+    log(f"[gnn] {run} {arch}/{shape} ({rec['dtype']}, {N:,} nodes, {E:,} edges"
+        + (f", edge_chunk {cfg.edge_chunk:,}" if rec["edge_chunk"] else "") + f"): step ms "
+        f"(median of steps 2-{steps}) {t:.2f}, all {[round(x, 2) for x in ms]}; "
+        f"{rec['nodes_per_s']:.3e} nodes/s, {rec['edges_per_s']:.3e} edges/s; peak "
+        f"{rec['peak_gb']:.2f} GB; bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}: "
+        f"{bound['gb']:.2f} GB in {bound['passes']} passes → {bound['bytes_ms']:.3f} ms, "
+        f"{bound['gflop']:.1f} GFLOP fp32 → {bound['ops_ms']:.3f} ms), {rec['x_bound']:.1f}× "
+        f"the bound; losses {[round(x, 4) for x in losses]}, grad_norm "
+        f"{[round(x, 3) for x in gnorms]}; leaves not reached by the loss "
+        f"{rec['unreached']}, unchanged {rec['unchanged']}"
+        + (f"; sampler host ms {[round(x, 1) for x in sample_ms]}" if sample_ms else ""))
+    if profile:
+        b = gnn_graph(run, arch, shape, cfg, dev, seed=99, csr=csr)[0]
+        busy = busy_record(lambda: step(state, b), f"gnn {run}", f"profile_gnn_{run}.txt", rows=6)
+        del busy["events"]
+        log(f"[gnn] {run} one step under the profiler: {busy['wall_s'] * 1e3:.1f} ms wall, "
+            f"device busy {busy['device_busy_s'] * 1e3:.1f} ms ({100 * busy['busy_share']:.1f} %)"
+            f", {busy['records']} device records")
+        rec["profile"] = busy
+    del state, params, init, metrics
+    torch.cuda.empty_cache()
+    return rec
+
+
+def g5_memory_gate() -> dict:
+    """nequip's chunked step against its unchunked step on one graph of
+    ``G5_GATE_EDGES`` edges (3 chunks of 2²⁰): the chunked step's peak must
+    stay below the unchunked one's — a ``sum_over_chunks`` that kept every
+    chunk's working set would not."""
+    out = {}
+    for tag, chunk in (("chunked", 1 << 20), ("unchunked", None)):
+        r = gnn_run("G5-gate", "nequip", "ogb_products", False,
+                    cfg_over={"edge_chunk": chunk})
+        out[tag] = dict(peak_gb=r["peak_gb"], ms=r["ms_median"], edges=r["edges"],
+                        nodes=r["nodes"], losses=r["losses"])
+    check(out["chunked"]["peak_gb"] < out["unchunked"]["peak_gb"],
+          f"gnn G5: chunked peak {out['chunked']['peak_gb']:.2f} GB not below unchunked "
+          f"{out['unchunked']['peak_gb']:.2f} GB")
+    log(f"[gnn] G5 memory gate on {out['chunked']['edges']:,} edges (3 chunks): chunked peak "
+        f"{out['chunked']['peak_gb']:.2f} GB ({out['chunked']['ms']:.1f} ms a step) < unchunked "
+        f"{out['unchunked']['peak_gb']:.2f} GB ({out['unchunked']['ms']:.1f} ms)")
+    return out
+
+
+def smoke_graph(geometric: bool, task: str, n=40, e=120, seed=0, d_in=32, n_classes=4,
+                n_species=5):
+    """tests/test_arch_smoke.py's tiny graph (node_class) or 4 molecules of
+    n/4 nodes and e/4 edges (graph_reg), numpy-seeded, on the CPU."""
+    from repro_torch.models.gnn.graph import GraphBatch
+
+    rng = np.random.default_rng(seed)
+    if task == "graph_reg":
+        g = 4
+        gid = torch.from_numpy(np.repeat(np.arange(g), n // g))
+        base = np.repeat(np.arange(g) * (n // g), e // g)
+        src, dst = base + rng.integers(0, n // g, e), base + rng.integers(0, n // g, e)
+        labels, lmask = torch.from_numpy(rng.normal(size=g).astype(np.float32)), torch.ones(g)
+    else:
+        g, gid = 1, None
+        src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+        labels, lmask = torch.from_numpy(rng.integers(0, n_classes, n)), torch.ones(n)
+    return GraphBatch(
+        node_feat=torch.from_numpy(rng.normal(size=(n, d_in)).astype(np.float32)),
+        edge_src=torch.from_numpy(src), edge_dst=torch.from_numpy(dst), edge_mask=torch.ones(e),
+        labels=labels, label_mask=lmask,
+        positions=torch.from_numpy((rng.normal(size=(n, 3)) * 2).astype(np.float32))
+        if geometric else None,
+        species=torch.from_numpy(rng.integers(0, n_species, n)) if geometric else None,
+        graph_id=gid, n_graphs=g)
+
+
+def gnn_card_vs_cpu(steps: int = TRAIN_CARD_VS_CPU_STEPS) -> dict:
+    """Each GNN's SMOKE config (fp32, TF32 off) on the tiny graph
+    (node_class) and on the molecule layout (graph_reg): weights made on the
+    CPU and carried to the card by ``convert``, ``steps`` steps on the CPU
+    and twice on the card; losses within ``TRAIN_F32_RTOL`` relative and
+    parameters within ``TRAIN_F32_RTOL`` of max|p| over the tree; the spread
+    of the two card runs printed (``index_add`` sums with atomics)."""
+    from repro_torch.configs.cells import _gnn_model
+
+    out = {}
+    for arch in ("gcn-cora", "pna", "nequip", "equiformer-v2"):
+        geometric = arch in ("nequip", "equiformer-v2")
+        mod = _gnn_model(ARCHS[arch])
+        for task in ("node_class", "graph_reg"):
+            cfg = dataclasses.replace(ARCHS[arch].smoke_config, n_classes=4, task=task,
+                                      **({} if geometric else {"d_in": 32}))
+            check(cfg.dtype == torch.float32, f"{arch}: SMOKE is not fp32")
+            params = mod.init_params(cfg, cpu_generator(0), device="cpu")
+            batch = smoke_graph(geometric, task)
+            card_batch = convert.graph_batch(batch, device="cuda")
+            step = make_train_step(lambda p, b: mod.loss(p, b, cfg), OPT_CFG)
+            cpu = init_state(params)
+            cards = [init_state(convert.gnn_params(params, device="cuda")) for _ in range(2)]
+            loss_err, spread_loss = 0.0, 0.0
+            for _ in range(steps):
+                cpu, cm = step(cpu, batch)
+                gl = []
+                for i in range(2):
+                    cards[i], gm = step(cards[i], card_batch)
+                    gl.append(float(gm["loss"]))
+                loss_err = max(loss_err, abs(gl[0] - float(cm["loss"])) / abs(float(cm["loss"])))
+                spread_loss = max(spread_loss, abs(gl[0] - gl[1]) / abs(float(cm["loss"])))
+            want = _tree.leaves(cpu.params)
+            scale = max(float(p.abs().max()) for p in want)
+            p_err = max(float((a.cpu() - b).abs().max()) for a, b in
+                        zip(_tree.leaves(cards[0].params), want)) / scale
+            spread = max(float((a - b).abs().max()) for a, b in
+                         zip(_tree.leaves(cards[0].params), _tree.leaves(cards[1].params))) / scale
+            out[f"{arch}/{task}"] = dict(loss=loss_err, params=p_err, spread_loss=spread_loss,
+                                         spread_params=spread)
+            check(loss_err <= TRAIN_F32_RTOL and p_err <= TRAIN_F32_RTOL,
+                  f"gnn card vs CPU ({arch} {task}): losses {loss_err:.3e}, params {p_err:.3e}")
+    log(f"[gnn] card vs CPU at SMOKE (fp32, TF32 off), {steps} steps: "
+        + ", ".join(f"{k} loss {r['loss']:.1e} params {r['params']:.1e} (two card runs: "
+                    f"{r['spread_loss']:.1e}, {r['spread_params']:.1e})" for k, r in out.items())
+        + f"; gate {TRAIN_F32_RTOL} of the loss, and of max|p| over the tree")
+    return out
+
+
+def _rotmat(a, b, c) -> np.ndarray:
+    def rz(t):
+        return np.array([[np.cos(t), -np.sin(t), 0], [np.sin(t), np.cos(t), 0], [0, 0, 1]])
+
+    def ry(t):
+        return np.array([[np.cos(t), 0, np.sin(t)], [0, 1, 0], [-np.sin(t), 0, np.cos(t)]])
+
+    return rz(a) @ ry(b) @ rz(c)
+
+
+def gnn_equivariance() -> dict:
+    """Rotation + translation of the positions on the card: the loss of
+    ``tests/test_e3.py``'s two configs moves by less than ``EQUIV_RTOL``
+    relative (the reference's own gate); at full width in fp32 on the
+    molecule layout, the figure printed."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.cells import _gnn_model, gnn_shape_config
+    from repro_torch.models.gnn.equiformer_v2 import EquiformerV2Config
+    from repro_torch.models.gnn.graph import GraphBatch
+    from repro_torch.models.gnn.nequip import NequIPConfig
+
+    dev = torch.device("cuda")
+    R = torch.from_numpy(_rotmat(0.5, 0.9, 1.3).astype(np.float32)).to(dev)
+    out = {}
+
+    def moved(mod, cfg, batch):
+        params = mod.init_params(cfg, cpu_generator(0), device=dev)
+        with torch.no_grad():
+            l1 = float(mod.loss(params, batch, cfg))
+            l2 = float(mod.loss(params, dataclasses.replace(
+                batch, positions=batch.positions @ R.T + 5.0), cfg))
+        return abs(l1 - l2) / max(abs(l1), 1.0)
+
+    rng = np.random.default_rng(0)
+    n, e = 24, 60
+    small = GraphBatch(
+        node_feat=torch.zeros((n, 1), device=dev),
+        edge_src=torch.from_numpy(rng.integers(0, n, e)).to(dev),
+        edge_dst=torch.from_numpy(rng.integers(0, n, e)).to(dev),
+        edge_mask=torch.ones(e, device=dev), labels=torch.zeros(1, device=dev),
+        label_mask=torch.ones(1, device=dev),
+        positions=torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32) * 2).to(dev),
+        species=torch.from_numpy(rng.integers(0, 5, n)).to(dev),
+        graph_id=torch.zeros(n, dtype=torch.int64, device=dev), n_graphs=1)
+    for arch, cfg in (("nequip", NequIPConfig(n_layers=2, channels=8, n_species=5)),
+                      ("equiformer-v2", EquiformerV2Config(n_layers=2, channels=16, l_max=3,
+                                                           m_max=2, n_heads=4, n_species=5))):
+        out[arch] = moved(_gnn_model(ARCHS[arch]), cfg, small)
+        check(out[arch] < EQUIV_RTOL, f"gnn equivariance ({arch}): {out[arch]:.3e}")
+        cfg = dataclasses.replace(gnn_shape_config(ARCHS[arch], GNN_SHAPES["molecule"]),
+                                  dtype=torch.float32)
+        batch = gnn_graph("equiv", arch, "molecule", cfg, dev, seed=7)[0]
+        out[f"{arch}/full"] = moved(_gnn_model(ARCHS[arch]), cfg, batch)
+    log(f"[gnn] equivariance on the card (rotation + translation, loss moved relative): "
+        f"test_e3 configs nequip {out['nequip']:.2e}, equiformer-v2 {out['equiformer-v2']:.2e} "
+        f"(gate {EQUIV_RTOL}); full width fp32 at molecule nequip {out['nequip/full']:.2e}, "
+        f"equiformer-v2 {out['equiformer-v2/full']:.2e} (printed)")
+    return out
+
+
+def gnn_phase(profile: bool) -> dict:
+    """The GNN family's training on the card: G1–G6 (``GNN_RUNS``), G5's
+    memory gate, card vs CPU at SMOKE, equivariance."""
+    t0 = time.perf_counter()
+    runs = {}
+    for run, arch, shape in GNN_RUNS:
+        csr = None
+        if shape == "minibatch_lg":
+            csr, build_s = reddit_csr(torch.device("cuda"))
+            log(f"[gnn] G3 synthetic Reddit-size CSR: {len(csr[0]) - 1:,} nodes, "
+                f"{len(csr[1]):,} edges, built on the host in {build_s:.2f} s")
+        runs[run] = gnn_run(run, arch, shape, profile, csr=csr)
+        del csr
+    rec = dict(runs=runs, g5_gate=g5_memory_gate(), card_vs_cpu=gnn_card_vs_cpu(),
+               equivariance=gnn_equivariance())
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"[gnn] phase wall {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script needs a GPU",
@@ -3405,6 +3873,12 @@ def main() -> int:
     train_launches = {name: fn.launches for name, fn in COUNTERS}
     check(not any(train_launches.values()),
           f"train phase: a pipeline kernel launched: {train_launches}")
+    t_gnn = time.perf_counter()
+    for _, fn in COUNTERS:
+        fn.launches = 0
+    gnn_rec = gnn_phase("--profile" in sys.argv[1:])
+    gnn_launches = {name: fn.launches for name, fn in COUNTERS}
+    check(not any(gnn_launches.values()), f"gnn phase: a pipeline kernel launched: {gnn_launches}")
     t_done = time.perf_counter()
     profiled = None
     if "--profile" in sys.argv[1:]:
@@ -3420,12 +3894,12 @@ def main() -> int:
                    build_s=build_s, random=random_rec, guard=guard_rec, blockell=blockell_rec,
                    kernels=kernels, main=main_rec, scalable=scal_rec, reduced=reduced,
                    resume=resume_rec, sharded=shard_rec, e2e=e2e, serve=serve_rec,
-                   decode=decode_rec, train=train_rec, profile=profiled,
+                   decode=decode_rec, train=train_rec, gnn=gnn_rec, profile=profiled,
                    phase_s=dict(kernels=t_main - t_start, main=t_scal - t_main,
                                 scalable=t_red - t_scal, reduced_and_resume=t_shard - t_red,
                                 sharded=t_shard_done - t_shard, e2e=t_serve - t_e2e,
                                 serve=t_decode - t_serve, decode=t_train - t_decode,
-                                train=t_done - t_train,
+                                train=t_gnn - t_train, gnn=t_done - t_gnn,
                                 total=time.perf_counter() - t_start))
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     log(f"[done] {summary['phase_s']}")

@@ -1,10 +1,9 @@
-"""Architecture registry (mirrors :mod:`repro.configs`): the five LM archs of
-the model zoo, the AutoInt recsys model and the paper's own pipeline.
+"""Architecture registry (mirrors :mod:`repro.configs`): the 10 assigned
+archs — five LMs, four GNNs, AutoInt — and the paper's own pipeline.
 
-``ARCHS`` maps arch id → :class:`repro_torch.configs.base.ArchDef`.  The GNN
-archs (equiformer-v2, pna, nequip, gcn-cora) join with their models
-(ROADMAP A14c); ``configs.cells`` holds the launcher's training knobs (the
-dry-run cells come with ROADMAP A14e).
+``ARCHS`` maps arch id → :class:`repro_torch.configs.base.ArchDef`, in the
+reference's order; ``configs.cells`` holds the launcher's training knobs
+and the GNN shape adapters (the dry-run cells come with ROADMAP A14e).
 """
 from __future__ import annotations
 
@@ -16,6 +15,10 @@ _MODULES = [
     "qwen3_0p6b",
     "granite_moe_3b_a800m",
     "olmoe_1b_7b",
+    "equiformer_v2",
+    "pna",
+    "nequip",
+    "gcn_cora",
     "autoint",
     "spectral",
 ]

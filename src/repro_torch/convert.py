@@ -10,6 +10,7 @@ are read by field name.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 from typing import Any, Union
 
@@ -20,6 +21,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.reduce import ReduceInfo, ReductionState
 from repro_torch.core.spectral import EmbedState, GraphState, SpectralPipeline
 from repro_torch.kernels.lsh_candidates.ops import LshTables
+from repro_torch.models.gnn.graph import GraphBatch
 from repro_torch.serve.oos import OOSConfig, ServingIndex
 from repro_torch.sparse.distributed import ShardedCOO
 from repro_torch.sparse.formats import COO, CSR, BlockELL
@@ -161,9 +163,26 @@ def autoint_params(tree: Any, *, device: DeviceLike = None) -> Any:
     return _tensors(tree, resolve_device(device))
 
 
+def gnn_params(tree: Any, *, device: DeviceLike = None) -> Any:
+    """A reference GNN parameter tree (gcn, pna, nequip or equiformer-v2:
+    dicts and lists of arrays) as the same tree of tensors, each leaf's
+    dtype kept (bfloat16 included)."""
+    return _tensors(tree, resolve_device(device))
+
+
+def graph_batch(b: Any, *, device: DeviceLike = None) -> GraphBatch:
+    """A reference ``GraphBatch`` (node_feat, edge_src, edge_dst, edge_mask,
+    labels, label_mask, positions, species, graph_id, n_graphs), each array
+    as a tensor of its dtype and ``n_graphs`` an int."""
+    dev = resolve_device(device)
+    fields = {f.name: getattr(b, f.name) for f in dataclasses.fields(GraphBatch)}
+    return GraphBatch(**{k: int(v) if k == "n_graphs" else None if v is None else _leaf(v, dev)
+                         for k, v in fields.items()})
+
+
 def train_state(state: Any, *, device: DeviceLike = None) -> TrainState:
     """A reference ``TrainState`` (params, opt ``{m, v, step}``, step) — of an
-    LM or of AutoInt — as the port's, each leaf's dtype kept."""
+    LM, of AutoInt or of a GNN — as the port's, each leaf's dtype kept."""
     dev = resolve_device(device)
     opt = state.opt
     return TrainState(params=_tensors(state.params, dev),

@@ -700,3 +700,69 @@ def test_oos_serving_card_matches_cpu(method):
     tables_cpu = type(tables)(*(t.cpu() for t in tables))
     assert torch.equal(routed_candidates(tables, qc, qt, win=60).cpu(),
                        routed_candidates(tables_cpu, qc.cpu(), qt.cpu(), win=60))
+
+
+# ---------------------------------------------------------------------------
+# the GNN family: SMOKE configs on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _gnn_graph(geometric, task, n=40, e=120, seed=0):
+    """tests/test_arch_smoke.py's tiny graph (node_class), or 4 molecules of
+    10 nodes and 30 edges (graph_reg), as a port GraphBatch on the CPU."""
+    from repro_torch.models.gnn.graph import GraphBatch
+
+    rng = np.random.default_rng(seed)
+    if task == "graph_reg":
+        g = 4
+        gid = torch.from_numpy(np.repeat(np.arange(g), n // g))
+        base = np.repeat(np.arange(g) * (n // g), e // g)
+        src, dst = base + rng.integers(0, n // g, e), base + rng.integers(0, n // g, e)
+        labels, lmask = torch.from_numpy(rng.normal(size=g).astype(np.float32)), torch.ones(g)
+    else:
+        g, gid = 1, None
+        src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+        labels, lmask = torch.from_numpy(rng.integers(0, 4, n)), torch.ones(n)
+    return GraphBatch(
+        node_feat=torch.from_numpy(rng.normal(size=(n, 32)).astype(np.float32)),
+        edge_src=torch.from_numpy(src), edge_dst=torch.from_numpy(dst),
+        edge_mask=torch.ones(e), labels=labels, label_mask=lmask,
+        positions=torch.from_numpy((rng.normal(size=(n, 3)) * 2).astype(np.float32))
+        if geometric else None,
+        species=torch.from_numpy(rng.integers(0, 5, n)) if geometric else None,
+        graph_id=gid, n_graphs=g)
+
+
+@pytest.mark.parametrize("name", ["gcn-cora", "pna", "nequip", "equiformer-v2"])
+@pytest.mark.parametrize("task", ["node_class", "graph_reg"])
+def test_gnn_smoke_card_matches_cpu(name, task):
+    """3 ``make_train_step`` steps of each GNN's SMOKE config (fp32, TF32
+    off) from one set of weights on the card and on the CPU: losses within
+    1e-5 relative, parameters within 1e-5 of max|p| over the tree (the
+    card's ``index_add`` sums with atomics, in no fixed order)."""
+    import dataclasses
+
+    from repro_torch import _tree, convert
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.cells import OPT_CFG, _gnn_model
+    from repro_torch.train.state import init_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = ARCHS[name]
+    mod = _gnn_model(arch)
+    geometric = name in ("nequip", "equiformer-v2")
+    cfg = dataclasses.replace(arch.smoke_config, n_classes=4, task=task,
+                              **({} if geometric else {"d_in": 32}))
+    params = mod.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = _gnn_graph(geometric, task)
+    step = make_train_step(lambda p, b: mod.loss(p, b, cfg), OPT_CFG)
+    cpu = init_state(params)
+    card = init_state(convert.gnn_params(params, device="cuda"))
+    card_batch = convert.graph_batch(batch, device="cuda")
+    for _ in range(3):
+        cpu, cm = step(cpu, batch)
+        card, gm = step(card, card_batch)
+        assert abs(float(gm["loss"]) - float(cm["loss"])) <= 1e-5 * abs(float(cm["loss"]))
+    want = [p.double() for p in _tree.leaves(cpu.params)]
+    scale = max(float(p.abs().max()) for p in want)
+    for a, b in zip(_tree.leaves(card.params), want):
+        assert a.is_cuda and float((a.cpu().double() - b).abs().max()) <= 1e-5 * scale

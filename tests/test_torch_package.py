@@ -83,9 +83,8 @@ def test_entry_points_refuse_a_missing_card():
 
 
 # names of the reference's package __init__s whose modules are not ported
-# yet: the neighbor sampler (ROADMAP A14c), elastic resharding and the
-# compressed all-reduce (A14e)
-UNPORTED = {"data": {"NeighborSampler"}, "ckpt": {"reshard_tree"},
+# yet: elastic resharding and the compressed all-reduce (ROADMAP A14e)
+UNPORTED = {"ckpt": {"reshard_tree"},
             "optim": {"compressed_psum_mean"}}
 
 

@@ -229,9 +229,13 @@ def test_configs_match_reference_field_for_field(name):
 
 
 def test_registry_holds_the_lm_archs_and_the_pipeline():
-    # and AutoInt, the recsys model (its configs: tests/test_torch_recsys.py)
-    assert sorted(a.name for a in ASSIGNED) == sorted(LM_ARCHS + ["autoint"])
-    assert set(ARCHS) == set(LM_ARCHS) | {"autoint", "spectral"}
+    # and every other arch of the reference's registry, in its order (the
+    # GNNs' and AutoInt's configs: tests/test_torch_gnn.py, test_torch_recsys.py)
+    from repro.configs import ASSIGNED as J_ASSIGNED
+
+    assert list(ARCHS) == list(J_ARCHS)
+    assert [a.name for a in ASSIGNED] == [a.name for a in J_ASSIGNED]
+    assert set(LM_ARCHS) < set(ARCHS) and "spectral" in ARCHS
     assert dataclasses.asdict(ARCHS["spectral"].config) == dataclasses.asdict(
         J_ARCHS["spectral"].config)
     granite = ARCHS["granite-moe-3b-a800m"].config
