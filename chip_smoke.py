@@ -3799,6 +3799,258 @@ def gnn_phase(profile: bool) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 10: mesh — the launcher's DeviceMesh path (no kernel of the repo)
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3
+# granite-moe at its published widths (48 padded experts × 3 × 1,536 × 512 a
+# layer: 113 M expert weights a layer, 3.6 B at 32 layers), depth cut so
+# that bf16 weights, fp32 moments, fp32 accumulated gradients and AdamW's
+# fp32 temporaries fit one 80 GB card
+MESH_MOE_LAYERS = 12
+MESH_MOE_BATCH, MESH_MOE_SEQ = 8, 1024
+# the mesh launcher against the one-device path (bitwise expected at world
+# size 1), of max|p| over the tree
+MESH_RTOL = 1e-6
+# moe_ffn_shard_map against moe_ffn_gspmd at the dropless capacity factor
+# E/K: bf16 outputs, the expert GEMMs on buffers of other capacities (T and
+# T rounded up to 32), so two bf16 ulps of max|y|
+MOE_PATH_RTOL = 2.0 ** -7
+# the one-device launcher's steps and peak on an H100 before the launcher built
+# a mesh (PERF.md §6), printed beside M1's
+ONE_DEVICE_STEP_MS, ONE_DEVICE_PEAK_GB = (759, 792), 22.38
+DRYRUN_CELLS = ("qwen3-0.6b/decode_32k", "gcn-cora/full_graph_sm", "autoint/serve_p99")
+
+
+def mesh_argv(arch: str, steps: int, batch: int, seq: int, *extra) -> list:
+    return ["--arch", arch, "--steps", str(steps), "--batch", str(batch), "--seq", str(seq),
+            "--data-parallel", "1", "--model-parallel", "1", *extra]
+
+
+def one_device_state(cfg, steps: int, batch: int, seq: int, accum: int, dev) -> TrainState:
+    """The path the launcher took before it built a mesh: the same seed's
+    weights and token stream, plain tensors, ``make_train_step``."""
+    state = init_state(tfm.init_params(cfg, cpu_generator(0), device=dev))
+    step = make_train_step(functools.partial(tfm.train_loss, cfg=cfg), OPT_CFG,
+                           accum_steps=accum)
+    stream = MarkovTokenStream(cfg.vocab, seed=0)
+    for i in range(steps):
+        stream._step = i
+        b = {k: torch.from_numpy(v).to(dev) for k, v in stream.next_batch(batch, seq).items()}
+        state, _ = step(state, b)
+    return state
+
+
+def tree_diff(got, want) -> tuple:
+    """(max |got − want| over the tree / max|want| over the tree, bitwise)."""
+    pairs = list(zip(_tree.leaves(got), _tree.leaves(want)))
+    d = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+    m = max(float(b.float().abs().max()) for _, b in pairs)
+    return d / max(m, 1e-30), all(torch.equal(a, b) for a, b in pairs)
+
+
+def mesh_step_record(argv, tag: str) -> dict:
+    """One step of the launcher's mesh run outside its loop (``prepare``,
+    then the step under the mesh's rules): the device → host copies it
+    makes, and its device busy share under the profiler."""
+    args = launch_train.parse_args(argv)
+    with launch_train.process_group("nccl"):
+        run = launch_train.prepare(args)
+        with run.context():
+            batch = run.batches(0)
+            run.step(run.state, batch)  # warm
+            d2h = d2h_copy_bytes(lambda: run.step(run.state, batch))
+            busy = busy_record(lambda: run.step(run.state, batch), tag, f"profile_{tag}.txt")
+        del run, batch
+    busy.pop("events")
+    torch.cuda.empty_cache()
+    return dict(d2h=d2h, **busy)
+
+
+def mesh_lm() -> dict:
+    """M1: qwen3-0.6b through ``launch.train.main`` on a world-size-1 NCCL
+    DeviceMesh, against the one-device path; M3: the same run checkpointed
+    at step 2 and resumed with ``--elastic``."""
+    dev = torch.device("cuda")
+    cfg = ARCHS[TRAIN_ARCH].config
+    accum = LM_ACCUM[cfg.name]
+    argv = mesh_argv(TRAIN_ARCH, MESH_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    with StepClock() as clock:
+        state, lines, wall = run_train_launcher(argv)
+    check(bool(lines) and lines[0].startswith("mesh {'data': 1, 'model': 1}"),
+          f"mesh M1: the launcher printed {lines[:1]!r}")
+    losses = [float(m["loss"]) for m in clock.metrics]
+    check(len(losses) == MESH_STEPS and all(map(math.isfinite, losses)),
+          f"mesh M1: losses {losses}")
+    plain = one_device_state(cfg, MESH_STEPS, TRAIN_BATCH, TRAIN_SEQ, accum, dev)
+    err, bitwise = tree_diff(state, plain)
+    del plain
+    torch.cuda.empty_cache()
+    check(bitwise or err <= MESH_RTOL,
+          f"mesh M1: the mesh launcher's state differs from the one-device path by {err:.3e}")
+    ms = float(np.median(clock.ms[1:]))
+    peak = max(clock.peak_gb)
+    log(f"[mesh] M1 {TRAIN_ARCH} (published config, bf16) on a (1, 1) NCCL mesh, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, accum {accum}: step ms (median of steps 2-{MESH_STEPS}) "
+        f"{ms:.1f}, all {[round(x, 1) for x in clock.ms]}; peak {peak:.2f} GB (the one-device "
+        f"launcher before the mesh: {ONE_DEVICE_STEP_MS[0]}-{ONE_DEVICE_STEP_MS[1]} ms, "
+        f"{ONE_DEVICE_PEAK_GB} GB); "
+        f"losses {[round(x, 4) for x in losses]}; vs the one-device path {err:.3e} of max|p|, "
+        f"bitwise {bitwise}")
+
+    d = ROOT / "build" / "mesh_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    run_train_launcher(mesh_argv(TRAIN_ARCH, MESH_STEPS - 1, TRAIN_BATCH, TRAIN_SEQ,
+                                 "--ckpt-dir", str(d)))
+    resumed, rlines, _ = run_train_launcher(mesh_argv(TRAIN_ARCH, MESH_STEPS, TRAIN_BATCH,
+                                                      TRAIN_SEQ, "--ckpt-dir", str(d),
+                                                      "--elastic"))
+    shutil.rmtree(d, ignore_errors=True)
+    check(f"[resume] restored checkpoint at step {MESH_STEPS - 1}" in rlines,
+          f"mesh M3: no resume line: {rlines}")
+    r_err, r_bitwise = tree_diff(resumed, state)
+    check(r_bitwise or r_err <= RESUME_RTOL,
+          f"mesh M3: resumed vs uninterrupted {r_err:.3e} of max|p|")
+    log(f"[mesh] M3 --elastic: step-{MESH_STEPS - 1} checkpoint under build/ resumed onto the "
+        f"re-planned (1, 1) mesh to step {MESH_STEPS}: vs M1's state {r_err:.3e} of max|p|, "
+        f"bitwise {r_bitwise}")
+    del resumed, state
+    torch.cuda.empty_cache()
+    step_rec = mesh_step_record(argv, "mesh_m1")
+    check(not step_rec["d2h"], f"mesh M1: a step copied {step_rec['d2h']} bytes to the host")
+    log(f"[mesh] M1 one step under the profiler: {step_rec['wall_s'] * 1e3:.1f} ms wall, device "
+        f"busy {step_rec['device_busy_s'] * 1e3:.1f} ms ({100 * step_rec['busy_share']:.1f} %); "
+        f"no device → host copy")
+    return dict(m1=dict(lines=lines, wall_s=wall, step_ms=clock.ms, step_ms_median=ms,
+                        peak_gb=peak, losses=losses, err=err, bitwise=bitwise, step=step_rec),
+                m3=dict(lines=rlines, err=r_err, bitwise=r_bitwise))
+
+
+def moe_paths(p, cfg, dev) -> dict:
+    """One layer's ``moe_ffn_shard_map`` (on a (1, 1) NCCL mesh) against
+    ``moe_ffn_gspmd`` at the dropless capacity factor E/K on 4,096 seeded
+    bf16 tokens."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_smoke_mesh, rules_for_mesh
+
+    mc = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=(4096, cfg.d_model)).astype(
+        np.float32)).to(dev, cfg.dtype)
+    y_g, aux_g = tmoe.moe_ffn_gspmd(p, x, mc)
+    with launch_train.process_group("nccl"):
+        mesh = make_smoke_mesh(1, 1, "cuda")
+        with shd.axis_rules(rules_for_mesh(mesh), mesh):
+            y_s, aux_s = tmoe.moe_ffn_shard_map(p, x, mc, mesh)
+        y_s = y_s.to_local()
+        lb_s, rz_s = float(aux_s["load_balance"].to_local()), float(aux_s["router_z"].to_local())
+    scale = float(y_g.float().abs().max())
+    err = float((y_s.float() - y_g.float()).abs().max()) / scale
+    lb_g, rz_g = float(aux_g["load_balance"]), float(aux_g["router_z"])
+    return dict(err=err, max_y=scale, dropped_gspmd=float(aux_g["dropped_frac"]),
+                load_balance=(lb_s, lb_g), router_z=(rz_s, rz_g))
+
+
+def mesh_moe() -> dict:
+    """M2: granite-moe-3b-a800m at its published widths (depth cut to
+    ``MESH_MOE_LAYERS``) through the launcher on the (1, 1) mesh: every MoE
+    layer takes ``moe_ffn_shard_map``."""
+    dev = torch.device("cuda")
+    name = "granite-moe-3b-a800m"
+    full = ARCHS[name]
+    cut = dataclasses.replace(full, config=dataclasses.replace(full.config,
+                                                               n_layers=MESH_MOE_LAYERS))
+    cfg = cut.config
+    calls = {"shard_map": 0, "gspmd": 0}
+    saved = tmoe.moe_ffn_shard_map, tmoe.moe_ffn_gspmd
+
+    def counted(kind, fn):
+        def run(*a, **kw):
+            calls[kind] += 1
+            return fn(*a, **kw)
+        return run
+
+    ARCHS[name] = cut
+    tmoe.moe_ffn_shard_map = counted("shard_map", saved[0])
+    tmoe.moe_ffn_gspmd = counted("gspmd", saved[1])
+    try:
+        with StepClock() as clock:
+            state, lines, wall = run_train_launcher(mesh_argv(name, MESH_STEPS, MESH_MOE_BATCH,
+                                                              MESH_MOE_SEQ))
+    finally:
+        ARCHS[name] = full
+        tmoe.moe_ffn_shard_map, tmoe.moe_ffn_gspmd = saved
+    accum = LM_ACCUM[name]
+    losses = [float(m["loss"]) for m in clock.metrics]
+    check(len(losses) == MESH_STEPS and all(map(math.isfinite, losses)),
+          f"mesh M2: losses {losses}")
+    check(calls["gspmd"] == 0 and calls["shard_map"] > 0,
+          f"mesh M2: MoE layers by path {calls}")
+    init = _named_leaves(tfm.init_params(cfg, cpu_generator(0), device=dev))
+    moved = {n: bool((a != b).any()) for (n, b), a in zip(init, _tree.leaves(state.params))}
+    drawn = [n for n, b in init if bool(b.min() != b.max())]
+    del init
+    check(all(moved[n] for n in drawn),
+          f"mesh M2: drawn weights did not change: {[n for n in drawn if not moved[n]]}")
+    paths = moe_paths({k: v[0] for k, v in state.params["layers"]["mlp"].items()}, cfg, dev)
+    check(paths["err"] <= MOE_PATH_RTOL,
+          f"mesh M2: moe_ffn_shard_map vs moe_ffn_gspmd at cf E/K: {paths['err']:.3e} of max|y|")
+    ms = float(np.median(clock.ms[1:]))
+    peak = max(clock.peak_gb)
+    n_params = sum(p.numel() for p in _tree.leaves(state.params))
+    log(f"[mesh] M2 {name} at published widths, {MESH_MOE_LAYERS} of 32 layers "
+        f"({n_params / 1e9:.2f} B parameters), bf16, batch {MESH_MOE_BATCH} x {MESH_MOE_SEQ}, "
+        f"accum {accum}: step ms (median of steps 2-{MESH_STEPS}) {ms:.1f}, all "
+        f"{[round(x, 1) for x in clock.ms]}; peak {peak:.2f} GB; losses "
+        f"{[round(x, 4) for x in losses]}; MoE calls {calls}; one layer shard_map vs gspmd at "
+        f"cf E/K: {paths['err']:.3e} of max|y| {paths['max_y']:.3f} (gate {MOE_PATH_RTOL:.3e}), "
+        f"aux shard_map/gspmd lb {paths['load_balance']}, rz {paths['router_z']}")
+    del state
+    torch.cuda.empty_cache()
+    return dict(lines=lines, wall_s=wall, layers=MESH_MOE_LAYERS, params=n_params,
+                step_ms=clock.ms, step_ms_median=ms, peak_gb=peak, losses=losses,
+                moe_calls=calls, paths=paths)
+
+
+def mesh_dryrun() -> dict:
+    """The dry-run of three cells on the (16, 16) fake mesh in a subprocess
+    on the host (no card): its roofline terms and memory a rank."""
+    out = ROOT / "build" / "dryrun_chip"
+    shutil.rmtree(out, ignore_errors=True)
+    script = ("import sys\nfrom repro_torch.launch import dryrun\n"
+              f"rcs = [dryrun.main(['--cell', c, '--mesh', 'single', '--out', {str(out)!r}]) "
+              f"for c in {list(DRYRUN_CELLS)!r}]\nsys.exit(max(rcs))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          env=env, timeout=600)
+    wall = time.perf_counter() - t0
+    (ROOT / "chiprun_out" / "dryrun_chip.log").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"mesh: the dry-run exited {proc.returncode}: "
+                                f"{(proc.stdout + proc.stderr)[-1500:]}")
+    rows = {}
+    for cell in DRYRUN_CELLS:
+        r = json.loads((out / "single" / (cell.replace("/", "__") + ".json")).read_text())
+        rows[cell] = {k: r[k] for k in ("compute_s", "memory_s", "collective_s", "bottleneck",
+                                        "useful_ratio", "memory_per_device_gb",
+                                        "coll_bytes_dev")}
+        log(f"[mesh] dry-run {cell} @ (16, 16) fake ranks (host only): compute "
+            f"{r['compute_s']:.6f} s, memory {r['memory_s']:.6f} s, collective "
+            f"{r['collective_s']:.6f} s, {r['bottleneck']}-bound, useful "
+            f"{r['useful_ratio']:.3f}, {r['memory_per_device_gb']:.2f} GB a rank")
+    log(f"[mesh] dry-run of {len(DRYRUN_CELLS)} cells: {wall:.1f} s on the host")
+    return dict(cells=rows, wall_s=wall)
+
+
+def mesh_phase() -> dict:
+    """M1–M3 and the dry-run figures (PERF.md §4)."""
+    t0 = time.perf_counter()
+    rec = dict(lm=mesh_lm(), moe=mesh_moe(), dryrun=mesh_dryrun())
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"[mesh] phase wall {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script needs a GPU",
@@ -3879,6 +4131,13 @@ def main() -> int:
     gnn_rec = gnn_phase("--profile" in sys.argv[1:])
     gnn_launches = {name: fn.launches for name, fn in COUNTERS}
     check(not any(gnn_launches.values()), f"gnn phase: a pipeline kernel launched: {gnn_launches}")
+    t_mesh = time.perf_counter()
+    for _, fn in COUNTERS:
+        fn.launches = 0
+    mesh_rec = mesh_phase()
+    mesh_launches = {name: fn.launches for name, fn in COUNTERS}
+    check(not any(mesh_launches.values()),
+          f"mesh phase: a pipeline kernel launched: {mesh_launches}")
     t_done = time.perf_counter()
     profiled = None
     if "--profile" in sys.argv[1:]:
@@ -3894,12 +4153,14 @@ def main() -> int:
                    build_s=build_s, random=random_rec, guard=guard_rec, blockell=blockell_rec,
                    kernels=kernels, main=main_rec, scalable=scal_rec, reduced=reduced,
                    resume=resume_rec, sharded=shard_rec, e2e=e2e, serve=serve_rec,
-                   decode=decode_rec, train=train_rec, gnn=gnn_rec, profile=profiled,
+                   decode=decode_rec, train=train_rec, gnn=gnn_rec, mesh=mesh_rec,
+                   profile=profiled,
                    phase_s=dict(kernels=t_main - t_start, main=t_scal - t_main,
                                 scalable=t_red - t_scal, reduced_and_resume=t_shard - t_red,
                                 sharded=t_shard_done - t_shard, e2e=t_serve - t_e2e,
                                 serve=t_decode - t_serve, decode=t_train - t_decode,
-                                train=t_gnn - t_train, gnn=t_done - t_gnn,
+                                train=t_gnn - t_train, gnn=t_mesh - t_gnn,
+                                mesh=t_done - t_mesh,
                                 total=time.perf_counter() - t_start))
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     log(f"[done] {summary['phase_s']}")

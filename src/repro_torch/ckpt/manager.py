@@ -23,6 +23,12 @@ leaves are written as the reference writes them (2-byte void records,
 manifest dtype ``bfloat16``).  ``restore(step, template)`` puts the leaves
 back into a template tree of either package: a reference ``TrainState``
 checkpoint restores into the port's and back.
+
+On a mesh the leaves are DTensors: ``save`` gathers each one whole (every
+rank of the mesh calls it) and only global rank 0 writes, and ``restore``
+into a DTensor template distributes each leaf onto the template leaf's mesh
+and placements — whatever mesh the checkpoint was written from, which is
+the elastic restart's resharding (:mod:`repro_torch.ckpt.elastic`).
 """
 from __future__ import annotations
 
@@ -43,6 +49,10 @@ def _host(x) -> np.ndarray:
     the tensor in place while an async save writes)."""
     if not isinstance(x, torch.Tensor):
         return np.array(x)
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     x = x.detach().to("cpu", copy=True)
     if x.dtype == torch.bfloat16:  # numpy has no bfloat16: its 2-byte records
         return x.view(torch.int16).numpy().view(np.dtype("V2"))
@@ -54,10 +64,26 @@ def _leaf(a: np.ndarray, dtype: str, like) -> Any:
     leaf is a tensor, else the numpy array."""
     if not isinstance(like, torch.Tensor):
         return a
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
     if dtype == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
-            torch.bfloat16).to(like.device)
-    return torch.from_numpy(a).to(like.device)
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    if isinstance(like, DTensor):
+        return distribute_tensor(t.to(like.device), like.device_mesh, like.placements)
+    return t.to(like.device)
+
+
+def _writes(leaves) -> bool:
+    """Whether this process writes a tree with these leaves: always, unless
+    they hold DTensors — then global rank 0 alone."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    if not any(isinstance(x, DTensor) for x in leaves):
+        return True
+    return dist.get_rank() == 0
 
 
 class CheckpointManager:
@@ -73,7 +99,10 @@ class CheckpointManager:
         leaves = _tree.leaves(tree)
         dtypes = ["bfloat16" if getattr(x, "dtype", None) == torch.bfloat16 else None
                   for x in leaves]
+        writes = _writes(leaves)
         host_leaves = [_host(x) for x in leaves]  # device → host snapshot
+        if not writes:
+            return
         index = _tree.unflatten(tree, range(len(leaves)))
         self.wait()  # serialize with any in-flight async save (same-step race)
         args = (step, host_leaves, dtypes, index)

@@ -2,8 +2,8 @@
 archs — five LMs, four GNNs, AutoInt — and the paper's own pipeline.
 
 ``ARCHS`` maps arch id → :class:`repro_torch.configs.base.ArchDef`, in the
-reference's order; ``configs.cells`` holds the launcher's training knobs
-and the GNN shape adapters (the dry-run cells come with ROADMAP A14e).
+reference's order; ``configs.cells`` holds the launcher's training knobs,
+the GNN shape adapters and the dry-run cells.
 """
 from __future__ import annotations
 

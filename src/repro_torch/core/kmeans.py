@@ -165,6 +165,14 @@ def update_centroids(x: torch.Tensor, labels: torch.Tensor, k: int, prev: torch.
 # seeding
 # ---------------------------------------------------------------------------
 
+def row_at(x: torch.Tensor, idx) -> torch.Tensor:
+    """x[idx] for a row-sharded x, without gathering x: a one-hot
+    contraction over the sharded axis (on a mesh: a local product and a sum
+    of d floats over the ranks)."""
+    onehot = (torch.arange(x.shape[0], device=x.device) == idx).float()
+    return onehot @ x.float()
+
+
 GUMBEL_CHUNK = 64  # k-means++ Gumbel rows drawn in one pass (36 MB at n = 142,541)
 
 

@@ -1,3 +1,3 @@
-"""Launcher layer (mirrors :mod:`repro.launch`): the serving launcher, LM
-decode included.  The mesh, sharding, dry-run and training launchers belong
-to ROADMAP A14b and A14e."""
+"""Launcher layer (mirrors :mod:`repro.launch`): the logical-axis sharding
+rules and the mesh, the training and serving launchers, and the dry-run
+with its roofline and report."""

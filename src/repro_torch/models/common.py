@@ -22,6 +22,8 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.sharding import constrain
+
 from repro_torch import _random
 
 Tensor = torch.Tensor
@@ -45,6 +47,8 @@ def normal_init(stream: _random.Stream, shape: Sequence[int], dtype, scale: floa
     cols = shape[-1]
     rows = math.prod(shape[:-1])
     draw = stream.take()
+    if torch.device(device).type == "meta":  # shapes only (the dry-run's cells)
+        return torch.empty(shape, dtype=dtype, device=device)
     out = torch.empty((rows, cols), dtype=dtype, device=device)
     step = max(1, _DRAW_CHUNK // max(cols, 1))
     for r0 in range(0, rows, step):
@@ -129,6 +133,9 @@ def flash_attention(
     B, Sq, H, dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
+    # on a mesh: the grouped view below splits the heads dim into
+    # [Hkv, G]; lay the heads out as the kv heads are first
+    q = constrain(q, "batch", "seq", "kv_heads", None)
     dev = q.device
     scale = 1.0 / math.sqrt(dh)
     qf = (q.float() * scale).reshape(B, Sq, Hkv, G, dh).permute(0, 2, 3, 1, 4)
@@ -181,6 +188,7 @@ def decode_attention(
     B, S, Hkv, dh = k_cache.shape
     H = q.shape[2]
     G = H // Hkv
+    q = constrain(q, "batch", None, "kv_heads", None)  # see flash_attention
     qf = (q.float() * (1.0 / math.sqrt(dh))).reshape(B, Hkv, G, dh)
     s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float())
     mask = torch.arange(S, device=q.device)[None, :] < cache_len[:, None]  # [B, S]
@@ -198,11 +206,99 @@ def swiglu(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor) -> Tensor:
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def split_last(t: Tensor, *sizes: int) -> Tensor:
+    """``t`` with its last dim split into ``sizes`` (a reshape).  On a mesh
+    whose shards of the last dim would not split evenly into the leading
+    size (28 heads over 16 ranks; 7 irrep rows over 16) that dim is gathered
+    first: a view cannot split an uneven shard."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if isinstance(t, DTensor):
+        last = t.ndim - 1
+        on = [i for i, p in enumerate(t.placements) if isinstance(p, Shard) and p.dim == last]
+        if sizes[0] % math.prod(t.device_mesh.size(i) for i in on):
+            t = t.redistribute(t.device_mesh, [Replicate() if i in on else p
+                                               for i, p in enumerate(t.placements)])
+    return t.reshape(*t.shape[:-1], *sizes)
+
+
+def embedding_rows(ids: Tensor, table: Tensor, fields: Optional[Tensor] = None) -> Tensor:
+    """``table[ids]`` (``F.embedding``: its backward sums each row's
+    gradient in a fixed order); with ``fields``, ``table`` is a stack of
+    tables [F, R, d] and ``ids`` index each field's own table (``fields``
+    broadcasts against ``ids``).
+
+    On a DTensor table whose rows are sharded (a vocab-parallel embedding)
+    each rank gathers the ids in its own rows, zeros elsewhere, and the
+    result is a partial sum over those mesh dims; the table's local
+    gradient is a partial sum over the mesh dims the ids are sharded on."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    row_dim = 0 if fields is None else 1
+    if not isinstance(table, DTensor) or not any(
+            isinstance(p, Shard) and p.dim == row_dim for p in table.placements):
+        if fields is None:
+            return F.embedding(ids, table)
+        return F.embedding(fields * table.shape[1] + ids, table.reshape(-1, table.shape[2]))
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = table.device_mesh
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    rows = [isinstance(p, Shard) and p.dim == row_dim for p in table.placements]
+    ids = ids.redistribute(mesh, [Replicate() if r else p for r, p in zip(rows, ids.placements)])
+    shape, offset = compute_local_shape_and_global_offset(table.shape, mesh, table.placements)
+    rel = ids.to_local().long() - offset[row_dim]
+    mine = (rel >= 0) & (rel < shape[row_dim])
+    grad_pl = [p if r else (Partial() if isinstance(q, Shard) else Replicate())
+               for r, p, q in zip(rows, table.placements, ids.placements)]
+    local = table.to_local(grad_placements=grad_pl)
+    at = torch.clamp(rel, 0, max(shape[row_dim] - 1, 0))
+    if fields is not None:
+        f = fields.to_local() if isinstance(fields, DTensor) else fields
+        at = f * shape[1] + at
+        local = local.reshape(-1, local.shape[-1])
+    got = F.embedding(at, local)
+    out = torch.where(mine[..., None], got, torch.zeros((), dtype=got.dtype, device=got.device))
+    out_pl = [Partial() if r else q for r, q in zip(rows, ids.placements)]
+    return DTensor.from_local(out, mesh, out_pl, run_check=False)
+
+
+def take_last(x: Tensor, idx: Tensor) -> Tensor:
+    """``x[..., idx]`` elementwise over the leading dims.  On a DTensor
+    whose last dim is sharded (vocab-parallel logits) each rank gathers
+    from its own slice of the last dim, zero where the index lies outside
+    it, and the result is a partial sum over those mesh dims — the
+    vocab-parallel gather of Megatron's cross-entropy."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    last = x.ndim - 1
+    if not isinstance(x, DTensor) or not any(
+            isinstance(p, Shard) and p.dim == last for p in x.placements):
+        return torch.take_along_dim(x, idx[..., None].long(), dim=-1)[..., 0]
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = x.device_mesh
+    lead = [Replicate() if isinstance(p, Shard) and p.dim == last else p for p in x.placements]
+    if not isinstance(idx, DTensor):
+        idx = DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    idx = idx.redistribute(mesh, lead).to_local().long()
+    shape, offset = compute_local_shape_and_global_offset(x.shape, mesh, x.placements)
+    lo, width = offset[last], shape[last]
+    x_loc = x.to_local()
+    rel = idx - lo
+    mine = (rel >= 0) & (rel < width)
+    got = torch.take_along_dim(x_loc, rel.clamp(0, max(width - 1, 0))[..., None], dim=-1)[..., 0]
+    out = torch.where(mine, got, torch.zeros((), dtype=got.dtype, device=got.device))
+    out_pl = [Partial() if isinstance(p, Shard) and p.dim == last else p for p in x.placements]
+    return DTensor.from_local(out, mesh, out_pl, run_check=False)
+
+
 def cross_entropy_loss(logits: Tensor, labels: Tensor, *, z_loss: float = 0.0) -> Tensor:
     """Mean token cross-entropy with optional z-loss, fp32 log-softmax."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.take_along_dim(lf, labels[..., None].long(), dim=-1)[..., 0]
+    ll = take_last(lf, labels)
     loss = (lse - ll).mean()
     if z_loss:
         loss = loss + z_loss * (lse ** 2).mean()

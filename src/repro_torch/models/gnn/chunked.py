@@ -30,9 +30,10 @@ def _differentiable(t) -> bool:
 
 class _SumOverChunks(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, f, args, xs, out_shape, with_x_grads, n_args, *flat):
+    def forward(ctx, f, args, xs, out_shape, with_x_grads, args_constrain, n_args, *flat):
         a, x = list(flat[:n_args]), list(flat[n_args:])
         ctx.f, ctx.args, ctx.xs, ctx.n_args = f, args, xs, n_args
+        ctx.args_constrain = args_constrain
         ctx.with_x_grads = with_x_grads
         ctx.save_for_backward(*flat)
         acc = torch.zeros(tuple(out_shape.shape), dtype=out_shape.dtype, device=x[0].device)
@@ -45,11 +46,12 @@ class _SumOverChunks(torch.autograd.Function):
     def backward(ctx, g):
         flat = ctx.saved_tensors
         a, x = list(flat[:ctx.n_args]), list(flat[ctx.n_args:])
-        need = ctx.needs_input_grad[6:]
+        need = ctx.needs_input_grad[7:]
         need_a = [n and _differentiable(t) for n, t in zip(need[:ctx.n_args], a)]
         need_x = [ctx.with_x_grads and n and _differentiable(t)
                   for n, t in zip(need[ctx.n_args:], x)]
-        gargs = [torch.zeros_like(t) if n else None for t, n in zip(a, need_a)]
+        gargs = _constrained(ctx, [torch.zeros_like(t) if n else None
+                                   for t, n in zip(a, need_a)])
         gxs = [[] if n else None for n in need_x]
         for i in range(x[0].shape[0]):
             la = [t.detach().requires_grad_(n) for t, n in zip(a, need_a)]
@@ -64,17 +66,27 @@ class _SumOverChunks(torch.autograd.Function):
                     gi = grads.pop(0)
                     if gi is not None:
                         gargs[j] += gi
+            gargs = _constrained(ctx, gargs)
             for j, n in enumerate(need_x):
                 if n:
                     gi = grads.pop(0)
                     gxs[j].append(torch.zeros_like(lx[j]) if gi is None else gi)
         gx = [None if s is None else torch.stack(s) for s in gxs]
-        return (None, None, None, None, None, None, *gargs, *gx)
+        return (None, None, None, None, None, None, None, *gargs, *gx)
 
 
-def _run(f, args, xs, out_shape, with_x_grads: bool) -> Tensor:
+def _constrained(ctx, gargs):
+    """The accumulated argument cotangents re-annotated by the caller's
+    ``args_constrain`` (None where no cotangent is taken)."""
+    if ctx.args_constrain is None:
+        return gargs
+    return _tree.leaves(ctx.args_constrain(_tree.unflatten(ctx.args, gargs)))
+
+
+def _run(f, args, xs, out_shape, with_x_grads: bool, args_constrain=None) -> Tensor:
     a, x = _tree.leaves(args), _tree.leaves(xs)
-    return _SumOverChunks.apply(f, args, xs, out_shape, with_x_grads, len(a), *a, *x)
+    return _SumOverChunks.apply(f, args, xs, out_shape, with_x_grads, args_constrain, len(a),
+                                *a, *x)
 
 
 def sum_over_chunks(f: Callable, args: Any, xs: Any, out_shape,
@@ -83,13 +95,12 @@ def sum_over_chunks(f: Callable, args: Any, xs: Any, out_shape,
 
     f must be pure; the output's shape and dtype come from ``out_shape``
     (anything with ``.shape`` and ``.dtype``, such as a tensor on the
-    ``meta`` device), its device from ``xs``.  ``args_constrain`` is the
-    reference's sharding hint for the accumulated cotangents; on one device
-    it has nothing to do.  The index and geometry inputs ``xs`` get no
-    cotangent.
+    ``meta`` device), its device from ``xs``.  ``args_constrain``
+    re-annotates the accumulated argument cotangents after each backward
+    chunk (on a mesh, it keeps them sharded; with no rules installed it is
+    the identity).  The index and geometry inputs ``xs`` get no cotangent.
     """
-    del args_constrain
-    return _run(f, args, xs, out_shape, False)
+    return _run(f, args, xs, out_shape, False, args_constrain)
 
 
 def sum_over_chunks_with_x_grads(f: Callable, args: Any, xs: Any, out_shape) -> Tensor:

@@ -39,7 +39,8 @@ import torch.nn.functional as F
 
 from repro_torch import _random
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.models.common import dense_init, normal_init
+from repro_torch.launch.sharding import constrain, logical_spec as L
+from repro_torch.models.common import dense_init, normal_init, split_last
 from repro_torch.models.gnn import e3
 from repro_torch.models.gnn import graph as G
 from repro_torch.models.gnn.chunked import sum_over_chunks
@@ -133,6 +134,34 @@ def init_params(cfg: EquiformerV2Config, gen: torch.Generator, *,
     }
 
 
+def logical_specs(cfg: EquiformerV2Config):
+    def layer():
+        lp = {
+            "norm_scale": L((None, None)),
+            "rad1": L((None, None)),
+            "rad2": L((None, None)),
+            "w_m0": L((None, "mlp")),
+            "w_attn1": L((None, None)),
+            "w_attn2": L((None, None)),
+            "w_out": L((None, None, None)),
+            "ffn_gate": L((None, None)),
+            "ffn_s1": L((None, "mlp")),
+            "ffn_s2": L(("mlp", None)),
+            "ffn_mix": L((None, None, None)),
+        }
+        for m in range(1, cfg.m_max + 1):
+            lp[f"w_m{m}r"] = L((None, "mlp"))
+            lp[f"w_m{m}i"] = L((None, "mlp"))
+        return lp
+
+    return {
+        "embed": L((None, None)),
+        "layers": [layer() for _ in range(cfg.n_layers)],
+        "head1": L((None, None)),
+        "head2": L((None, None)),
+    }
+
+
 def _l_of_slot(l_max: int, device=None) -> Tensor:
     """Static map irrep-slot index -> l (length (l_max+1)²)."""
     out = np.concatenate([np.full(2 * l + 1, l) for l in range(l_max + 1)])
@@ -150,7 +179,8 @@ def _equiv_norm(h, scale, sl, eps=1e-6):
     means = _einsum("nmc,ml->nlc", h * h, torch.as_tensor(A, device=h.device))  # [N, L+1, C]
     rms = torch.sqrt(means + eps)
     slot = _l_of_slot(l_max, h.device)
-    return h / rms.index_select(1, slot) * scale.index_select(0, slot)[None, :, :]
+    out = h / rms.index_select(1, slot) * scale.index_select(0, slot)[None, :, :]
+    return constrain(out, "nodes", None, "channels")
 
 
 def _attention_edges(lp, h, src, dst, vec, mask, cfg: EquiformerV2Config):
@@ -167,8 +197,8 @@ def _attention_edges(lp, h, src, dst, vec, mask, cfg: EquiformerV2Config):
     D = [e3.real_wigner_D(l, alpha_ang, beta_ang) for l in range(cfg.l_max + 1)]
 
     # rotate src/dst features into the edge frame, keep |m| <= m_max rows
-    x_src = h.index_select(0, src)
-    x_dst = h.index_select(0, dst)
+    x_src = constrain(h.index_select(0, src), "edges", None, "channels")
+    x_dst = constrain(h.index_select(0, dst), "edges", None, "channels")
     rows = {m: {"p": [], "n": []} for m in range(cfg.m_max + 1)}
     for l, (s, e) in enumerate(sl):
         fs = _einsum("enm,enc->emc", D[l], x_src[:, s:e, :])  # D^T f
@@ -182,12 +212,12 @@ def _attention_edges(lp, h, src, dst, vec, mask, cfg: EquiformerV2Config):
     # SO(2) linear per m
     y = {}
     x0 = torch.stack(rows[0]["p"], dim=1).reshape(E, -1)  # [E, n_l0*2C]
-    y[0] = _mm(x0, lp["w_m0"]).reshape(E, _n_l(cfg, 0), C)
+    y[0] = split_last(_mm(x0, lp["w_m0"]), _n_l(cfg, 0), C)
     for m in range(1, cfg.m_max + 1):
         xp = torch.stack(rows[m]["p"], dim=1).reshape(E, -1)
         xn = torch.stack(rows[m]["n"], dim=1).reshape(E, -1)
-        yr = (_mm(xp, lp[f"w_m{m}r"]) - _mm(xn, lp[f"w_m{m}i"])).reshape(E, _n_l(cfg, m), C)
-        yn = (_mm(xp, lp[f"w_m{m}i"]) + _mm(xn, lp[f"w_m{m}r"])).reshape(E, _n_l(cfg, m), C)
+        yr = split_last(_mm(xp, lp[f"w_m{m}r"]) - _mm(xn, lp[f"w_m{m}i"]), _n_l(cfg, m), C)
+        yn = split_last(_mm(xp, lp[f"w_m{m}i"]) + _mm(xn, lp[f"w_m{m}r"]), _n_l(cfg, m), C)
         y[m] = (yr, yn)
 
     # radial modulation + attention logits from the invariant (m=0, l=0) slot
@@ -214,9 +244,14 @@ def _attention_edges(lp, h, src, dst, vec, mask, cfg: EquiformerV2Config):
                 cols.append(y[am][1][:, l - am, :] * rad)
         blk = torch.stack(cols, dim=1)  # [E, 2l+1, C]
         blocks.append(_einsum("emn,enc->emc", D[l], blk))
-    val = torch.cat(blocks, dim=1)  # [E, (l_max+1)², C]
-    vh = val.reshape(E, -1, H, C // H) * att[:, None, :, None]
-    agg = G.scatter_sum(vh.reshape(E, -1, C), dst, n)
+    val = constrain(torch.cat(blocks, dim=1), "edges", None, "channels")  # [E, (l_max+1)², C]
+    # each head's weight on its C/H channels, as a product with the 0/1
+    # head → channel map: no view splits the (on a mesh, sharded) channels,
+    # forward or backward
+    heads = (torch.arange(C, device=att.device) // (C // H) ==
+             torch.arange(H, device=att.device)[:, None]).to(att.dtype)  # [H, C]
+    vh = val * (att @ heads)[:, None, :]
+    agg = constrain(G.scatter_sum(vh, dst, n), "nodes", None, "channels")
     return agg / math.sqrt(cfg.avg_degree)
 
 
@@ -245,11 +280,18 @@ def _attention(lp, h, batch: G.GraphBatch, cfg: EquiformerV2Config):
         s, d, v, m = x
         return _attention_edges(lp_, h_, s, d, v, m, cfg) / nc
 
-    xs = (srcp.reshape(nc, chunk), dstp.reshape(nc, chunk), vecp.reshape(nc, chunk, 3),
-          maskp.reshape(nc, chunk))
+    def keep_sharded(gargs):
+        glp, gh = gargs
+        return glp, constrain(gh, "nodes", None, "channels")
+
+    # shard the CHUNK dim; the chunk-count dim is not mesh-divisible
+    xs = (constrain(srcp.reshape(nc, chunk), None, "edges"),
+          constrain(dstp.reshape(nc, chunk), None, "edges"),
+          constrain(vecp.reshape(nc, chunk, 3), None, "edges", None),
+          constrain(maskp.reshape(nc, chunk), None, "edges"))
     out = torch.empty((h.shape[0], (cfg.l_max + 1) ** 2, cfg.channels), dtype=h.dtype,
                       device="meta")
-    return sum_over_chunks(f, (lp, h), xs, out)
+    return sum_over_chunks(f, (lp, h), xs, out, args_constrain=keep_sharded)
 
 
 def forward(params, batch: G.GraphBatch, cfg: EquiformerV2Config) -> Tensor:
@@ -260,17 +302,21 @@ def forward(params, batch: G.GraphBatch, cfg: EquiformerV2Config) -> Tensor:
     dim = (cfg.l_max + 1) ** 2
     C = cfg.channels
 
-    h = torch.zeros((n, dim, C), dtype=cfg.dtype, device=dev)
-    h[:, 0, :] = params["embed"].index_select(0, batch.species)
+    # the species embedding in the l = 0 slot, zeros in the others
+    emb = params["embed"].index_select(0, batch.species).to(cfg.dtype)
+    h = torch.cat([emb[:, None, :], torch.zeros((n, dim - 1, C), dtype=cfg.dtype, device=dev)],
+                  dim=1)
+    h = constrain(h, "nodes", None, "channels")
     slot = _l_of_slot(cfg.l_max, dev)
 
     def mix(x, w):  # per-l channel mixing as one slot-gathered einsum
-        return _einsum("nmc,mcd->nmd", x, w.index_select(0, slot))
+        return constrain(_einsum("nmc,mcd->nmd", x, w.index_select(0, slot)),
+                         "nodes", None, "channels")
 
     def layer(h, lp):
         hn = _equiv_norm(h, lp["norm_scale"], sl)
         attn = _attention(lp, hn, batch, cfg)
-        h = h + mix(attn, lp["w_out"])
+        h = constrain(h + mix(attn, lp["w_out"]), "nodes", None, "channels")
         # gated FFN
         hn = _equiv_norm(h, lp["norm_scale"], sl)
         scal = _mm(F.silu(_mm(hn[:, 0, :], lp["ffn_s1"])), lp["ffn_s2"])  # [N, C]

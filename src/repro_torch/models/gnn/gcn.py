@@ -14,6 +14,7 @@ import torch
 
 from repro_torch import _random
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.launch.sharding import constrain, logical_spec as L
 from repro_torch.models.common import dense_init
 from repro_torch.models.gnn import graph as G
 
@@ -48,6 +49,14 @@ def init_params(cfg: GCNConfig, gen: torch.Generator, *,
     }
 
 
+def logical_specs(cfg: GCNConfig):
+    return {
+        "w": [L((None, None)) for _ in range(cfg.n_layers)],
+        "b": [L((None,)) for _ in range(cfg.n_layers)],
+        "readout": L((None, None)),
+    }
+
+
 def forward(params, batch: G.GraphBatch, cfg: GCNConfig) -> Tensor:
     n = batch.n_nodes
     src, dst, mask = batch.edge_src, batch.edge_dst, batch.edge_mask.float()
@@ -61,6 +70,7 @@ def forward(params, batch: G.GraphBatch, cfg: GCNConfig) -> Tensor:
     for i, (w, b) in enumerate(zip(params["w"], params["b"])):
         hw = h @ w + b
         agg = G.scatter_sum(hw.index_select(0, src) * ew[:, None], dst, n) + hw * self_w[:, None]
+        agg = constrain(agg, "nodes", None)
         h = torch.relu(agg) if i < cfg.n_layers - 1 else agg
     return h
 

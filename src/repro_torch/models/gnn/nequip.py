@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import _random
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.launch.sharding import constrain, logical_spec as L
 from repro_torch.models.common import dense_init, normal_init
 from repro_torch.models.gnn import e3
 from repro_torch.models.gnn import graph as G
@@ -96,6 +97,23 @@ def init_params(cfg: NequIPConfig, gen: torch.Generator, *,
     }
 
 
+def logical_specs(cfg: NequIPConfig):
+    layer = {
+        "rad1": L((None, None)),
+        "rad2": L((None, None)),
+        "self_pre": L((None, None, None)),
+        "self_post": L((None, None, None)),
+        "w_gate": L((None, None)),
+        "b_gate": L((None,)),
+    }
+    return {
+        "embed": L((None, None)),
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+        "head1": L((None, None)),
+        "head2": L((None, None)),
+    }
+
+
 def bessel_rbf(r: Tensor, n_rbf: int, cutoff: float) -> Tensor:
     """sin(nπr/rc)/r basis × smooth polynomial cutoff envelope."""
     n = torch.arange(1, n_rbf + 1, dtype=torch.float32, device=r.device)
@@ -119,9 +137,10 @@ def _messages(lp, h, src, dst, vec, mask, cfg: NequIPConfig, cg_tensors):
     rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff)  # [E, n_rbf]
     rad = F.silu(rbf @ lp["rad1"]) @ lp["rad2"]  # [E, P*C]
     rad = rad.reshape(-1, len(paths), C) * mask[:, None, None]
+    rad = constrain(rad, "edges", None, "channels")
     Y = e3.real_sph_harm(cfg.l_max, vec)  # list per l2: [E, 2l2+1]
 
-    h_src = h.index_select(0, src)  # [E, dim, C]
+    h_src = constrain(h.index_select(0, src), "edges", None, "channels")  # [E, dim, C]
     acc = [None] * (cfg.l_max + 1)  # per l3, summed over its paths in path order
     for pi, (l1, l2, l3) in enumerate(paths):
         cg = cg_tensors[(l1, l2, l3)]  # [2l1+1, 2l2+1, 2l3+1]
@@ -132,9 +151,9 @@ def _messages(lp, h, src, dst, vec, mask, cfg: NequIPConfig, cg_tensors):
         m = torch.bmm(torch.einsum("abc,eb->eca", cg, Y[l2]), x1)  # [E, 2l3+1, C]
         m = m * rad[:, pi, None, :]
         acc[l3] = m if acc[l3] is None else acc[l3] + m
-    out = torch.cat(acc, dim=1)  # [E, (l_max+1)², C]
+    out = constrain(torch.cat(acc, dim=1), "edges", None, "channels")  # [E, (l_max+1)², C]
     agg = G.scatter_sum(out, dst, n)
-    return agg / math.sqrt(cfg.avg_degree)
+    return constrain(agg, "nodes", None, "channels") / math.sqrt(cfg.avg_degree)
 
 
 def _messages_chunked(lp, h, src, dst, vec, mask, cfg: NequIPConfig, cg_tensors, chunk: int):
@@ -154,9 +173,16 @@ def _messages_chunked(lp, h, src, dst, vec, mask, cfg: NequIPConfig, cg_tensors,
         s, d, v, m = x
         return _messages(lp_, h_, s, d, v, m, cfg, cg_tensors)
 
-    xs = (src.reshape(nc, chunk), dst.reshape(nc, chunk), vec.reshape(nc, chunk, 3),
-          mask.reshape(nc, chunk))
-    return sum_over_chunks(f, (lp, h), xs, shape)
+    def keep_sharded(gargs):
+        glp, gh = gargs
+        return glp, constrain(gh, "nodes", None, "channels")
+
+    # shard the CHUNK dim; the chunk-count dim is not mesh-divisible
+    xs = (constrain(src.reshape(nc, chunk), None, "edges"),
+          constrain(dst.reshape(nc, chunk), None, "edges"),
+          constrain(vec.reshape(nc, chunk, 3), None, "edges", None),
+          constrain(mask.reshape(nc, chunk), None, "edges"))
+    return sum_over_chunks(f, (lp, h), xs, shape, args_constrain=keep_sharded)
 
 
 def remat(layer, cfg, tensors):
@@ -182,8 +208,11 @@ def forward(params, batch: G.GraphBatch, cfg: NequIPConfig) -> Tensor:
     dim = (cfg.l_max + 1) ** 2
     C = cfg.channels
 
-    h = torch.zeros((n, dim, C), dtype=cfg.dtype, device=dev)
-    h[:, 0, :] = params["embed"].index_select(0, batch.species)
+    # the species embedding in the l = 0 slot, zeros in the others
+    emb = params["embed"].index_select(0, batch.species).to(cfg.dtype)
+    h = torch.cat([emb[:, None, :], torch.zeros((n, dim - 1, C), dtype=cfg.dtype, device=dev)],
+                  dim=1)
+    h = constrain(h, "nodes", None, "channels")
     from repro_torch.models.gnn.equiformer_v2 import _l_of_slot
 
     slot = _l_of_slot(cfg.l_max, dev)
@@ -197,7 +226,7 @@ def forward(params, batch: G.GraphBatch, cfg: NequIPConfig) -> Tensor:
             m = _messages_chunked(lp, hi, src, dst, vec, mask, cfg, cg_tensors, cfg.edge_chunk)
         else:
             m = _messages(lp, hi, src, dst, vec, mask, cfg, cg_tensors)
-        m = self_interact(m, lp["self_post"])
+        m = constrain(self_interact(m, lp["self_post"]), "nodes", None, "channels")
         # gate nonlinearity (slot-gathered)
         gates = torch.sigmoid(h[:, 0, :] @ lp["w_gate"] + lp["b_gate"]).reshape(
             n, cfg.l_max + 1, C)

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch import _random
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.launch.sharding import constrain, logical_spec as L
 from repro_torch.models.common import dense_init
 from repro_torch.models.gnn import graph as G
 
@@ -63,6 +64,21 @@ def init_params(cfg: PNAConfig, gen: torch.Generator, *,
     }
 
 
+def logical_specs(cfg: PNAConfig):
+    layer = {
+        "w_msg1": L((None, None)),
+        "w_msg2": L((None, None)),
+        "w_post": L((None, None)),
+        "b_post": L((None,)),
+    }
+    return {
+        "w_in": L((None, None)),
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+        "w_out": L((None, None)),
+        "readout": L((None, None)),
+    }
+
+
 def _pna_aggregate(msg: Tensor, dst: Tensor, n: int, mask: Tensor, avg_degree: float):
     """4 aggregators × 3 degree scalers → [n, 12·d]."""
     m = msg * mask[:, None]
@@ -92,8 +108,10 @@ def forward(params, batch: G.GraphBatch, cfg: PNAConfig) -> Tensor:
     for lp in params["layers"]:
         pair = torch.cat([h.index_select(0, src), h.index_select(0, dst)], dim=-1)  # [E, 2d]
         msg = torch.relu(pair @ lp["w_msg1"]) @ lp["w_msg2"]  # [E, d]
+        msg = constrain(msg, "edges", None)
         agg = _pna_aggregate(msg, dst, n, mask, cfg.avg_degree)  # [n, 12d]
         h = h + torch.relu(torch.cat([h, agg], dim=-1) @ lp["w_post"] + lp["b_post"])
+        h = constrain(h, "nodes", None)
     return h @ params["w_out"]
 
 

@@ -9,8 +9,8 @@ Model: 39 categorical fields → 16-dim embeddings → 3 self-attention layers
 (2 heads, d_attn = 32) over the field axis → flatten → logit.  Serving
 paths: :func:`forward_logits` (ranking) and :func:`retrieval_scores` (a
 query against N candidates, the cell the paper's k-means IVF
-accelerates).  The reference's sharding hints (``constrain``) drop out on
-one device; its ``logical_specs`` come with ROADMAP A14e.
+accelerates).  The sharding hints (``constrain``) are the identity off a
+mesh; ``logical_specs`` tags the parameters for one.
 
 All fields' lookups are one gather from the stacked ``[n_fields, rows,
 d]`` tables (the single-hot ids and the multi-hot bags together), so the
@@ -31,7 +31,8 @@ from torch.nn.functional import embedding
 
 from repro_torch import _random
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.models.common import dense_init, normal_init
+from repro_torch.launch.sharding import constrain, logical_spec as L
+from repro_torch.models.common import dense_init, embedding_rows, normal_init
 
 Tensor = torch.Tensor
 
@@ -125,6 +126,18 @@ def init_params(cfg: AutoIntConfig, gen: torch.Generator, *,
     }
 
 
+def logical_specs(cfg: AutoIntConfig):
+    layer = {"wq": L((None, None)), "wk": L((None, None)), "wv": L((None, None)),
+             "w_res": L((None, None))}
+    return {
+        "tables": L((None, "table_rows", None)),
+        "layers": [dict(layer) for _ in range(cfg.n_attn_layers)],
+        "w_out": L((None, None)),
+        "b_out": L((None,)),
+        "w_query": L((None, None)),
+    }
+
+
 def _field_embeddings(params, batch: Dict[str, Tensor], cfg: AutoIntConfig) -> Tensor:
     """[B, n_fields, d] from single-hot ids [B, n_single] + multi-hot bags
     [B, n_multihot, hot] (each bag's mean), gathered in one lookup."""
@@ -139,13 +152,13 @@ def _field_embeddings(params, batch: Dict[str, Tensor], cfg: AutoIntConfig) -> T
         fields = torch.cat([fields, torch.arange(n_single, cfg.n_fields, device=ids.device)
                             .repeat_interleave(hot)])
         cols.append(bags.reshape(B, -1))
-    tables = params["tables"]
-    rows = fields * tables.shape[1] + torch.cat(cols, 1)  # into the [n_fields·rows, d] view
-    emb = embedding(rows, tables.reshape(-1, tables.shape[2]))  # [B, n_single + M·hot, d]
-    if not cfg.n_multihot:
-        return emb
-    bag_emb = emb[:, n_single:].reshape(B, cfg.n_multihot, hot, -1)
-    return torch.cat([emb[:, :n_single], _combine(bag_emb, None, "mean")], dim=1)
+    # each column's row in its field's table: one lookup into the
+    # [n_fields·rows, d] view of the stacked tables (row-parallel on a mesh)
+    emb = embedding_rows(torch.cat(cols, 1), params["tables"], fields)  # [B, n_single + M·hot, d]
+    if cfg.n_multihot:
+        bag_emb = emb[:, n_single:].reshape(B, cfg.n_multihot, hot, -1)
+        emb = torch.cat([emb[:, :n_single], _combine(bag_emb, None, "mean")], dim=1)
+    return constrain(emb, "batch", None, None)
 
 
 def interact(params, x: Tensor, cfg: AutoIntConfig) -> Tensor:
@@ -160,6 +173,7 @@ def interact(params, x: Tensor, cfg: AutoIntConfig) -> Tensor:
         a = torch.softmax(s, dim=-1)
         o = torch.einsum("bhfg,bghd->bfhd", a, v).reshape(B, F, H * da)
         x = torch.relu(o + x @ lp["w_res"])
+        x = constrain(x, "batch", None, None)
     return x
 
 
@@ -187,4 +201,4 @@ def query_embedding(params, batch: Dict[str, Tensor], cfg: AutoIntConfig) -> Ten
 
 def retrieval_scores(query: Tensor, candidates: Tensor) -> Tensor:
     """[Q, d] × [N, d] → [Q, N] dot-product scores, fp32."""
-    return query.float() @ candidates.float().T
+    return constrain(query.float() @ candidates.float().T, None, "candidates")

@@ -21,6 +21,7 @@ Entry points:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Dict, Optional, Tuple
@@ -32,7 +33,8 @@ import torch.utils.checkpoint as ckpt
 from repro_torch import _random, _tree
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models import common as cm
-from repro_torch.models.moe import MoEConfig, init_moe_params, moe_ffn
+from repro_torch.launch.sharding import constrain, logical_spec as L
+from repro_torch.models.moe import MoEConfig, init_moe_params, moe_ffn, moe_logical_specs
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -168,6 +170,40 @@ def _mask_padded_logits(logits: Tensor, cfg: TransformerConfig) -> Tensor:
     return logits.masked_fill(~valid, -1e30)
 
 
+def logical_specs(cfg: TransformerConfig) -> Params:
+    """Logical-axis tags matching ``init_params`` output leaf for leaf, the
+    stacked layer axis first (Megatron TP layout; KV replicated under GQA)."""
+    attn = {
+        "wq": L((None, None, "heads")),
+        "wk": L((None, None, "kv_heads")),
+        "wv": L((None, None, "kv_heads")),
+        "wo": L((None, "heads", None)),
+    }
+    if cfg.qkv_bias:
+        attn |= {"bq": L((None, "heads")), "bk": L((None, "kv_heads")), "bv": L((None, "kv_heads"))}
+    if cfg.qk_norm:
+        attn |= {"q_norm": L((None, None)), "k_norm": L((None, None))}
+    if cfg.moe is not None:
+        mlp = moe_logical_specs()
+    else:
+        mlp = {
+            "w_gate": L((None, None, "mlp")),
+            "w_up": L((None, None, "mlp")),
+            "w_down": L((None, "mlp", None)),
+        }
+    return {
+        "embed": L(("vocab", None)),
+        "layers": {"attn": attn, "mlp": mlp, "ln1": L((None, None)), "ln2": L((None, None))},
+        "final_norm": L((None,)),
+        "lm_head": L((None, "vocab")),
+    }
+
+
+def cache_logical_specs():
+    return {"k": L((None, "batch", "kv_seq", "kv_heads", None)),
+            "v": L((None, "batch", "kv_seq", "kv_heads", None))}
+
+
 def _per_layer(tree, n_layers: int):
     """Each layer's parameters, from one ``torch.unbind`` of every stacked
     ``[L, ...]`` tensor: views, and in the backward pass one ``stack`` a
@@ -199,7 +235,31 @@ def _remat(fn, cfg: TransformerConfig, tensors):
     if cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
                                              _dots_policy)
-    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+    return functools.partial(ckpt.checkpoint, _on_mesh(fn), use_reentrant=False, **kw)
+
+
+def _on_mesh(fn):
+    """``fn`` run under the mesh's rules and DTensor's implicit replication
+    when they are installed: the recompute of a checkpointed layer runs in
+    the backward pass, on the autograd engine's thread."""
+    from repro_torch.launch.sharding import axis_rules, current_mesh, current_rules
+
+    rules, mesh = current_rules(), current_mesh()
+    if rules is None:
+        return fn
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def run(*args, **kwargs):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(axis_rules(rules, mesh))
+            # entered only where it is off: leaving it switches it off,
+            # whatever it was before
+            if not DTensor._op_dispatcher._allow_implicit_replication:
+                stack.enter_context(implicit_replication())
+            return fn(*args, **kwargs)
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -214,14 +274,17 @@ def _project_qkv(lp, x, cfg: TransformerConfig, positions):
     v = x @ a["wv"]
     if cfg.qkv_bias:
         q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
-    q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    q = cm.split_last(q, cfg.n_heads, cfg.d_head)
+    k = cm.split_last(k, cfg.n_kv_heads, cfg.d_head)
+    v = cm.split_last(v, cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
         q = cm.rmsnorm(q, a["q_norm"])
         k = cm.rmsnorm(k, a["k_norm"])
     q = cm.apply_rope(q, positions, cfg.rope_theta)
     k = cm.apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "batch", "seq", "heads", None)
+    k = constrain(k, "batch", "seq", "kv_heads", None)
+    v = constrain(v, "batch", "seq", "kv_heads", None)
     return q, k, v
 
 
@@ -232,6 +295,7 @@ def _mlp(lp, x, cfg: TransformerConfig):
         return y.reshape(B, S, d), aux["load_balance"] + aux["router_z"]
     m = lp["mlp"]
     h = F.silu(x @ m["w_gate"]) * (x @ m["w_up"])
+    h = constrain(h, "batch", "seq", "mlp")
     return h @ m["w_down"], torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -241,10 +305,46 @@ def layer_forward(lp, x, cfg: TransformerConfig, positions, q_offset=0):
     q, k, v = _project_qkv(lp, h, cfg, positions)
     o = cm.flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk, q_offset=q_offset)
     o = o.reshape(*x.shape[:2], cfg.q_dim) @ lp["attn"]["wo"]
-    x = x + o
+    x = x + constrain(o, "batch", "seq", None)
     h = cm.rmsnorm(x, lp["ln2"])
     m, aux = _mlp(lp, h, cfg)
-    return x + m, aux, k, v
+    x = constrain(x + m, "batch", "seq", None)
+    return x, aux, k, v
+
+
+def _write_rows(cache: Tensor, pos: Tensor, val: Tensor) -> None:
+    """``cache[b, pos[b]] = val[b]`` for every batch row ``b``, in place.
+
+    On a DTensor cache (batch and sequence sharded on a mesh) each rank
+    writes its own block: the rows it holds, at the positions that fall in
+    its slice of the sequence (elsewhere it writes back what is there)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(cache, DTensor):
+        cache[torch.arange(cache.shape[0], device=cache.device), pos] = val
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, pl = cache.device_mesh, cache.placements
+
+    def like(p, drop_seq):  # the placement of a tensor without the seq dim
+        if not isinstance(p, Shard) or p.dim == 1 or (drop_seq and p.dim > 0):
+            return Replicate()
+        return Shard(p.dim - 1 if p.dim > 1 else 0)
+
+    if not isinstance(pos, DTensor):
+        pos = DTensor.from_local(pos, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    pos_l = pos.redistribute(mesh, [like(p, True) for p in pl]).to_local().long()
+    val_l = val.redistribute(mesh, [like(p, False) for p in pl]).to_local()
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh, pl)
+    loc = cache.to_local()
+    rel = pos_l - offset[1]
+    mine = (rel >= 0) & (rel < shape[1])
+    rows = torch.arange(shape[0], device=loc.device)
+    at = torch.clamp(rel, 0, max(shape[1] - 1, 0))
+    keep = mine.reshape(-1, *([1] * (val_l.ndim - 1)))
+    loc[rows, at] = torch.where(keep, val_l.to(loc.dtype), loc[rows, at])
 
 
 def layer_decode(lp, x, k_cache, v_cache, cache_len, cfg: TransformerConfig):
@@ -254,9 +354,8 @@ def layer_decode(lp, x, k_cache, v_cache, cache_len, cfg: TransformerConfig):
     B = x.shape[0]
     h = cm.rmsnorm(x, lp["ln1"])
     q, k, v = _project_qkv(lp, h, cfg, cache_len[:, None])
-    bidx = torch.arange(B, device=x.device)
-    k_cache[bidx, cache_len] = k[:, 0]
-    v_cache[bidx, cache_len] = v[:, 0]
+    _write_rows(k_cache, cache_len, k[:, 0])
+    _write_rows(v_cache, cache_len, v[:, 0])
     o = cm.decode_attention(q, k_cache, v_cache, cache_len + 1)
     o = o.reshape(B, 1, cfg.q_dim) @ lp["attn"]["wo"]
     x = x + o
@@ -288,7 +387,10 @@ def _embed(params, tokens: Tensor, cfg: TransformerConfig) -> Tensor:
     gradient in a fixed order (``embedding``'s sorted segments, not the
     racing adds of an indexing backward), so a step is reproducible bit for
     bit on one device."""
-    return F.embedding(tokens, params["embed"]).to(cfg.dtype)
+    x = cm.embedding_rows(tokens, params["embed"]).to(cfg.dtype)
+    # on a mesh the gather from the vocab-sharded table is a partial sum:
+    # reduce it here, to the activations' layout
+    return constrain(x, "batch", "seq", None)
 
 
 def _positions(B: int, S: int, device) -> Tensor:
@@ -301,7 +403,8 @@ def forward(params: Params, tokens: Tensor, cfg: TransformerConfig) -> Tuple[Ten
     x = _embed(params, tokens, cfg)
     x, aux, _ = _layers(params, x, cfg, _positions(B, S, x.device), collect_kv=False)
     x = cm.rmsnorm(x, params["final_norm"])
-    return _mask_padded_logits(x @ params["lm_head"], cfg), aux
+    logits = _mask_padded_logits(x @ params["lm_head"], cfg)
+    return constrain(logits, "batch", "seq", "vocab"), aux
 
 
 def train_loss(params: Params, batch: Dict[str, Tensor], cfg: TransformerConfig) -> Tensor:

@@ -244,3 +244,106 @@ def pipeline_rank(rank: int, world: int, spec: dict) -> dict:
     return {"labels": _np(res.labels), "embedding": _np(res.embedding),
             "eigenvalues": _np(res.eigenvalues), "kmeans_iterations": res.kmeans_iterations,
             "provenance": st.provenance, **_counts()}
+
+
+def launch_rank(rank: int, world: int, spec: dict) -> dict:
+    """``launch.train.main(spec["argv"])`` on this rank, its initial
+    parameters ``spec["init"]`` when given (a flat ``{"/"-joined key path:
+    array}`` dict, the tree ``init_params`` would draw — how parity tests
+    put the reference's initial weights in); rank 0's printed lines."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as tfm
+
+    init = spec.get("init")
+    drawn = tfm.init_params
+    if init is not None:
+        def given(cfg, gen, *, device=None):
+            tree: dict = {}
+            for path, a in init.items():
+                *outer, last = path.split("/")
+                node = tree
+                for k in outer:
+                    node = node.setdefault(k, {})
+                node[last] = torch.tensor(a, device=device)
+            return tree
+
+        tfm.init_params = given
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            launch_train.main(spec["argv"])
+    finally:
+        tfm.init_params = drawn
+    return {"lines": out.getvalue().splitlines()}
+
+
+def moe_rank(rank: int, world: int, spec: dict) -> dict:
+    """``moe_ffn_shard_map`` of ``spec["x"]`` [T, d] under ``spec["p"]``
+    (one layer's router and experts) and ``MoEConfig(**spec["cfg"])`` on the
+    mesh, with the gradients of ``Σ y² + aux`` taken: y whole, the aux
+    losses and the parameters' and x's gradients whole."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import rules_for_mesh
+    from repro_torch.models.moe import MoEConfig, moe_ffn_shard_map
+
+    mesh = _mesh(spec)
+    cfg = MoEConfig(**spec["cfg"])
+    p = {k: torch.as_tensor(v).requires_grad_() for k, v in spec["p"].items()}
+    x = torch.as_tensor(spec["x"]).requires_grad_()
+    with shd.axis_rules(rules_for_mesh(mesh), mesh):
+        y, aux = moe_ffn_shard_map(p, x, cfg, mesh)
+        loss = (y * y).sum() + aux["load_balance"] + aux["router_z"]
+        loss = loss.full_tensor() if isinstance(loss, DTensor) else loss
+        loss.backward()
+    whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t  # noqa: E731
+    return {"y": _np(whole(y)), "load_balance": float(whole(aux["load_balance"])),
+            "router_z": float(whole(aux["router_z"])),
+            "grads": {k: _np(v.grad) for k, v in p.items()}, "x_grad": _np(x.grad)}
+
+
+def compress_rank(rank: int, world: int, spec: dict) -> dict:
+    """``compressed_psum_mean`` of this rank's ``spec["grad"][rank]`` and
+    ``spec["residual"][rank]`` over the default group."""
+    from repro_torch.optim.compress import compressed_psum_mean
+
+    mean, res = compressed_psum_mean(torch.as_tensor(spec["grad"][rank]),
+                                     torch.as_tensor(spec["residual"][rank]))
+    return {"mean": _np(mean), "residual": _np(res)}
+
+
+def reshard_rank(rank: int, world: int, spec: dict) -> dict:
+    """``reshard_tree`` of ``spec["tree"]`` (flat name → array) by
+    ``spec["logical"]`` (name → logical axes) under the mesh's rules, then
+    each leaf gathered back whole: placements and whole leaves."""
+    from repro_torch.ckpt.elastic import reshard_tree
+    from repro_torch.launch.mesh import rules_for_mesh
+    from repro_torch.launch.sharding import logical_spec
+
+    mesh = _mesh(spec)
+    tree = {k: torch.as_tensor(v) for k, v in spec["tree"].items()}
+    logical = {k: logical_spec(v) for k, v in spec["logical"].items()}
+    out = reshard_tree(tree, logical, rules_for_mesh(mesh), mesh)
+    return {k: {"placements": [repr(p) for p in v.placements],
+                "local_shape": tuple(v.to_local().shape), "whole": _np(v.full_tensor())}
+            for k, v in out.items()}
+
+
+def elastic_rank(rank: int, world: int, spec: dict) -> dict:
+    """``plan_elastic_mesh(world, spec["model"])`` and then the launcher
+    with ``--elastic`` on ``spec["argv"]``: this rank's coordinate in the
+    planned mesh (None when left out) and whether the launcher returned a
+    state."""
+    from repro_torch.ckpt.elastic import plan_elastic_mesh
+    from repro_torch.launch import train as launch_train
+
+    mesh = plan_elastic_mesh(world, spec["model"], device_type="cpu")
+    state = launch_train.main(spec["argv"] + ["--elastic", "--model-parallel",
+                                              str(spec["model"])])
+    coord = mesh.get_coordinate()
+    return {"coordinate": None if coord is None else list(coord),
+            "trained": state is not None}

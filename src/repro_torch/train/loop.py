@@ -6,8 +6,8 @@
 * deterministic data (stream state derives from the step counter, so a
   resumed run sees exactly the tokens it would have seen),
 * straggler knob: ``step_timeout_s`` — a step over it is logged (a
-  multi-host deployment would restart elastically there; single-device
-  here, ROADMAP A14e).
+  multi-host deployment would restart elastically there, the launcher's
+  ``--elastic``).
 
 The loss is read back to the host only on log steps, as in the reference.
 """

@@ -71,8 +71,8 @@ def make_train_step(
                 raise ValueError(f"a batch of {n} rows does not split into {accum_steps} "
                                  "equal microbatches")
             mb = n // accum_steps
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for p in _tree.leaves(state.params)]
+            # fp32 zeros laid out like each parameter (a DTensor's placements)
+            grads = [torch.zeros_like(p, dtype=torch.float32) for p in _tree.leaves(state.params)]
             loss = torch.zeros((), dtype=torch.float32, device=grads[0].device)
             for i in range(accum_steps):
                 micro = _tree.map(lambda x: x[i * mb:(i + 1) * mb], batch)

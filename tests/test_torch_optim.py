@@ -156,7 +156,7 @@ def test_package_exports_the_reference_names():
     import repro.optim as j
 
     ported = {n for n in dir(j) if not n.startswith("_")} - {"adamw", "compress"}
-    assert ported - set(dir(t_optim)) == {"compressed_psum_mean"}  # ROADMAP A14e
+    assert ported - set(dir(t_optim)) == set()
 
 
 # ---------------------------------------------------------------------------

@@ -43,7 +43,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     names = {str(f.relative_to(ROOT)) for f in files}
     for new in ("optim/adamw.py", "optim/compress.py", "train/state.py", "train/loop.py",
                 "launch/train.py", "data/tokens.py", "models/recsys.py", "configs/cells.py",
-                "configs/autoint.py", "_tree.py"):
+                "configs/autoint.py", "_tree.py", "launch/sharding.py", "launch/mesh.py",
+                "launch/dryrun.py", "launch/roofline.py", "launch/report.py", "ckpt/elastic.py"):
         assert f"src/repro_torch/{new}" in names
     assert "examples/train_lm_torch.py" in names
     offenders = {str(f.relative_to(ROOT)): sorted({m for m in _imported_roots(f)
@@ -74,6 +75,8 @@ def test_entry_points_refuse_a_missing_card():
                  lambda: tfm.make_cache(ARCHS["qwen3-0.6b"].smoke_config, 1, 4),
                  lambda: launch_serve.main(["--mode", "decode", "--smoke"]),
                  lambda: launch_train.main(["--smoke", "--steps", "1"]),
+                 lambda: launch_train.main(["--smoke", "--steps", "1", "--data-parallel", "1",
+                                            "--model-parallel", "1", "--elastic"]),
                  lambda: rs.init_params(ARCHS["autoint"].smoke_config, torch.Generator())):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -82,19 +85,13 @@ def test_entry_points_refuse_a_missing_card():
                        "--device", "cpu"])
 
 
-# names of the reference's package __init__s whose modules are not ported
-# yet: elastic resharding and the compressed all-reduce (ROADMAP A14e)
-UNPORTED = {"ckpt": {"reshard_tree"},
-            "optim": {"compressed_psum_mean"}}
-
-
 @pytest.mark.parametrize("package", ["core", "sparse", "data", "ckpt", "optim", "train",
                                      "serve", "configs"])
 def test_packages_export_the_reference_names(package):
     """Each package ``__init__`` of the port re-exports the public names of
-    the reference's (read from its source, nothing imported), less the
-    unported modules' names; ``core`` keeps the ``kmeans`` submodule
-    unshadowed."""
+    the reference's (read from its source, nothing imported); ``core`` keeps
+    the ``kmeans`` submodule unshadowed.  (``launch``'s reference
+    ``__init__`` exports no names.)"""
     import importlib
 
     def exported(path):
@@ -106,7 +103,7 @@ def test_packages_export_the_reference_names(package):
     want = {n for n in exported(ROOT / "src" / "repro" / package / "__init__.py")
             if not n.startswith("_")}
     mod = importlib.import_module(f"repro_torch.{package}")
-    assert want - set(dir(mod)) == UNPORTED.get(package, set())
+    assert want - set(dir(mod)) == set()
     if package == "core":
         import types
 
