@@ -3820,7 +3820,8 @@ MOE_PATH_RTOL = 2.0 ** -7
 # the one-device launcher's steps and peak on an H100 before the launcher built
 # a mesh (PERF.md §6), printed beside M1's
 ONE_DEVICE_STEP_MS, ONE_DEVICE_PEAK_GB = (759, 792), 22.38
-DRYRUN_CELLS = ("qwen3-0.6b/decode_32k", "gcn-cora/full_graph_sm", "autoint/serve_p99")
+DRYRUN_CELLS = ("qwen3-0.6b/decode_32k", "gcn-cora/full_graph_sm", "autoint/serve_p99",
+                "spectral/dti", "equiformer-v2/molecule")
 
 
 def mesh_argv(arch: str, steps: int, batch: int, seq: int, *extra) -> list:
@@ -4013,21 +4014,32 @@ def mesh_moe() -> dict:
 
 
 def mesh_dryrun() -> dict:
-    """The dry-run of three cells on the (16, 16) fake mesh in a subprocess
-    on the host (no card): its roofline terms and memory a rank."""
+    """The dry-run of five cells — the paper's `spectral/dti` among them — on
+    the (16, 16) fake mesh on the host (no card), one subprocess a cell, all
+    at once: their roofline terms and memory a rank.  A failing cell fails
+    the phase."""
     out = ROOT / "build" / "dryrun_chip"
     shutil.rmtree(out, ignore_errors=True)
-    script = ("import sys\nfrom repro_torch.launch import dryrun\n"
-              f"rcs = [dryrun.main(['--cell', c, '--mesh', 'single', '--out', {str(out)!r}]) "
-              f"for c in {list(DRYRUN_CELLS)!r}]\nsys.exit(max(rcs))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
-                          env=env, timeout=600)
+    procs = {}
+    try:
+        for cell in DRYRUN_CELLS:
+            argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--cell", cell, "--mesh",
+                    "single", "--out", str(out)]
+            procs[cell] = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True, env=env)
+        logs = {cell: p.communicate(timeout=600)[0] for cell, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     wall = time.perf_counter() - t0
-    (ROOT / "chiprun_out" / "dryrun_chip.log").write_text(proc.stdout + proc.stderr)
-    check(proc.returncode == 0, f"mesh: the dry-run exited {proc.returncode}: "
-                                f"{(proc.stdout + proc.stderr)[-1500:]}")
+    (ROOT / "chiprun_out" / "dryrun_chip.log").write_text("".join(logs.values()))
+    for cell, p in procs.items():
+        check(p.returncode == 0, f"mesh: the dry-run of {cell} exited {p.returncode}: "
+                                 f"{logs[cell][-1500:]}")
     rows = {}
     for cell in DRYRUN_CELLS:
         r = json.loads((out / "single" / (cell.replace("/", "__") + ".json")).read_text())
@@ -4037,7 +4049,8 @@ def mesh_dryrun() -> dict:
         log(f"[mesh] dry-run {cell} @ (16, 16) fake ranks (host only): compute "
             f"{r['compute_s']:.6f} s, memory {r['memory_s']:.6f} s, collective "
             f"{r['collective_s']:.6f} s, {r['bottleneck']}-bound, useful "
-            f"{r['useful_ratio']:.3f}, {r['memory_per_device_gb']:.2f} GB a rank")
+            f"{r['useful_ratio']:.3f}, {r['memory_per_device_gb']:.2f} GB a rank, "
+            f"{r['compile_s']:.1f} s on the host")
     log(f"[mesh] dry-run of {len(DRYRUN_CELLS)} cells: {wall:.1f} s on the host")
     return dict(cells=rows, wall_s=wall)
 

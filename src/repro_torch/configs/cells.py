@@ -351,12 +351,28 @@ def _sharded_coo_shapes(n_raw, nnz, num_shards, rules):
     return sm, ShardedCOO(espec, espec, espec, sm.shape, rps, num_shards, eps_)
 
 
+def _local(t):
+    """A DTensor's shard on this rank (a plain tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _own_bucket(sm):
+    """The ShardedCOO this rank's plan holds: its own bucket of the edges
+    (the local shards of the edge arrays, sharded over the data axes as the
+    reference's specs shard them), the whole layout off a mesh."""
+    return dataclasses.replace(sm, row_local=_local(sm.row_local), col=_local(sm.col),
+                               val=_local(sm.val))
+
+
 def spectral_cell(arch, sspec, rules, *, mesh=None, variant: str = "gspmd",
                   gather_dtype=None, data_axes=("pod", "data")) -> Cell:
     """The paper's pipeline on a row-sharded graph of the shape's size; the
-    port's ``Plan(device="sharded", mesh=mesh)`` runs it.  The PRNG key
-    argument stands for the run's seed: the port draws from a CPU
-    generator seeded 0."""
+    port's ``Plan(device="sharded", mesh=mesh)`` runs it, each rank on its
+    own edge bucket, its dense Stage-2 and Stage-3 state whole (the port's
+    plan: ``core/distributed_pipeline.py``).  The PRNG key argument stands
+    for the run's seed: the port draws from a CPU generator seeded 0."""
     from repro_torch._device import cpu_generator
     from repro_torch.core.pipeline import SpectralClusteringConfig
     from repro_torch.core.spectral import Plan
@@ -381,6 +397,7 @@ def spectral_cell(arch, sspec, rules, *, mesh=None, variant: str = "gspmd",
 
     def fn(sm_in, key):
         del key
+        sm_in = _own_bucket(sm_in)
         out = pipe.run(sm_in, cpu_generator(0), device=sm_in.val.device)
         return out.labels, out.eigenvalues, out.kmeans_inertia
 
@@ -443,9 +460,16 @@ def gnn_cost_cell(arch, shape_name: str, rules) -> Optional[Cell]:
 def spectral_component_cells(arch, shape_name: str, rules, *, mesh=None,
                              variant: str = "gspmd", gather_dtype=None,
                              data_axes=("pod", "data")):
-    """Per-stage cells + trip counts: [(label, Cell, trip_count)]."""
-    from repro_torch.core.kmeans import assign_ref, row_at, update_centroids
+    """Per-stage cells + trip counts: [(label, Cell, trip_count)].
+
+    Each computes as the port's plan does: a rank's own edge bucket (the
+    edge arrays keep the reference's specs) and the dense state — the
+    Krylov basis V, the embedding h, the centroids — whole on every rank, so
+    those arguments are replicated where the reference's specs shard V and
+    h by nodes.  Stage 3's iteration is the fused ``kmeans_iter`` (B2)."""
+    from repro_torch.core.kmeans import centroids_from_sums, row_at
     from repro_torch.core.operator import ShardedCooOperator
+    from repro_torch.kernels.kmeans_iter.ops import kmeans_iter
 
     sspec = arch.shapes[shape_name]
     d = sspec.dims
@@ -453,19 +477,17 @@ def spectral_component_cells(arch, shape_name: str, rules, *, mesh=None,
     m = 2 * k
     sm, sm_spec = _sharded_coo_shapes(n_raw, nnz, _num_shards(mesh), rules)
     n = sm.shape[0]
-    vspec = shd.resolve(("nodes",), rules)
-    Vspec = shd.resolve((None, "nodes"), rules)
-    hspec = shd.resolve(("nodes", None), rules)
     names = () if mesh is None else tuple(mesh.mesh_dim_names)
     axis = tuple(a for a in data_axes if mesh is None or a in names)
     axis = axis[0] if len(axis) == 1 else axis
 
     def operator_of(sm_in):
-        return ShardedCooOperator(sm_in, variant=variant, mesh=mesh, axis=axis,
+        return ShardedCooOperator(_own_bucket(sm_in), variant=variant, mesh=mesh, axis=axis,
                                   gather_dtype=gather_dtype)
 
     # (a) one Lanczos step: operator application + coefficient + two-pass reorth
     def lanczos_step(sm_in, V, v):
+        V, v = _local(V), _local(v)
         w = operator_of(sm_in).mv(v)
         c = V @ w
         w = w - V.T @ c
@@ -476,33 +498,32 @@ def spectral_component_cells(arch, shape_name: str, rules, *, mesh=None,
     V = _sds((m + 1, n), torch.float32)
     v = _sds((n,), torch.float32)
     step_cell = Cell(f"{arch.name}/{shape_name}[lanczos_step]", lanczos_step,
-                     (sm, V, v), (sm_spec, Vspec, vspec))
+                     (sm, V, v), (sm_spec, P(), P()))
 
     # (b) restart: projected eigh + thick-restart basis rotation
     l_keep = min(m - 1, k + max(1, (m - k) // 2))
 
     def restart(T, V):
-        theta, S = torch.linalg.eigh(T)
-        Y = S[:, m - l_keep:].T @ V[:m]
+        theta, S = torch.linalg.eigh(_local(T))
+        Y = S[:, m - l_keep:].T @ _local(V)[:m]
         return theta, Y
 
     T = _sds((m, m), torch.float32)
-    restart_cell = Cell(f"{arch.name}/{shape_name}[restart]", restart,
-                        (T, V), (P(), Vspec))
+    restart_cell = Cell(f"{arch.name}/{shape_name}[restart]", restart, (T, V), (P(), P()))
 
-    # (c) one k-means (Lloyd) iteration on the n×k embedding
+    # (c) one k-means (Lloyd) iteration on the n×k embedding: the fused B2
     def km_iter(h, C):
-        labels, dmin = assign_ref(h, C)
-        Cn = update_centroids(h, labels, k, C, how="matmul")
-        return labels, Cn, dmin.sum()
+        h, C = _local(h), _local(C)
+        labels, dmin, sums, counts = kmeans_iter(h, C)
+        return labels, centroids_from_sums(sums, counts, C), dmin.sum()
 
     h = _sds((n, k), torch.float32)
     C = _sds((k, k), torch.float32)
-    km_cell = Cell(f"{arch.name}/{shape_name}[kmeans_iter]", km_iter,
-                   (h, C), (hspec, P()))
+    km_cell = Cell(f"{arch.name}/{shape_name}[kmeans_iter]", km_iter, (h, C), (P(), P()))
 
     # (d) one k-means++ seeding step
     def kmpp_step(h, c, dist2, g):
+        h, c, dist2, g = (_local(t) for t in (h, c, dist2, g))
         d2 = torch.clamp((h * h).sum(1) - 2.0 * (h @ c) + (c * c).sum(), min=0.0)
         dist2 = torch.minimum(dist2, d2)
         idx = torch.argmax(torch.log(torch.clamp(dist2, min=1e-30)) + g)
@@ -511,7 +532,7 @@ def spectral_component_cells(arch, shape_name: str, rules, *, mesh=None,
     kmpp_cell = Cell(f"{arch.name}/{shape_name}[kmeanspp_step]", kmpp_step,
                      (h, _sds((k,), torch.float32), _sds((n,), torch.float32),
                       _sds((n,), torch.float32)),
-                     (hspec, P(), vspec, vspec))
+                     (P(), P(), P(), P()))
 
     restarts = arch.config.fixed_restarts
     km_iters = arch.config.fixed_kmeans_iters

@@ -36,6 +36,7 @@ from typing import Optional
 
 import torch
 
+import repro_torch.core.health as health
 import repro_torch.core.kmeans as km
 from repro_torch._device import cpu_generator
 from repro_torch.core.pipeline import SpectralClusteringConfig
@@ -264,7 +265,9 @@ def kmeans_sharded(x: torch.Tensor, cfg: km.KMeansConfig,
         changed_t = torch.tensor(float(n))
         for _ in range(cfg.fixed_iters):
             c, labels, dmin, changed_t = one_iter(c, labels)
-        changed, iters = int(changed_t), cfg.fixed_iters
+        # nothing read back on values that are not concrete (meta)
+        changed = int(changed_t) if health.is_concrete(changed_t) else changed_t
+        iters = cfg.fixed_iters
     else:
         while changed > cfg.tol_changes and iters < cfg.max_iters:
             c, labels, dmin, changed_t = one_iter(c, labels)

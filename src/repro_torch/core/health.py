@@ -1,10 +1,14 @@
 """Pipeline-wide fail-soft layer: health guards, stage reports, typed errors
 (mirrors :mod:`repro.core.health`).
 
-PyTorch runs eagerly, so every stage output is concrete:
-:func:`is_concrete` is always true here and the escalation ladders of
-:class:`~repro_torch.core.spectral.SpectralPipeline` always run — as they
-do in the reference's eager (un-jitted) execution.
+PyTorch runs eagerly, so a stage output is concrete unless it lies on
+``meta`` (shapes and dtypes, no storage): the dry-run runs the pipeline on
+such tensors, as the reference's traces it.  :func:`is_concrete` tells the
+two apart; the guards (:func:`check_points`, :func:`check_graph`) and the
+escalation ladders of :class:`~repro_torch.core.spectral.SpectralPipeline`
+run only on concrete values, and :func:`nonfinite_count` reads its count
+back only from them — as in the reference, whose guards are no-ops under a
+trace.
 """
 from __future__ import annotations
 
@@ -90,17 +94,28 @@ def reports_to_dict(reports: Tuple[StageReport, ...]) -> list:
     return [r.to_dict() for r in reports]
 
 
+def _on_meta(v) -> bool:
+    if not isinstance(v, torch.Tensor):
+        return False
+    local = getattr(v, "_local_tensor", None)  # a DTensor's shard on this rank
+    return v.is_meta or (isinstance(local, torch.Tensor) and local.is_meta)
+
+
 def is_concrete(*values) -> bool:
-    """Always true: PyTorch has no traced values."""
-    return True
+    """True iff none of the values is a tensor on ``meta`` (a DTensor
+    included, by its local tensor) — the gate for host-driven guards and
+    escalations (a value with no storage cannot steer a Python retry loop)."""
+    return not any(_on_meta(v) for v in values)
 
 
-def nonfinite_count(x) -> int:
-    """Number of NaN/Inf entries (0 = healthy)."""
+def nonfinite_count(x):
+    """Number of NaN/Inf entries (0 = healthy): an int, or on a value that
+    is not concrete the count as a 0-d tensor."""
     t = torch.as_tensor(x)
     if not t.is_floating_point():
         return 0
-    return int((~torch.isfinite(t)).sum())
+    bad = (~torch.isfinite(t)).sum()
+    return int(bad) if is_concrete(bad) else bad
 
 
 def graph_signals(val: torch.Tensor, deg: Optional[torch.Tensor] = None) -> dict:
@@ -124,7 +139,10 @@ def embedding_signals(h: torch.Tensor, residuals: torch.Tensor) -> dict:
 
 def check_points(x: torch.Tensor, n_clusters: int) -> None:
     """Stage-1 input guard: finite features and ``k <= #distinct points``.
-    Counts on the points' device and reads back only the counts."""
+    Counts on the points' device and reads back only the counts; a no-op on
+    a value that is not concrete."""
+    if not is_concrete(x):
+        return
     bad = nonfinite_count(x)
     if bad:
         raise PipelineError(
@@ -150,7 +168,10 @@ def check_points(x: torch.Tensor, n_clusters: int) -> None:
 
 
 def check_graph(val: torch.Tensor) -> None:
-    """Prebuilt-graph input guard: finite, non-negative edge weights."""
+    """Prebuilt-graph input guard: finite, non-negative edge weights; a
+    no-op on a value that is not concrete."""
+    if not is_concrete(val):
+        return
     bad = nonfinite_count(val)
     if bad:
         raise PipelineError(

@@ -14,10 +14,11 @@ Two engines, as in the reference:
   and ``"fused"`` launch the kernel on the card and raise if it cannot.
 
 The reference's ``while_loop`` is a Python loop that reads the
-changed-label count once per iteration.  The seedings draw on the device
-from a counter-based stream (:mod:`repro_torch._random`) keyed by one draw
-from the caller's CPU generator, so one seed gives the same seeding on the
-CPU and on the card.
+changed-label count once per iteration; under ``fixed_iters`` it reads it
+once at the end, and on ``meta`` tensors (the dry-run) not at all.  The
+seedings draw on the device from a counter-based stream
+(:mod:`repro_torch._random`) keyed by one draw from the caller's CPU
+generator, so one seed gives the same seeding on the CPU and on the card.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch import _random
 from repro_torch._device import cpu_generator
+from repro_torch.core import health
 from repro_torch.kernels._util import KMEANS_BLOCK_K, KMEANS_BLOCK_Q
 
 
@@ -272,7 +274,9 @@ def kmeans(x: torch.Tensor, cfg: KMeansConfig,
         changed_t = torch.tensor(n)
         for _ in range(cfg.fixed_iters):
             c, labels, dmin, changed_t = one_iter(c, labels)
-        changed, iters = int(changed_t), cfg.fixed_iters
+        # nothing read back on values that are not concrete (meta)
+        changed = int(changed_t) if health.is_concrete(changed_t) else changed_t
+        iters = cfg.fixed_iters
     else:
         while changed > cfg.tol_changes and iters < cfg.max_iters:
             c, labels, dmin, changed_t = one_iter(c, labels)

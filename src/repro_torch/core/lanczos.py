@@ -10,7 +10,9 @@ matrix is streamed m/b times per basis instead of m.
 
 The reference's ``lax`` loops are Python loops here.  The host reads the
 device once per restart cycle: whether any step of the cycle broke down
-(an invariant subspace was hit) together with the converged count.  A
+(an invariant subspace was hit) together with the converged count — and
+not at all on ``meta`` tensors (the dry-run), where ``fixed_restarts`` sets
+the cycle count and the converged flag stays a tensor.  A
 breakdown needs fresh random directions, which are drawn only when they are
 needed, each the next draw of a counter-based stream
 (:mod:`repro_torch._random`) keyed from the caller's CPU generator; a
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch import _random
 from repro_torch._device import cpu_generator
+from repro_torch.core import health
 
 
 class LanczosResult(NamedTuple):
@@ -221,16 +224,33 @@ def lanczos_topk(matvec, n: int, cfg: LanczosConfig, *,
 # Shared restart driver
 # ---------------------------------------------------------------------------
 
-def _drive(cfg: LanczosConfig, V, T, l_keep: int, cycle):
-    """Run the first cycle (from l = 0), then steady cycles (from l_keep)
-    until k pairs converge, the budget ends, or ``fixed_restarts`` is met.
-    ``cycle(V, T, l)`` returns ``(next_V, next_T, extract, n_conv)``."""
-    V, T, out, n_conv = cycle(V, T, 0)
+def _host_flags(broke: torch.Tensor, n_conv: torch.Tensor):
+    """``(broke, n_conv)`` read back in one host read — the cycle's one; on
+    values that are not concrete (``meta``) nothing is read: no breakdown
+    can be seen, and the converged count stays a tensor."""
+    if not health.is_concrete(broke, n_conv):
+        return False, n_conv
+    broke_h, n = torch.stack([broke.long(), n_conv]).tolist()
+    return broke_h, n
+
+
+def _drive(cfg: LanczosConfig, start, l_keep: int, cycle):
+    """Run the first cycle (from l = 0, on ``start()``'s basis and
+    projection), then steady cycles (from l_keep) until k pairs converge,
+    the budget ends, or ``fixed_restarts`` is met.  ``cycle(V, T, l)``
+    returns ``(next_V, next_T, extract, n_conv)``; ``fixed_restarts`` needs
+    nothing from the host.  No frame keeps a basis the cycles are done with
+    (the initial one is made here, not by the caller)."""
+    V, T, out, n_conv = cycle(*start(), 0)
     restarts = 1
     if cfg.fixed_restarts is not None:
         for _ in range(cfg.fixed_restarts):
             V, T, out, n_conv = cycle(V, T, l_keep)
         restarts = 1 + cfg.fixed_restarts
+    elif not health.is_concrete(n_conv):
+        raise ValueError(
+            "a Lanczos run on values that are not concrete (meta) needs "
+            "LanczosConfig.fixed_restarts: the converged count cannot be read")
     else:
         while restarts < cfg.max_restarts and n_conv < cfg.k:
             V, T, out, n_conv = cycle(V, T, l_keep)
@@ -304,7 +324,7 @@ def _lanczos_topk_single(matvec: Callable, n: int, cfg: LanczosConfig, *,
         res = torch.abs(beta_m * S[m - 1, :])
         scale = torch.clamp(theta.abs().max(), min=1e-12)
         n_conv_t = (res[m - k:] <= cfg.tol * scale).sum()
-        broke_h, n_conv = torch.stack([broke.long(), n_conv_t]).tolist()
+        broke_h, n_conv = _host_flags(broke, n_conv_t)
         if broke_h:  # replay the cycle with a host check per step
             V[l + 1:] = 0
             T = T0
@@ -327,10 +347,12 @@ def _lanczos_topk_single(matvec: Callable, n: int, cfg: LanczosConfig, *,
         T_new[:l_keep, l_keep] = h
         return V_new, T_new, (theta, S, V, res), n_conv
 
-    V = torch.zeros((m + 1, n), dtype=f32, device=device)
-    V[0] = v0
-    T = torch.zeros((m + 1, m + 1), dtype=f32, device=device)
-    out, restarts, n_conv = _drive(cfg, V, T, l_keep, cycle)
+    def start():
+        V = torch.zeros((m + 1, n), dtype=f32, device=device)
+        V[0] = v0
+        return V, torch.zeros((m + 1, m + 1), dtype=f32, device=device)
+
+    out, restarts, n_conv = _drive(cfg, start, l_keep, cycle)
     return _extract(cfg, out, sign, restarts, n_conv)
 
 
@@ -399,7 +421,7 @@ def _lanczos_topk_block(matmat: Callable, n: int, cfg: LanczosConfig, *,
         for j in range(l, m, b):
             broke |= ~step(V, T, j, careful=False)
         Bm, theta, S, res, n_conv_t = ritz(T)
-        broke_h, n_conv = torch.stack([broke.long(), n_conv_t]).tolist()
+        broke_h, n_conv = _host_flags(broke, n_conv_t)
         if broke_h:  # replay the cycle with a host check per step
             V[l + b:] = 0
             T = T0
@@ -419,8 +441,10 @@ def _lanczos_topk_block(matmat: Callable, n: int, cfg: LanczosConfig, *,
         T_new[:l_keep, l_keep:l_keep + b] = H.T
         return V_new, T_new, (theta, S, V, res), n_conv
 
-    V = torch.zeros((m + b, n), dtype=f32, device=device)
-    V[:b] = Q0.T
-    T = torch.zeros((m + b, m + b), dtype=f32, device=device)
-    out, restarts, n_conv = _drive(cfg, V, T, l_keep, cycle)
+    def start():
+        V = torch.zeros((m + b, n), dtype=f32, device=device)
+        V[:b] = Q0.T
+        return V, torch.zeros((m + b, m + b), dtype=f32, device=device)
+
+    out, restarts, n_conv = _drive(cfg, start, l_keep, cycle)
     return _extract(cfg, out, sign, restarts, n_conv)

@@ -458,14 +458,19 @@ class SpectralPipeline:
         if isinstance(w, ShardedCOO):
             # the degree pass; under a mesh each rank sums its own rows and
             # the blocks are gathered, so every rank holds the same degrees
-            # (an index-add on the card rounds differently from run to run)
+            # (an index-add on the card rounds differently from run to run);
+            # a rank may hold only its own bucket, whose shard is its
+            # coordinate on the axis
             ones = torch.ones(w.shape[0], device=w.device)
-            deg = spmv_gspmd(w, ones) if self.plan.mesh is None else ShardedCooOperator(
-                w, mesh=self.plan.mesh, axis=self.plan.axis).mv(ones)
+            if self.plan.mesh is None:
+                ax, deg = None, spmv_gspmd(w, ones)
+            else:
+                ax = mesh_axis(self.plan.mesh, self.plan.axis)
+                deg = ShardedCooOperator(w, mesh=self.plan.mesh, axis=self.plan.axis).mv(ones)
             d32 = deg.float()
             isd = torch.where(d32 > 0, torch.rsqrt(torch.clamp(d32, min=1e-30)),
                               torch.zeros_like(d32)).to(w.val.dtype)
-            return GraphState(adj=normalize_sharded(w, deg), deg=deg, inv_sqrt_deg=isd)
+            return GraphState(adj=normalize_sharded(w, deg, ax), deg=deg, inv_sqrt_deg=isd)
         g = lap.normalized_graph(w)
         return GraphState(adj=g.adj_sym, deg=g.deg, inv_sqrt_deg=g.inv_sqrt_deg)
 
@@ -569,17 +574,21 @@ class SpectralPipeline:
             return emb
         e = broadcast(emb.embedding.contiguous().clone(), ax)
         vals, resid = emb.eigenvalues.reshape(-1), emb.residuals.reshape(-1)
-        tail = torch.cat([vals.double(), resid.double(), torch.tensor(
-            [float(bool(emb.converged)), float(emb.restarts)], dtype=torch.float64,
-            device=vals.device)])
+        f64, dev = torch.float64, vals.device
+        flags = torch.stack([torch.as_tensor(emb.converged, device=dev).to(f64).reshape(()),
+                             torch.tensor(float(emb.restarts), dtype=f64, device=dev)])
+        tail = torch.cat([vals.double(), resid.double(), flags])
         tail = broadcast(tail, ax)
         nv, nr = vals.numel(), resid.numel()
+        # on values that are not concrete the restart count stays the static
+        # one every rank ran, and the flag a tensor
+        eager = health.is_concrete(tail)
         return EmbedState(
             embedding=e,
             eigenvalues=tail[:nv].to(vals.dtype).reshape(emb.eigenvalues.shape),
             residuals=tail[nv:nv + nr].to(resid.dtype).reshape(emb.residuals.shape),
-            restarts=int(tail[-1]),
-            converged=bool(tail[-2]),
+            restarts=int(tail[-1]) if eager else emb.restarts,
+            converged=bool(tail[-2]) if eager else tail[-2] > 0,
         )
 
     # -- Stage 3 ------------------------------------------------------------
@@ -643,11 +652,13 @@ class SpectralPipeline:
             raise ValueError(
                 "the prepare stage needs a PipelineState with points= or input_graph= set")
         notes: Tuple[str, ...] = ()
-        if self.health.enabled:
+        eager = health.is_concrete(g.deg)
+        if self.health.enabled and eager:
             iso = int((g.deg <= 0).sum())  # handled (pinned to 0): a note, not a fault
             if iso:
                 notes += (f"isolated_vertices[{iso}]",)
-        rep = StageReport("prepare", escalations=notes, wall_s=_wall(t0, st.device))
+        rep = StageReport("prepare", escalations=notes,
+                          wall_s=_wall(t0, st.device) if eager else -1.0)
         return dataclasses.replace(st, graph=g, reports=st.reports + (rep,),
                                    provenance=st.provenance + ("prepare",))
 
@@ -754,7 +765,8 @@ class SpectralPipeline:
         emb = self.embed(st.graph, st.gen_embed, operator=op, eig=ecfg, device=st.device)
         attempts = 1
         rungs = []
-        if hc.enabled:
+        if hc.enabled and health.is_concrete(emb.embedding, emb.eigenvalues, emb.converged):
+            # host-driven escalation: only on concrete outputs
             failure = self._embed_failure(emb, ecfg)
             while failure and attempts < hc.max_attempts:
                 ecfg, rung = self._escalate_embed(ecfg, failure, st.graph.adj.shape[0])
@@ -782,11 +794,13 @@ class SpectralPipeline:
                     ladder=tuple(rungs),
                     remedy="raise max_restarts/basis_m, loosen tol, or drop "
                            "strict to accept the degraded subspace")
+        eager = health.is_concrete(emb.embedding, emb.residuals, emb.converged)
+        resid_max = emb.residuals.float().max()
         rep = StageReport(
             "embed", escalations=tuple(rungs), attempts=attempts,
-            converged=bool(emb.converged),
-            residual_max=float(emb.residuals.float().max()),
-            wall_s=_wall(t0, st.device))
+            converged=bool(emb.converged) if eager else emb.converged,
+            residual_max=float(resid_max) if eager else resid_max,
+            wall_s=_wall(t0, st.device) if eager else -1.0)
         return dataclasses.replace(st, embedding=emb, reports=st.reports + (rep,),
                                    provenance=st.provenance + ("embed",))
 
@@ -801,7 +815,8 @@ class SpectralPipeline:
         res = self.cluster(st.embedding, st.gen_cluster, device=st.device)
         attempts = 1
         rungs = []
-        if hc.enabled:
+        eager = health.is_concrete(res.labels, res.kmeans_inertia, st.embedding.embedding)
+        if hc.enabled and eager:
             if health.nonfinite_count(st.embedding.embedding):
                 raise PipelineError(
                     "cluster", "input embedding contains non-finite values",
@@ -827,12 +842,17 @@ class SpectralPipeline:
                     "cluster", "k-means inertia is non-finite", ladder=tuple(rungs),
                     remedy="inspect the embedding scale — k-means over a "
                            "finite embedding cannot produce non-finite inertia")
-        counts = torch.bincount(res.labels.long(), minlength=kcfg.k)
+        if eager:
+            counts = torch.bincount(res.labels.long(), minlength=kcfg.k)
+            converged, inertia = int((counts > 0).sum()) == kcfg.k, float(res.kmeans_inertia)
+        else:  # the reference's traced report: tensors, no wall time
+            live = torch.zeros(kcfg.k, dtype=torch.bool, device=res.labels.device)
+            live[res.labels.long()] = True
+            converged, inertia = live.all(), res.kmeans_inertia
         rep = StageReport(
             "cluster", escalations=tuple(rungs), attempts=attempts,
-            converged=int((counts > 0).sum()) == kcfg.k,
-            residual_max=float(res.kmeans_inertia),
-            wall_s=_wall(t0, st.device))
+            converged=converged, residual_max=inertia,
+            wall_s=_wall(t0, st.device) if eager else -1.0)
         reports = st.reports + (rep,)
         return dataclasses.replace(st, result=res._replace(reports=reports),
                                    reports=reports,

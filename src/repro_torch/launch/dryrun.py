@@ -11,7 +11,12 @@ their specs, and runs ``cell.fn`` once under the mesh's axis rules.  A
 dispatch mode sees every op the rank runs on its local shards and records:
 
   flops        of the local matrix products and attention ops
-               (``torch.utils.flop_counter``'s formulas), local ops only —
+               (``torch.utils.flop_counter``'s formulas, plus the
+               matrix-vector and dot products it has none for), of the
+               other arithmetic by XLA's convention (a pointwise op one
+               a result element, a reduction or a scatter-accumulate one
+               an input element; copies none), and of the port's own
+               operators by ``_OP_COSTS``; local ops only —
                the DTensor-level op is skipped, or the global op's flops
                would be counted beside the rank's;
   bytes        read and written by the local ops, unfused (each op's inputs
@@ -39,6 +44,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import os
@@ -70,6 +76,49 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _kmeans_iter_cost(x, c, x_norm, block_q, *, out):
+    """B2 (``repro_torch::kmeans_iter``, one fused Lloyd iteration): the
+    2·n·k·d flops of its distance tile and the n·(d+1) adds of its epilogue
+    (each row and a one into its cluster's [d+1] sums and count); it reads x
+    and c once and writes labels, dmin, sums and counts (one [k, d+1]
+    block)."""
+    n, d = x.shape
+    return (2.0 * n * c.shape[0] * d + n * (d + 1),
+            _nbytes(x) + _nbytes(c) + sum(_nbytes(t) for t in out))
+
+
+# the port's own operators, which no flop formula of torch's covers:
+# (flops, bytes) of one call
+_OP_COSTS = {"repro_torch::kmeans_iter": _kmeans_iter_cost}
+
+# products torch's flop counter has no formula for: flops from the args
+_VECTOR_PRODUCTS = {
+    "aten::mv": lambda a, v, *_, **__: 2.0 * a.shape[0] * a.shape[1],
+    "aten::addmv": lambda b, a, v, *_, **__: 2.0 * a.shape[0] * a.shape[1],
+    "aten::dot": lambda a, b, *_, **__: 2.0 * a.numel(),
+    "aten::vdot": lambda a, b, *_, **__: 2.0 * a.numel(),
+}
+# scatter-accumulates (self, dim, index, source, ...): one flop a source element
+_ACCUMULATES = {"aten::index_add", "aten::index_add_", "aten::scatter_add",
+                "aten::scatter_add_", "aten::scatter_reduce", "aten::scatter_reduce_"}
+
+
+def _arithmetic_flops(func, args, outs) -> float:
+    """Flops of an op with no matrix formula, by XLA's convention."""
+    name = func._schema.name
+    if name in _VECTOR_PRODUCTS:
+        return _VECTOR_PRODUCTS[name](*args)
+    if name in _ACCUMULATES:
+        return float(args[3].numel())
+    if name == "aten::clone":  # a copy
+        return 0.0
+    if torch.Tag.pointwise in func.tags:
+        return float(sum(t.numel() for t in outs))
+    if torch.Tag.reduction in func.tags and isinstance(args[0], torch.Tensor):
+        return float(args[0].numel())
+    return 0.0
+
+
 class RankCounter(TorchDispatchMode):
     """Counts one rank's local work (see the module docstring).
 
@@ -91,6 +140,7 @@ class RankCounter(TorchDispatchMode):
         self.coll = []  # (kind, output bytes)
         self.live = 0
         self.peak = 0
+        self.ops = collections.Counter()  # local ops run, by name
 
     def _release(self, n: int) -> None:
         self.live -= n
@@ -105,13 +155,22 @@ class RankCounter(TorchDispatchMode):
         shards) giving ``out``; ``results`` are the tensors holding its new
         storage (``out``'s, or the DTensors wrapping them)."""
         packet = func.overloadpacket
-        if packet in self._flop_registry:
-            self.flops += float(self._flop_registry[packet](*args, **kwargs, out_val=out))
-        if any(r.alias_info is not None for r in func._schema.returns):
-            return  # a view or an in-place op: no new storage
-        ins = [t for t in pytree.tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+        self.ops[str(func)] += 1
         outs = [t for t in pytree.tree_leaves(out) if isinstance(t, torch.Tensor)]
-        self.bytes += sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
+        own = _OP_COSTS.get(func._schema.name)
+        if own is not None:
+            flops, nbytes = own(*args, **kwargs, out=outs)
+            self.flops += flops
+            self.bytes += nbytes
+        else:
+            if packet in self._flop_registry:
+                self.flops += float(self._flop_registry[packet](*args, **kwargs, out_val=out))
+            else:
+                self.flops += _arithmetic_flops(func, args, outs)
+            if any(r.alias_info is not None for r in func._schema.returns):
+                return  # a view or an in-place op: no new storage
+            ins = [t for t in pytree.tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+            self.bytes += sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
         for holder, t in zip(results, outs):
             self._hold(holder, _nbytes(t))
 
@@ -184,7 +243,7 @@ def register_strategies() -> None:
     has none for, or none that every torch release runs (registered once):
     ``scatter_reduce`` (the GNNs' segment max/min) and ``index_add`` (their
     segment sums) run replicated, or sharded alike on a dim they do not
-    scatter along."""
+    scatter along; ``detach_`` keeps its input's layout."""
     if _REGISTERED:
         return
     from torch.distributed.tensor import Replicate, Shard
@@ -207,6 +266,17 @@ def register_strategies() -> None:
             if d != dim:
                 out.append(([Shard(d)], [Shard(d), None, Replicate(), Shard(d)]))
         return out
+
+    # in place, layout unchanged (a redistribution under autograd dispatches
+    # it); torch 2.13 has this strategy, 2.11 has none
+    from torch.distributed.tensor import DTensor, Partial
+
+    detach_ = torch.ops.aten.detach_.default
+    if detach_ not in DTensor._op_dispatcher.sharding_propagator.op_strategy_funcs:
+        @register_sharding(detach_)
+        def _detach_(self):
+            return [([p], [p]) for p in [Replicate(), Partial()] + [Shard(d) for d in
+                                                                    range(self.ndim)]]
 
     _REGISTERED.append(True)
 
@@ -255,6 +325,7 @@ def run_and_measure(cell, mesh, rules):
         "flops": counter.flops,
         "bytes": counter.bytes,
         "coll": {k: float(v) for k, v in rl.collective_bytes(counter.coll).items()},
+        "ops": dict(counter.ops.most_common()),
     }
     return metrics, mem, dt
 
@@ -333,7 +404,9 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
 
     # ---- memory pass (the cell as built)
     base, mem, t_mem = run_and_measure(cell, mesh, rules)
-    print(f"[{cell.name} @ {mesh_kind}] memory pass: {json.dumps(mem)} ({t_mem:.0f}s)")
+    top = ", ".join(f"{n} {name}" for name, n in list(base["ops"].items())[:6])
+    print(f"[{cell.name} @ {mesh_kind}] memory pass: {json.dumps(mem)} ({t_mem:.0f}s; "
+          f"{sum(base['ops'].values())} ops, most: {top})")
     result["memory_analysis"] = mem
     result["raw_rolled"] = base
 
@@ -350,7 +423,14 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
             cost = _fit_linear(ms[2], ms[4], arch.config.n_layers)
             result["cost_fit"] = {str(L): m for L, m in ms.items()}
         elif arch.family == "gnn":
-            ccell = gnn_cost_cell(arch, shape_name, rules)
+            # the port's layers are a Python loop whatever ``scan_layers``
+            # says: a cost cell that would only unroll the scan is the cell
+            # as built, so its terms are the memory pass's
+            unrolled = arch
+            if getattr(arch.config, "scan_layers", False):
+                unrolled = dataclasses.replace(
+                    arch, config=dataclasses.replace(arch.config, scan_layers=False))
+            ccell = gnn_cost_cell(unrolled, shape_name, rules)
             if ccell is not None:
                 cost, _, t_cost = run_and_measure(ccell, mesh, rules)
         elif arch.family == "spectral":
@@ -366,10 +446,11 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
                 total["bytes"] += m["bytes"] * trips
                 for k in total["coll"]:
                     total["coll"][k] += m["coll"][k] * trips
-            # eigh has no flop formula: add ~10 m^3 analytic, as the reference does
+            # eigh has no flop formula: add ~10 m^3 analytic, as the reference
+            # does — whole, since every rank solves the projected problem itself
             k_ = arch.shapes[shape_name].dims["k"]
             m_ = 2 * k_
-            total["flops"] += 10.0 * m_ ** 3 * (arch.config.fixed_restarts + 1) / n_chips
+            total["flops"] += 10.0 * m_ ** 3 * (arch.config.fixed_restarts + 1)
             cost = total
             result["spectral_components"] = detail
 

@@ -1,6 +1,7 @@
 """The roofline table of the port's dry-run reports (mirrors
 :mod:`repro.launch.report`), with a column that says whether the rank's
-total fits one H100's 80 GB.
+total fits one H100's 80 GB and one with the dry-run's host seconds for
+the cell (both passes).
 
     PYTHONPATH=src python -m repro_torch.launch.report [--out build/dryrun] [--mesh single]
 """
@@ -25,22 +26,22 @@ def load(out_dir: str, mesh: str):
 def fmt_row(r) -> str:
     cell = r["cell"]
     if "skip" in r:
-        return f"| {cell} | — | — | — | — | SKIP | {r['skip'].split(':')[0]} | — | — |"
+        return f"| {cell} | — | — | — | — | SKIP | {r['skip'].split(':')[0]} | — | — | — |"
     if "error" in r:
-        return f"| {cell} | — | — | — | — | ERROR | {r['error'][:60]} | — | — |"
+        return f"| {cell} | — | — | — | — | ERROR | {r['error'][:60]} | — | — | — |"
     bt = {"compute": "**C**", "memory": "**M**", "collective": "**X**"}[r["bottleneck"]]
     gb = r["memory_per_device_gb"]
     fits = "yes" if gb <= HBM_GB else "**no**"
     return (
         f"| {cell} | {r['compute_s']:.4f} | {r['memory_s']:.4f} | {r['collective_s']:.4f} "
         f"| {bt} | {r['useful_ratio']:.3f} | {gb:.1f} | "
-        f"{r['coll_bytes_dev']/1e9:.2f} | {fits} |"
+        f"{r['coll_bytes_dev']/1e9:.2f} | {fits} | {r['compile_s']:.1f} |"
     )
 
 
 HEADER = (
     "| cell | compute s | memory s | collective s | bottleneck | useful ratio "
-    "| GB/rank | coll GB/rank | fits 80 GB |\n|---|---|---|---|---|---|---|---|---|"
+    "| GB/rank | coll GB/rank | fits 80 GB | host s |\n|---|---|---|---|---|---|---|---|---|---|"
 )
 
 

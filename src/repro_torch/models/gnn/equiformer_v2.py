@@ -170,13 +170,16 @@ def _l_of_slot(l_max: int, device=None) -> Tensor:
 
 def _equiv_norm(h, scale, sl, eps=1e-6):
     """RMS over (m) per l, per channel; learnable per-(l, channel) scale.
-    One block-mean einsum + one gather; fp32 out whatever ``h``'s dtype (the
-    block means are fp32, as the reference's are)."""
+    The per-l block means are means over one split of the m axis each,
+    then one gather; fp32 out whatever ``h``'s dtype (the block means are
+    fp32, as the reference's are).  The split cuts only the m axis, which
+    no spec shards, and its backward is one concatenation: a node-sharded
+    ``h`` needs no view, expand or product batched over its (possibly
+    uneven) node shard, none of which DTensor takes where GSPMD pads (the
+    reference's block-mean einsum reshapes through one)."""
     l_max = len(sl) - 1
-    A = np.zeros(((l_max + 1) ** 2, l_max + 1), np.float32)
-    for l, (s, e) in enumerate(sl):
-        A[s:e, l] = 1.0 / (e - s)
-    means = _einsum("nmc,ml->nlc", h * h, torch.as_tensor(A, device=h.device))  # [N, L+1, C]
+    parts = (h * h).float().split([e - s for s, e in sl], dim=1)
+    means = torch.stack([p.mean(1) for p in parts], 1)  # [N, L+1, C]
     rms = torch.sqrt(means + eps)
     slot = _l_of_slot(l_max, h.device)
     out = h / rms.index_select(1, slot) * scale.index_select(0, slot)[None, :, :]
@@ -320,7 +323,12 @@ def forward(params, batch: G.GraphBatch, cfg: EquiformerV2Config) -> Tensor:
         # gated FFN
         hn = _equiv_norm(h, lp["norm_scale"], sl)
         scal = _mm(F.silu(_mm(hn[:, 0, :], lp["ffn_s1"])), lp["ffn_s2"])  # [N, C]
-        gates = torch.sigmoid(_mm(hn[:, 0, :], lp["ffn_gate"])).reshape(n, cfg.l_max + 1, C)
+        # the gates' cotangent comes back channel-sharded: the constraint
+        # gathers it before the reshape's backward flattens (l, channels),
+        # a view DTensor does not take over a sharded inner dim on every
+        # release
+        gates = constrain(torch.sigmoid(_mm(hn[:, 0, :], lp["ffn_gate"])).reshape(
+            n, cfg.l_max + 1, C), "nodes", None, "channels")
         up = mix(hn, lp["ffn_mix"]) * gates.index_select(1, slot)
         up = torch.cat([scal[:, None, :].to(up.dtype), up[:, 1:, :]], dim=1)
         return (h + up).to(cfg.dtype)  # fp32 internals -> storage dtype

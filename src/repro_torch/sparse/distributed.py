@@ -69,19 +69,30 @@ def padded_rows(n: int, num_shards: int) -> int:
     return ((n + num_shards - 1) // num_shards) * num_shards
 
 
-def global_rows(sm: ShardedCOO) -> torch.Tensor:
-    """Per-edge global row ids recovered from the (shard, local-row) layout."""
+def global_rows(sm: ShardedCOO, ax: "Axis | None" = None) -> torch.Tensor:
+    """Per-edge global row ids recovered from the (shard, local-row) layout.
+    A rank that holds only its own [E] bucket passes its mesh axis, whose
+    coordinate is the bucket's shard, as in :func:`_local_bucket`."""
+    if sm.row_local.shape[0] != sm.num_shards * sm.edges_per_shard:  # one bucket
+        if ax is None:
+            raise ValueError(
+                f"the ShardedCOO holds one bucket of {sm.row_local.shape[0]} edges, not the "
+                f"{sm.num_shards}·{sm.edges_per_shard} of the whole layout — pass the mesh "
+                f"axis whose coordinate is its shard")
+        return sm.row_local + ax.rank * sm.rows_per_shard
     shard = torch.arange(sm.num_shards, device=sm.device).repeat_interleave(sm.edges_per_shard)
     return sm.row_local + shard * sm.rows_per_shard
 
 
-def normalize_sharded(sm: ShardedCOO, deg: torch.Tensor) -> ShardedCOO:
+def normalize_sharded(sm: ShardedCOO, deg: torch.Tensor, ax: "Axis | None" = None) -> ShardedCOO:
     """val ← val · (d^{-1/2}[row] · d^{-1/2}[col]), as
     :func:`repro_torch.sparse.ops.normalize_sym` forms it (one product of
-    the two scales, so an edge's two orientations keep one value)."""
+    the two scales, so an edge's two orientations keep one value).  ``deg``
+    is whole; ``sm`` the whole layout, or a rank's own bucket with its mesh
+    axis (:func:`global_rows`)."""
     d32 = deg.float()
     isd = torch.where(d32 > 0, torch.rsqrt(d32), torch.zeros_like(d32)).to(sm.val.dtype)
-    grow = global_rows(sm)
+    grow = global_rows(sm, ax)
     return dataclasses.replace(sm, val=sm.val * (isd[grow] * isd[sm.col]))
 
 
@@ -174,16 +185,19 @@ class Axis:
 
 
 def mesh_axis(mesh, axis="data") -> Axis:
-    """The :class:`Axis` of ``mesh`` (a ``DeviceMesh``) named ``axis`` (a
-    dimension name, or a one-name tuple as the reference's plans carry)."""
-    if not isinstance(axis, str):
-        if len(axis) != 1:
-            raise ValueError(
-                f"the sharded plan partitions rows over one mesh dimension; got "
-                f"axis={tuple(axis)!r} (flatten those dimensions into one mesh "
-                f"dimension instead)")
-        axis = axis[0]
+    """The :class:`Axis` of ``mesh`` (a ``DeviceMesh``) named ``axis``: a
+    dimension name, or a tuple of names as the reference's plans carry —
+    several dimensions are flattened into one, major first (the
+    reference's ``("pod", "data")`` row order)."""
     names = tuple(mesh.mesh_dim_names or ())
+    if not isinstance(axis, str):
+        axis = tuple(axis)
+        if len(axis) == 1:
+            axis = axis[0]
+        elif axis and all(a in names for a in axis):
+            mesh = mesh[axis]._flatten()
+            names = tuple(mesh.mesh_dim_names)
+            axis = names[0]
     if axis not in names:
         raise ValueError(f"mesh has no dimension {axis!r} (its dimensions: {names})")
     return Axis(group=mesh.get_group(axis), size=mesh.size(names.index(axis)),

@@ -20,6 +20,7 @@ gets the same inputs, as every rank of the sharded plan does.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import time
@@ -204,7 +205,8 @@ def pipeline_rank(rank: int, world: int, spec: dict) -> dict:
     """``SpectralPipeline.from_dict(spec["pipeline"], mesh=...).run_state``
     on ``spec["x"]`` (points, with ``spec["points"]`` as the search
     coordinates when given) or on ``spec["graph"]`` (a COO's row, col, val,
-    n) partitioned onto the mesh axis; the labels, embedding, eigenvalues,
+    n) partitioned onto the mesh axis — with ``spec["own_bucket"]`` each
+    rank is handed only its own bucket of it; the labels, embedding, eigenvalues,
     the stage trail and the collectives the run made.  With
     ``spec["flip_off_home"]`` the eigensolver of every rank but coordinate
     0 returns its last eigenvector negated, as the card's rounding can flip
@@ -234,8 +236,12 @@ def pipeline_rank(rank: int, world: int, spec: dict) -> dict:
             w = COO(torch.as_tensor(g["row"], device=dev).long(),
                     torch.as_tensor(g["col"], device=dev).long(),
                     torch.as_tensor(g["val"], device=dev), (g["n"], g["n"]))
-            st = pipe.run_state(partition_coo_by_rows(w, mesh_axis(mesh, pipe.plan.axis).size),
-                                gen, device=dev)
+            ax = mesh_axis(mesh, pipe.plan.axis)
+            sm = partition_coo_by_rows(w, ax.size)
+            if spec.get("own_bucket"):  # the rank is handed only its own edges
+                rl, c, v = sm.bucket(ax.rank)
+                sm = dataclasses.replace(sm, row_local=rl, col=c, val=v)
+            st = pipe.run_state(sm, gen, device=dev)
         else:
             st = pipe.run_state(spec["x"], gen, points=spec.get("points"), device=dev)
     finally:

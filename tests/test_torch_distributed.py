@@ -15,6 +15,7 @@ reference's BLAS-form distances; k-means labels and iterations equal,
 centroids rtol 1e-5; labels as partitions (ARI ≥ 0.99) against the
 reference's, whose random draws differ.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -185,6 +186,7 @@ def ranks(request, tmp_path_factory):
                  n=coo.shape[0])
     cheb = tsp.SpectralPipeline(n_clusters=4, eig=tsp.EigConfig(solver="chebyshev"),
                                 plan=tsp.Plan(device="sharded", variant="shard_map"))
+    lanczos = tsp.SpectralPipeline(n_clusters=4, plan=tsp.Plan(device="sharded"))
 
     def pipe(graph=None, eig=None, **kw):
         return tsp.SpectralPipeline(n_clusters=KC, graph=tsp.GraphConfig(**(graph or {})),
@@ -211,6 +213,9 @@ def ranks(request, tmp_path_factory):
         "e2e_lsh_ring": ("pipeline_rank", dict(x=x, pipeline=pipe(graph=dict(method="lsh"),
                                                                   stage1_exchange="ring"))),
         "cheb": ("pipeline_rank", dict(graph=graph, pipeline=cheb.to_dict())),
+        "graph_whole": ("pipeline_rank", dict(graph=graph, pipeline=lanczos.to_dict())),
+        "graph_bucket": ("pipeline_rank", dict(graph=graph, pipeline=lanczos.to_dict(),
+                                               own_bucket=True)),
         "gather_lsh_planes": ("knn_rank", dict(x=x, planes=planes,
                                                knn=dict(k=K, method="lsh"))),
     }
@@ -395,6 +400,38 @@ def test_sharded_chebyshev_matches_single(ranks):
     np.testing.assert_array_equal(got["labels"], to_np(single.labels))
     np.testing.assert_allclose(got["eigenvalues"], to_np(single.eigenvalues), atol=1e-5)
     assert got["calls"]["all_gather"] > 0 and got["calls"]["psum"] > 0  # shard_map Stage 3
+
+
+def test_a_rank_handed_only_its_own_bucket_runs_the_whole_layouts_pipeline(ranks):
+    """Each rank handed only its own [E] bucket of the graph (as the dry-run
+    cells hand it its local shard): labels, embedding and eigenvalues
+    bitwise the run on the whole [S·E] layout, on every rank."""
+    for got, want in zip(ranks["_all"]["graph_bucket"], ranks["_all"]["graph_whole"]):
+        for key in ("labels", "embedding", "eigenvalues"):
+            np.testing.assert_array_equal(got[key], want[key])
+        assert got["calls"] == want["calls"]
+
+
+def test_normalize_sharded_on_each_ranks_bucket_is_its_slice():
+    """``global_rows`` and ``normalize_sharded`` on one rank's [E] bucket,
+    the shard taken from the axis: bitwise that rank's slice of the
+    whole-layout result; without the axis a bucket is refused."""
+    coo, _ = sbm_graph(50, 4, 0.3, 0.02, seed=5)
+    shards = 4
+    sm = tdist.partition_coo_by_rows(convert.coo(coo, device=CPU), shards)
+    deg = tdist.spmv_gspmd(sm, torch.ones(sm.shape[0]))
+    whole_rows, whole = tdist.global_rows(sm), tdist.normalize_sharded(sm, deg)
+    E = sm.edges_per_shard
+    for r in range(shards):
+        rl, c, v = sm.bucket(r)
+        one = dataclasses.replace(sm, row_local=rl, col=c, val=v)
+        ax = tdist.Axis(group=None, size=shards, rank=r)
+        assert torch.equal(tdist.global_rows(one, ax), whole_rows[r * E:(r + 1) * E])
+        got = tdist.normalize_sharded(one, deg, ax)
+        assert torch.equal(got.val, whole.val[r * E:(r + 1) * E])
+        assert got.row_local is rl and got.col is c
+    with pytest.raises(ValueError, match="pass the mesh axis"):
+        tdist.global_rows(one)
 
 
 def test_plan_needs_a_mesh_and_divisible_rows():

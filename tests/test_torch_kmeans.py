@@ -134,3 +134,23 @@ def test_two_pass_and_unset_k_raise():
         tkm.kmeans(x, tkm.KMeansConfig())
     with pytest.raises(ValueError, match="iter"):
         tkm.KMeansConfig(iter="fast")
+
+
+def test_kmeans_iter_on_meta_gives_the_plain_versions_shapes_and_dtypes():
+    """On ``meta`` (the dry-run) the ``repro_torch::kmeans_iter`` operator
+    runs its fake: the CPU plain version's output shapes and dtypes, no
+    values, and no kernel launch counted."""
+    from repro_torch.kernels.kmeans_iter.ref import kmeans_iter_ref
+
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.normal(size=(97, 6)).astype(np.float32))
+    c = torch.as_tensor(rng.normal(size=(5, 6)).astype(np.float32))
+    launches = t_iter.launches
+    got = t_iter(x.to("meta"), c.to("meta"), x_norm=(x * x).sum(1).to("meta"))
+    want = kmeans_iter_ref(x, c)
+    assert [(g.device.type, g.shape, g.dtype) for g in got] == \
+        [("meta", w.shape, w.dtype) for w in want]
+    assert t_iter.launches == launches
+    # the CPU path through the operator is the plain version, bitwise
+    for g, w in zip(t_iter(x, c), want):
+        assert torch.equal(g, w)
