@@ -64,8 +64,10 @@ result line):
    graph as a one-block ShardedCOO under ``variant="shard_map"``, one
    all-gather an operator product); card vs CPU at n = 4000 against one gloo rank (ARI ≥ 0.99);
    4 gloo ranks sharing the card with the gather exchange (every rank the
-   same labels and eigenvalues, held to the world-size-1 run; the ring is
-   left out, gloo cannot send from a CUDA tensor); ``knn_topk``,
+   same labels and eigenvalues, held to the world-size-1 run, and its own
+   n/4 rows of the Krylov basis and the embedding, nothing broadcast, its
+   rows of BlockELL through ``ell_spmm``; the
+   ring is left out, gloo cannot send from a CUDA tensor); ``knn_topk``,
    ``kmeans_iter`` and ``hash_codes`` at a 4-rank plan's shapes (the
    ``@shard`` rows, their launches counted at world size 1); both
    examples on the card at their default sizes, and the DTI example's
@@ -2308,8 +2310,10 @@ def ranks_on_one_card(spec, card, tmp: Path) -> dict:
     ``kmeans_sharded`` on 4 ranks of the world-size-1 run's embedding must
     give the labels and iterations of ``kmeans`` on it; then the n = 4000
     sharded path on 4 ranks, gated against the world-size-1 run ``card``:
-    every rank the same labels and eigenvalues (bitwise), ARI ≥ 0.99,
-    eigenvalues within 1e-4, purity within 0.01.  The ring exchange is left
+    every rank the same labels and eigenvalues (bitwise), its operator's
+    inputs (the Krylov basis rows) and its embedding n/4 rows, no broadcast,
+    its rows of BlockELL through the ``ell_spmm`` kernel,
+    ARI ≥ 0.99, eigenvalues within 1e-4, purity within 0.01.  The ring exchange is left
     out here: gloo cannot send from a CUDA tensor (its send/receive fails
     with ``writev ... Bad address`` or hangs), so the ring runs on several
     ranks only on the CPU."""
@@ -2349,6 +2353,18 @@ def ranks_on_one_card(spec, card, tmp: Path) -> dict:
     check(all(np.array_equal(o["eigenvalues"].view(np.uint32), vals.view(np.uint32))
               for o in outs),
           f"sharded: {SHARDS} ranks on one card disagree on the eigenvalues")
+    rps = len(labels) // SHARDS
+    shapes = [(o["basis_rows"], o["embedding"].shape, o["calls"]["broadcast"]) for o in outs]
+    log(f"[sharded] {SHARDS} ranks' (operator input rows, embedding shape, broadcasts): "
+        f"{shapes}")
+    check(all(b == [rps] and e[0] == rps and c == 0 for b, e, c in shapes),
+          f"sharded: {SHARDS} ranks on one card do not each hold their own {rps} rows of the "
+          f"basis and the embedding: {shapes}")
+    ell = [(o["operators"], o["launches"]) for o in outs]
+    log(f"[sharded] {SHARDS} ranks' (operators, BlockELL kernel launches): {ell}")
+    check(all(ops == ["RowBlockEllOperator"] and n["ell_spmm"] > 0 for ops, n in ell),
+          f"sharded: representation='blockell' on {SHARDS} ranks did not run each rank's rows "
+          f"through the ell_spmm kernel: {ell}")
     check(ari >= 0.99, f"sharded: {SHARDS} ranks on one card, ARI {ari:.4f} < 0.99 against "
                        f"the world-size-1 run")
     check(ev <= 1e-4, f"sharded: {SHARDS} ranks on one card, eigenvalues differ by {ev:.2e} "
@@ -2358,7 +2374,7 @@ def ranks_on_one_card(spec, card, tmp: Path) -> dict:
           f"world-size-1 run's {card['purity']:.4f}")
     return dict(kmeans_iterations=want.iterations,
                 gather=dict(wall_s=wall, ari=ari, purity=pur, max_eig_diff=ev,
-                            calls=outs[0]["calls"]))
+                            calls=outs[0]["calls"], rows=shapes, ell=ell))
 
 
 def knn_shard_record(pos) -> dict:
@@ -3821,7 +3837,8 @@ MOE_PATH_RTOL = 2.0 ** -7
 # a mesh (PERF.md §6), printed beside M1's
 ONE_DEVICE_STEP_MS, ONE_DEVICE_PEAK_GB = (759, 792), 22.38
 DRYRUN_CELLS = ("qwen3-0.6b/decode_32k", "gcn-cora/full_graph_sm", "autoint/serve_p99",
-                "spectral/dti", "equiformer-v2/molecule")
+                "spectral/dti", "equiformer-v2/molecule", "equiformer-v2/full_graph_sm")
+DRYRUN_DTI_GB = 0.4  # a rank's plan of spectral/dti at (16, 16): its own rows of the basis
 
 
 def mesh_argv(arch: str, steps: int, batch: int, seq: int, *extra) -> list:
@@ -4014,10 +4031,11 @@ def mesh_moe() -> dict:
 
 
 def mesh_dryrun() -> dict:
-    """The dry-run of five cells — the paper's `spectral/dti` among them — on
-    the (16, 16) fake mesh on the host (no card), one subprocess a cell, all
-    at once: their roofline terms and memory a rank.  A failing cell fails
-    the phase."""
+    """The dry-run of six cells — the paper's `spectral/dti` and
+    equiformer-v2 on an uneven edge shard among them — on the (16, 16) fake
+    mesh on the host (no card), one subprocess a cell, all at once: their
+    roofline terms and memory a rank.  A failing cell fails the phase, and
+    so does a `spectral/dti` rank planned above ``DRYRUN_DTI_GB``."""
     out = ROOT / "build" / "dryrun_chip"
     shutil.rmtree(out, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
@@ -4052,6 +4070,9 @@ def mesh_dryrun() -> dict:
             f"{r['useful_ratio']:.3f}, {r['memory_per_device_gb']:.2f} GB a rank, "
             f"{r['compile_s']:.1f} s on the host")
     log(f"[mesh] dry-run of {len(DRYRUN_CELLS)} cells: {wall:.1f} s on the host")
+    dti_gb = rows["spectral/dti"]["memory_per_device_gb"]
+    check(dti_gb <= DRYRUN_DTI_GB, f"mesh: the dry-run plans spectral/dti at {dti_gb:.3f} GB "
+                                   f"a rank, above {DRYRUN_DTI_GB} GB")
     return dict(cells=rows, wall_s=wall)
 
 

@@ -74,24 +74,29 @@ def philox4x32(counter: torch.Tensor, key: Key) -> torch.Tensor:
     return torch.stack([a[0], b[0], a[1], b[1]])
 
 
-def words(key: Key, draw: int, rows: int, cols: int, device, *, row0: int = 0) -> torch.Tensor:
+def words(key: Key, draw: int, rows: int, cols: int, device, *, row0: int = 0,
+          col0: int = 0) -> torch.Tensor:
     """``[rows, cols]`` uint32 words (int64) of draw ``draw``: row ``r`` is
     counter row ``row0 + r``, its words the Philox blocks ``0 …
-    ⌈cols/4⌉ − 1`` in order."""
-    blocks = -(-cols // 4)
-    if blocks >= 1 << 32 or row0 + rows > 1 << 32 or not 0 <= draw < 1 << 32:
+    ⌈cols/4⌉ − 1`` in order.  With ``col0`` the window of words ``col0 …
+    col0 + cols − 1`` of each row, made without the words before it: the
+    same bits as those columns of the draw from column 0."""
+    skip = col0 // 4
+    blocks = -(-(col0 + cols) // 4) - skip
+    if skip + blocks >= 1 << 32 or row0 + rows > 1 << 32 or not 0 <= draw < 1 << 32:
         raise ValueError(f"Philox counter range exceeded: {rows} rows from {row0} of "
-                         f"{cols} words, draw {draw}")
+                         f"{cols} words from {col0}, draw {draw}")
     dev = torch.device(device)
     n = rows * blocks
     ctr = torch.empty((4, n), dtype=torch.int64, device=dev)
-    ctr[0] = torch.arange(blocks, dtype=torch.int64, device=dev).repeat(rows)
+    ctr[0] = torch.arange(skip, skip + blocks, dtype=torch.int64, device=dev).repeat(rows)
     ctr[1] = torch.arange(row0, row0 + rows, dtype=torch.int64,
                           device=dev).repeat_interleave(blocks)
     ctr[2] = draw
     ctr[3] = 0
     out = philox4x32(ctr, key)  # [4, rows·blocks]
-    return out.T.reshape(rows, blocks * 4)[:, :cols]
+    first = col0 - 4 * skip
+    return out.T.reshape(rows, blocks * 4)[:, first:first + cols]
 
 
 def _grid(shape: Shape) -> Tuple[Tuple[int, ...], int, int]:
@@ -113,10 +118,12 @@ def _tiny(u: torch.Tensor) -> torch.Tensor:
     return torch.clamp(u, min=torch.finfo(torch.float32).tiny)
 
 
-def uniform(key: Key, draw: int, shape: Shape, device, *, row0: int = 0) -> torch.Tensor:
-    """float32 uniforms on [0, 1), one word each."""
+def uniform(key: Key, draw: int, shape: Shape, device, *, row0: int = 0,
+            col0: int = 0) -> torch.Tensor:
+    """float32 uniforms on [0, 1), one word each (``col0``: the columns from
+    there, as :func:`words`)."""
     shape, rows, cols = _grid(shape)
-    return _unit(words(key, draw, rows, cols, device, row0=row0)).reshape(shape)
+    return _unit(words(key, draw, rows, cols, device, row0=row0, col0=col0)).reshape(shape)
 
 
 def normal(key: Key, draw: int, shape: Shape, device, *, row0: int = 0) -> torch.Tensor:
@@ -143,10 +150,12 @@ def rademacher(key: Key, draw: int, shape: Shape, device, *, row0: int = 0) -> t
     return torch.where(bits != 0, 1.0, -1.0).to(torch.float32).reshape(shape)
 
 
-def gumbel(key: Key, draw: int, shape: Shape, device, *, row0: int = 0) -> torch.Tensor:
+def gumbel(key: Key, draw: int, shape: Shape, device, *, row0: int = 0,
+           col0: int = 0) -> torch.Tensor:
     """float32 standard Gumbels ``−log(−log u)``, u uniform clamped to
-    ``finfo.tiny``."""
-    return -torch.log(-torch.log(_tiny(uniform(key, draw, shape, device, row0=row0))))
+    ``finfo.tiny`` (``col0``: the columns from there, as :func:`words`)."""
+    return -torch.log(-torch.log(_tiny(uniform(key, draw, shape, device, row0=row0,
+                                               col0=col0))))
 
 
 def integers(key: Key, draw: int, shape: Shape, n: int, device, *, row0: int = 0) -> torch.Tensor:

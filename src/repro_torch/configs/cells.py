@@ -370,9 +370,10 @@ def spectral_cell(arch, sspec, rules, *, mesh=None, variant: str = "gspmd",
                   gather_dtype=None, data_axes=("pod", "data")) -> Cell:
     """The paper's pipeline on a row-sharded graph of the shape's size; the
     port's ``Plan(device="sharded", mesh=mesh)`` runs it, each rank on its
-    own edge bucket, its dense Stage-2 and Stage-3 state whole (the port's
-    plan: ``core/distributed_pipeline.py``).  The PRNG key argument stands
-    for the run's seed: the port draws from a CPU generator seeded 0."""
+    own edge bucket and its own row block of the dense Stage-2 and Stage-3
+    state (the Krylov basis, the embedding), as the reference's specs shard
+    them.  The PRNG key argument stands for the run's seed: the port draws
+    from a CPU generator seeded 0."""
     from repro_torch._device import cpu_generator
     from repro_torch.core.pipeline import SpectralClusteringConfig
     from repro_torch.core.spectral import Plan
@@ -462,14 +463,20 @@ def spectral_component_cells(arch, shape_name: str, rules, *, mesh=None,
                              data_axes=("pod", "data")):
     """Per-stage cells + trip counts: [(label, Cell, trip_count)].
 
-    Each computes as the port's plan does: a rank's own edge bucket (the
-    edge arrays keep the reference's specs) and the dense state — the
-    Krylov basis V, the embedding h, the centroids — whole on every rank, so
-    those arguments are replicated where the reference's specs shard V and
-    h by nodes.  Stage 3's iteration is the fused ``kmeans_iter`` (B2)."""
-    from repro_torch.core.kmeans import centroids_from_sums, row_at
+    Each computes as the port's plan does, on the reference's specs: a
+    rank's own edge bucket, and its own rows of the Krylov basis V (spec
+    (None, "nodes")), of the Lanczos vector v ("nodes") and of the
+    embedding h ("nodes", None); a contraction over the nodes all-reduces
+    its small result.  Stage 3's iteration is the fused ``kmeans_iter``
+    (B2) with the packed all-reduce of ``kmeans_sharded``; a k-means++ step
+    scores the rank's rows against its own columns of the Gumbel row, takes
+    the global argmax from the ranks' best pairs (one all-gather of [1, 2])
+    and fetches the drawn row with one all-reduce of [1, k]."""
+    from repro_torch.core.distributed_pipeline import fetch_rows, global_argmax
+    from repro_torch.core.kmeans import centroids_from_sums
     from repro_torch.core.operator import ShardedCooOperator
     from repro_torch.kernels.kmeans_iter.ops import kmeans_iter
+    from repro_torch.sparse.distributed import RowBlock, mesh_axis
 
     sspec = arch.shapes[shape_name]
     d = sspec.dims
@@ -481,24 +488,31 @@ def spectral_component_cells(arch, shape_name: str, rules, *, mesh=None,
     axis = tuple(a for a in data_axes if mesh is None or a in names)
     axis = axis[0] if len(axis) == 1 else axis
 
+    vspec = shd.resolve(("nodes",), rules)
+    Vspec = shd.resolve((None, "nodes"), rules)
+    hspec = shd.resolve(("nodes", None), rules)
+
     def operator_of(sm_in):
         return ShardedCooOperator(_own_bucket(sm_in), variant=variant, mesh=mesh, axis=axis,
                                   gather_dtype=gather_dtype)
 
+    def rows():
+        return RowBlock.whole(n) if mesh is None else RowBlock.of(mesh_axis(mesh, axis), n)
+
     # (a) one Lanczos step: operator application + coefficient + two-pass reorth
     def lanczos_step(sm_in, V, v):
-        V, v = _local(V), _local(v)
+        V, v, r = _local(V), _local(v), rows()
         w = operator_of(sm_in).mv(v)
-        c = V @ w
+        c = r.psum(V @ w)
         w = w - V.T @ c
-        c2 = V @ w
+        c2 = r.psum(V @ w)
         w = w - V.T @ c2
         return w, c
 
     V = _sds((m + 1, n), torch.float32)
     v = _sds((n,), torch.float32)
     step_cell = Cell(f"{arch.name}/{shape_name}[lanczos_step]", lanczos_step,
-                     (sm, V, v), (sm_spec, P(), P()))
+                     (sm, V, v), (sm_spec, Vspec, vspec))
 
     # (b) restart: projected eigh + thick-restart basis rotation
     l_keep = min(m - 1, k + max(1, (m - k) // 2))
@@ -509,30 +523,33 @@ def spectral_component_cells(arch, shape_name: str, rules, *, mesh=None,
         return theta, Y
 
     T = _sds((m, m), torch.float32)
-    restart_cell = Cell(f"{arch.name}/{shape_name}[restart]", restart, (T, V), (P(), P()))
+    restart_cell = Cell(f"{arch.name}/{shape_name}[restart]", restart, (T, V), (P(), Vspec))
 
     # (c) one k-means (Lloyd) iteration on the n×k embedding: the fused B2
+    # on a rank's rows, its [Σx | counts] all-reduced
     def km_iter(h, C):
         h, C = _local(h), _local(C)
         labels, dmin, sums, counts = kmeans_iter(h, C)
-        return labels, centroids_from_sums(sums, counts, C), dmin.sum()
+        packed = rows().psum(torch.cat([sums.float(), counts.float()[:, None]], 1))
+        return labels, centroids_from_sums(packed[:, :k], packed[:, k], C), dmin.sum()
 
     h = _sds((n, k), torch.float32)
     C = _sds((k, k), torch.float32)
-    km_cell = Cell(f"{arch.name}/{shape_name}[kmeans_iter]", km_iter, (h, C), (P(), P()))
+    km_cell = Cell(f"{arch.name}/{shape_name}[kmeans_iter]", km_iter, (h, C), (hspec, P()))
 
-    # (d) one k-means++ seeding step
+    # (d) one k-means++ seeding step over a rank's rows
     def kmpp_step(h, c, dist2, g):
         h, c, dist2, g = (_local(t) for t in (h, c, dist2, g))
+        r = rows()
         d2 = torch.clamp((h * h).sum(1) - 2.0 * (h @ c) + (c * c).sum(), min=0.0)
         dist2 = torch.minimum(dist2, d2)
-        idx = torch.argmax(torch.log(torch.clamp(dist2, min=1e-30)) + g)
-        return dist2, row_at(h, idx)
+        idx = global_argmax(torch.log(torch.clamp(dist2, min=1e-30)) + g, r)
+        return dist2, fetch_rows(h, idx.view(1), r)[0]
 
     kmpp_cell = Cell(f"{arch.name}/{shape_name}[kmeanspp_step]", kmpp_step,
                      (h, _sds((k,), torch.float32), _sds((n,), torch.float32),
                       _sds((n,), torch.float32)),
-                     (P(), P(), P(), P()))
+                     (hspec, P(), vspec, vspec))
 
     restarts = arch.config.fixed_restarts
     km_iters = arch.config.fixed_kmeans_iters

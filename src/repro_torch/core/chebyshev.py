@@ -33,6 +33,13 @@ module-level helper, so a parity test can substitute the reference's
 draws.  The loops are Python loops over device tensors; the
 spectral interval, the cut and the filter weights stay on the device, so
 the filter reads nothing back to the host.
+
+On a mesh (an operator with ``rows``, see :mod:`repro_torch.core.lanczos`)
+the vectors and blocks are this rank's rows: the three draws are made whole
+and sliced, the bounds estimator's dot products and norms, the Hutchinson
+moments (summed locally, all-reduced once) and the Rayleigh–Ritz Gram are
+all-reduced, and the QR is tall-skinny, so the interval, the cut, the Ritz
+values and the residuals are the same on every rank.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ import torch
 from repro_torch import _random
 from repro_torch._device import cpu_generator
 from repro_torch.core.lanczos import LanczosResult, _eigh, _op_device
+from repro_torch.sparse.distributed import RowBlock
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,8 +174,9 @@ def draw_signals(gen: torch.Generator, n: int, n_probes: int, r: int,
 # Interval selection
 # ---------------------------------------------------------------------------
 
-def estimate_spectral_bounds(op, v: torch.Tensor, *, iters: int = 12,
-                             margin: float = 0.01) -> Tuple[torch.Tensor, torch.Tensor]:
+def estimate_spectral_bounds(op, v: torch.Tensor, *, iters: int = 12, margin: float = 0.01,
+                             rows: Optional[RowBlock] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[lo, hi] ⊇ spec(op) from ``iters`` plain Lanczos steps on ``op.mv``
     started from ``v`` (the reference draws it from its key).
 
@@ -176,20 +185,22 @@ def estimate_spectral_bounds(op, v: torch.Tensor, *, iters: int = 12,
     ``margin`` keeps the interval safe for the Chebyshev map — an interval
     that misses part of the spectrum makes the recurrence diverge
     geometrically.  Returns 0-d float32 tensors on the device of ``v``.
+    ``v`` is whole; ``rows`` (a mesh's) runs the steps on this rank's rows.
     """
     n = op.shape[0]
+    rows = RowBlock.whole(n) if rows is None else rows
     steps = min(iters, max(2, n - 1))
     f32 = torch.float32
     v = v.to(f32)
-    v = v / torch.clamp(torch.linalg.norm(v), min=1e-30)
+    v = rows.take(v / torch.clamp(torch.linalg.norm(v), min=1e-30))
     v_prev = torch.zeros_like(v)
     beta = torch.zeros((), dtype=f32, device=v.device)
     alphas, betas = [], []
     for _ in range(steps):
         w = op.mv(v).to(f32) - beta * v_prev
-        alpha = v @ w
+        alpha = rows.psum(v @ w)
         w = w - alpha * v
-        beta_new = torch.linalg.norm(w)
+        beta_new = rows.norm(w)
         # invariant-subspace breakdown: freeze the direction; the recorded
         # beta = 0 decouples the tridiagonal, which is exactly right
         v_new = torch.where(beta_new > 1e-10, w / torch.clamp(beta_new, min=1e-30), v)
@@ -209,28 +220,33 @@ def estimate_spectral_bounds(op, v: torch.Tensor, *, iters: int = 12,
     return lo - pad, hi + pad
 
 
-def chebyshev_moments(op, lo, hi, degree: int, z: torch.Tensor) -> torch.Tensor:
+def chebyshev_moments(op, lo, hi, degree: int, z: torch.Tensor, *,
+                      rows: Optional[RowBlock] = None) -> torch.Tensor:
     """KPM moments μ_j ≈ tr(T_j(Ã)), j = 0..degree, from the Rademacher
     probe block ``z [n, n_probes]`` (Hutchinson: μ_j = mean_r z_rᵀ T_j(Ã)
     z_r).  One degree-deep recurrence over ``op.mm`` yields the whole
-    moment vector; every eigencount evaluation is then a dot product."""
+    moment vector; every eigencount evaluation is then a dot product.
+    ``z`` is whole; ``rows`` (a mesh's) runs the recurrence on this rank's
+    rows, and the probes' dot products are summed locally and all-reduced
+    once, after the recurrence."""
     n = op.shape[0]
+    rows = RowBlock.whole(n) if rows is None else rows
     f32 = torch.float32
-    z = z.to(f32)
+    z = rows.take(z.to(f32))
     ca = 4.0 / (hi - lo)
     cb = -2.0 * (hi + lo) / (hi - lo)
     t0 = z
     t1 = 0.5 * (ca * op.mm(z).to(f32) + cb * z)
-    mus = [torch.tensor(float(n), dtype=f32, device=z.device),  # zᵀz = n exactly
-           (z * t1).sum(0).mean()]
-    if degree < 2:
-        return torch.stack(mus)[: degree + 1]
+    dots = [(z * t1).sum(0)]  # [n_probes] a moment: Σ over this rank's rows
     tp, tc = t0, t1
     for _ in range(degree - 1):
         tn = ca * op.mm(tc).to(f32) + cb * tc - tp
-        mus.append((z * tn).sum(0).mean())
+        dots.append((z * tn).sum(0))
         tp, tc = tc, tn
-    return torch.stack(mus)
+    if rows.split:
+        dots = list(rows.psum(torch.stack(dots)))
+    mus = [torch.tensor(float(n), dtype=f32, device=z.device)]  # zᵀz = n exactly
+    return torch.stack(mus + [d.mean() for d in dots])[: degree + 1]
 
 
 def eigencount_from_moments(moments: torch.Tensor, a) -> torch.Tensor:
@@ -311,8 +327,11 @@ def chebyshev_eigsh(op, cfg: ChebConfig, *, v0: Optional[torch.Tensor] = None,
     solver); ``residuals`` carries ‖A u − θ u‖ as the accuracy diagnostic.
     Runs on the device of ``v0`` (else the operator's), where
     :func:`draw_signals` makes the draws from a stream keyed by the CPU
-    ``generator`` (seed 0 by default).
+    ``generator`` (seed 0 by default).  ``v0`` is whole; under an operator
+    with ``rows`` the Ritz vectors are this rank's rows of them.
     """
+    from repro_torch.core.operator import row_block
+
     n = op.shape[0]
     r = resolved_signals(cfg)
     if r > n:
@@ -327,14 +346,15 @@ def chebyshev_eigsh(op, cfg: ChebConfig, *, v0: Optional[torch.Tensor] = None,
     f32 = torch.float32
     sign = 1.0 if cfg.which == "LA" else -1.0  # "SA" filters -A's top
 
+    rows = row_block(op, n)
     v_bounds, z, g = draw_signals(gen, n, cfg.n_probes, r, dev)
     lo, hi = estimate_spectral_bounds(_signed(op, sign), v_bounds, iters=cfg.bounds_iters,
-                                      margin=cfg.margin)
+                                      margin=cfg.margin, rows=rows)
     if cfg.lambda_cut is not None:
         cut = torch.tensor(sign * cfg.lambda_cut, dtype=f32, device=dev)
         a = torch.clamp((2.0 * cut - (hi + lo)) / (hi - lo), -0.999, 0.999)
     else:
-        mom = chebyshev_moments(_signed(op, sign), lo, hi, cfg.degree, z)
+        mom = chebyshev_moments(_signed(op, sign), lo, hi, cfg.degree, z, rows=rows)
         a = find_cut_from_moments(mom, cfg.k, iters=cfg.bisect_iters)
 
     if v0 is not None:
@@ -343,10 +363,10 @@ def chebyshev_eigsh(op, cfg: ChebConfig, *, v0: Optional[torch.Tensor] = None,
         v = v0.to(dev, f32)
         g[:, 0] = v * (math.sqrt(float(n)) / torch.clamp(torch.linalg.norm(v), min=1e-30))
 
-    y = chebyshev_filter(op, g, lo, hi, a, cfg.degree, sign=sign)
-    q, _ = torch.linalg.qr(y)  # [n, R] whitened basis
+    y = chebyshev_filter(op, rows.take(g), lo, hi, a, cfg.degree, sign=sign)
+    q, _ = rows.qr(y)  # [n, R] whitened basis
     aq = sign * op.mm(q).to(f32)  # one more operator application
-    b = q.T @ aq
+    b = rows.psum(q.T @ aq)
     # the R×R Rayleigh-Ritz problem in float64; a diverged filter's
     # non-finite block comes back as NaN pairs for the embed stage's ladder
     theta, s = _eigh(b)  # ascending [R]
@@ -354,7 +374,7 @@ def chebyshev_eigsh(op, cfg: ChebConfig, *, v0: Optional[torch.Tensor] = None,
     sel = s[:, r - kk:].flip(1)  # top-kk, descending
     vals = theta[r - kk:].flip(0)
     u = q @ sel  # [n, kk] Ritz vectors
-    resid = torch.linalg.norm(aq @ sel - u * vals[None, :], dim=0)
+    resid = rows.norm(aq @ sel - u * vals[None, :], dim=0)
     return LanczosResult(
         eigenvalues=(vals * sign).to(cfg.dtype),
         eigenvectors=u.to(cfg.dtype),

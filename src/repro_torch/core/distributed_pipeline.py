@@ -2,31 +2,30 @@
 (mirrors :mod:`repro.core.distributed_pipeline`), over ``torch.distributed``.
 
 * :func:`make_knn_rowblock` — the row-block Stage-1 neighbour search;
-* :func:`kmeans_sharded` — Stage 3 with one packed all-reduce a Lloyd
-  iteration;
+* :func:`kmeans_sharded` — Stage 3 on each rank's rows, with one packed
+  all-reduce a Lloyd iteration;
 * :func:`spectral_cluster_sharded` / :func:`spectral_cluster_from_points_sharded`
   — thin shims over ``SpectralPipeline`` with ``Plan(device="sharded")``.
 
 How the reference's mesh maps onto torch: every rank of the mesh runs the
 same program on the same inputs (the whole points, or the whole
-:class:`~repro_torch.sparse.distributed.ShardedCOO`), takes its own row
-block or bucket, and meets the other ranks only in the counted collectives
-of :mod:`repro_torch.sparse.distributed`.
+:class:`~repro_torch.sparse.distributed.ShardedCOO`, or a rank's own
+bucket of it), and meets the other ranks only in the counted collectives of
+:mod:`repro_torch.sparse.distributed`.
 
-Stage 2 keeps the solver's dense state whole on every rank.  Under GSPMD
-the reference row-shards the Lanczos and Chebyshev basis; here
-``ShardedCooOperator`` computes a rank's row block of ``A·x`` and
-all-gathers the product — still one collective an application — and every
-rank repeats the arithmetic of ``core/lanczos.py`` and ``core/chebyshev.py``,
-unchanged.  The basis is therefore not split across ranks: a
-row-distributed basis needs all-reduces in Gram–Schmidt and a distributed
-tall-skinny QR (ROADMAP).  Replicated work that rounds differently from
-run to run on the card (an index-add) can leave the ranks' copies apart —
-an eigenvector's sign may differ — so the pipeline makes the Stage-2
-output one: under a mesh ``SpectralPipeline.embed`` (and ``refine``)
-broadcast coordinate 0's embedding and eigenvalues, and a ShardedCOO's
-degrees come from the gathered product.  Stage 3 then starts from one
-embedding on every rank, whichever k-means runs it.
+Stage 2's and Stage 3's dense state is distributed by rows as the
+reference's specs distribute it (``P(axes, None)``): each rank holds its
+own [n/S] row block of the Lanczos basis or the Chebyshev block and of the
+embedding.  ``ShardedCooOperator``, or ``RowBlockEllOperator`` under
+``representation="blockell"``, maps a rank's rows to its rows (one
+all-gather of the input a product), every contraction over n all-reduces
+its small result, the QRs are tall-skinny, and the random draws are made
+whole and sliced (:class:`~repro_torch.sparse.distributed.RowBlock`).  So
+the eigenvalues, residuals and flags are the same on every rank with no
+broadcast, and every rank takes the same control path.  What still
+gathers: the degrees (an [n] vector, once), the labels (once, at the end),
+the two-pass k-means (the embedding, once), refine (the coarse embedding,
+once) and a checkpoint save (the embeddings, once).
 """
 from __future__ import annotations
 
@@ -38,6 +37,7 @@ import torch
 
 import repro_torch.core.health as health
 import repro_torch.core.kmeans as km
+from repro_torch import _random
 from repro_torch._device import cpu_generator
 from repro_torch.core.pipeline import SpectralClusteringConfig
 from repro_torch.core.spectral import GraphConfig, Plan, SpectralResult
@@ -47,6 +47,7 @@ from repro_torch.kernels.lsh_candidates.ops import (DEFAULT_N_BITS, DEFAULT_N_TA
                                                     lsh_candidates, make_planes,
                                                     routed_candidates, sorted_tables)
 from repro_torch.sparse.distributed import (  # noqa: F401  (normalize_sharded re-export)
+    RowBlock,
     ShardedCOO,
     all_gather,
     all_reduce,
@@ -189,19 +190,85 @@ def spectral_cluster_from_points_sharded(x, cfg: SpectralClusteringConfig,
     return pipe.run(x, generator, points=points, device=device)
 
 
+def fetch_rows(xf: torch.Tensor, idx: torch.Tensor, rows: RowBlock) -> torch.Tensor:
+    """The rows of global ids ``idx`` [j] of a row-distributed array, whose
+    rows here are ``xf``, on every rank: one all-reduce of [j, d] — the
+    owner contributes each row, every other rank zeros."""
+    mine = (idx >= rows.lo) & (idx < rows.hi)
+    local = xf.index_select(0, torch.clamp(idx - rows.lo, 0, rows.size - 1))
+    return rows.psum(torch.where(mine[:, None], local, 0.0))
+
+
+def global_argmax(score: torch.Tensor, rows: RowBlock) -> torch.Tensor:
+    """``torch.argmax`` over a row-distributed vector, whose rows here are
+    ``score``: the global id of its largest entry (the first, on ties), on
+    every rank — each rank's best (value, id) pair, all-gathered."""
+    if not rows.split:
+        return torch.argmax(score)
+    best, j = score.max(0)  # the first largest entry (no host read)
+    pair = torch.stack([best.double(), (j + rows.lo).double()]).view(1, 2)
+    pairs = rows.gather(pair)  # [S, 2], in coordinate (so id) order
+    return pairs[:, 1].gather(0, torch.argmax(pairs[:, 0]).view(1))[0].long()
+
+
+def _seed_rows(xb: torch.Tensor, cfg: km.KMeansConfig, generator: torch.Generator,
+               rows: RowBlock) -> torch.Tensor:
+    """The configured seeding over row-distributed points ``xb`` (this
+    rank's rows): the centroids ``km.seed_centroids`` picks from the whole
+    array, on every rank, without gathering it.  Each pick's row is fetched
+    with one all-reduce of [d] (k-means++) or of the [k, d] picks (random
+    rows) — :func:`fetch_rows`.  A k-means++ draw is the Gumbel-max of
+    ``log dist² + g``: each rank makes only its own columns of the Gumbel
+    rows (the bits of the whole draw's) and scores only its own rows, and
+    :func:`global_argmax` all-gathers the ranks' best pairs, so nothing of
+    size n travels.  Random rows draw their n words whole."""
+    n, d = rows.n, xb.shape[1]
+    xf = xb.float()
+    dev = xb.device
+    if cfg.init != "kmeans++":
+        w = _random.Stream.from_generator(generator).words(1, n, dev)[0]
+        return fetch_rows(xf, torch.sort(w, stable=True)[1][:cfg.k], rows).to(xb.dtype)
+    xn = (xf * xf).sum(1)
+    rng = _random.Stream.from_generator(generator)
+    i0 = rng.index(n, dev)
+    gumbels = rng.take()
+
+    def d2_to(c):
+        return torch.clamp(xn - 2.0 * (xf @ c) + (c * c).sum(), min=0.0)
+
+    c0 = fetch_rows(xf, i0, rows)[0]
+    dist2 = d2_to(c0)
+    C = torch.zeros((cfg.k, d), dtype=torch.float32, device=dev)
+    C[0] = c0
+    chunk = km.GUMBEL_CHUNK
+    for i in range(1, cfg.k):
+        row = (i - 1) % chunk
+        if row == 0:
+            block = _random.gumbel(rng.key, gumbels, (min(chunk, cfg.k - i), rows.size), dev,
+                                   row0=i - 1, col0=rows.lo)
+        idx = global_argmax(torch.log(torch.clamp(dist2, min=1e-30)) + block[row], rows)
+        c = fetch_rows(xf, idx.view(1), rows)[0]
+        C[i] = c
+        dist2 = torch.minimum(dist2, d2_to(c))
+    return C.to(xb.dtype)
+
+
 def kmeans_sharded(x: torch.Tensor, cfg: km.KMeansConfig,
                    generator: Optional[torch.Generator] = None, *, mesh, axis="data",
                    init_centroids: Optional[torch.Tensor] = None) -> km.KMeansResult:
     """Row-sharded Lloyd iterations with one all-reduce an iteration.
 
-    ``x`` is the same whole [n, d] embedding on every rank (the pipeline's
-    embed stage makes it one).  Every rank seeds alike, runs the fused iteration
-    (:func:`repro_torch.core.kmeans.lloyd_iter`, the ``kmeans_iter`` kernel
-    on the card) on its rows, packs its partial statistics into one
-    ``[k, d+2]`` block ``[Σx | counts | label changes]`` and all-reduces it;
-    every rank then forms the same centroids and the same convergence test.
-    The inertia is reduced once, after the loop, and the labels all-gathered
-    once.
+    ``x`` is this rank's row block of the [n, d] points, as the reference's
+    ``P(axes, None)`` hands it (the pipeline's embed stage leaves each rank
+    its rows; on a one-rank axis the whole array).  The seeding picks from
+    the whole array without gathering it (:func:`_seed_rows`; on a one-rank
+    axis ``km.seed_centroids`` itself); then every rank runs the fused
+    iteration (:func:`repro_torch.core.kmeans.lloyd_iter`, the
+    ``kmeans_iter`` kernel on the card) on its rows, packs its partial
+    statistics into one ``[k, d+2]`` block ``[Σx | counts | label changes]``
+    and all-reduces it; every rank then forms the same centroids and the
+    same convergence test.  The inertia is reduced once, after the loop, and
+    the labels all-gathered once.
 
     ``KMeansConfig(empty="reseed_farthest")`` adds a second all-reduce an
     iteration: each rank writes its k locally farthest ``[row | dmin]``
@@ -217,22 +284,23 @@ def kmeans_sharded(x: torch.Tensor, cfg: km.KMeansConfig,
         raise ValueError("KMeansConfig.k is unset — standalone kmeans_sharded needs an "
                          "explicit k (use cfg.resolved(k))")
     ax = mesh_axis(mesh, axis)
-    n, d = x.shape
+    nl, d = x.shape
     k, S = cfg.k, ax.size
-    if n % S:
-        raise ValueError(f"kmeans_sharded needs n divisible by the axis size: n={n}, S={S}")
-    nl = n // S
+    n = nl * S
+    rows = RowBlock.of(ax, n)
     if cfg.empty == "reseed_farthest" and nl < k:
         raise ValueError(
             f"KMeansConfig(empty='reseed_farthest') under kmeans_sharded needs at "
             f"least k rows per shard (each shard contributes k farthest-point "
             f"candidates): n//S = {nl} < k = {k}")
+    gen = cpu_generator(0) if generator is None else generator
     if init_centroids is not None:
         c = init_centroids.to(x.device)
+    elif rows.split:
+        c = _seed_rows(x, cfg, gen, rows)
     else:
-        c = km.seed_centroids(x, cfg, cpu_generator(0) if generator is None else generator)
-    xb = x[ax.rank * nl:(ax.rank + 1) * nl]
-    xf = xb.float()
+        c = km.seed_centroids(x, cfg, gen)
+    xf = x.float()
     x_norm = (xf * xf).sum(1)
     labels = torch.full((nl,), -1, dtype=torch.int32, device=x.device)
     dmin = torch.zeros(nl, dtype=torch.float32, device=x.device)
@@ -247,7 +315,7 @@ def kmeans_sharded(x: torch.Tensor, cfg: km.KMeansConfig,
         return buf[sel, :d]  # [k, d] donors, farthest first
 
     def one_iter(c, labels):
-        new_labels, dmin, sums, counts = km.lloyd_iter(xb, c, x_norm, cfg)
+        new_labels, dmin, sums, counts = km.lloyd_iter(x, c, x_norm, cfg)
         changed_pc = torch.zeros(k, dtype=torch.float32, device=x.device).index_add_(
             0, new_labels.long(), (new_labels != labels).float())
         packed = torch.cat([sums.float(), counts.float()[:, None], changed_pc[:, None]], 1)
@@ -284,8 +352,8 @@ def spectral_cluster_sharded(sm: ShardedCOO, cfg: SpectralClusteringConfig,
                              gather_dtype=None, device=None) -> SpectralResult:
     """Deprecated: ``cfg.to_pipeline(plan=Plan(device="sharded", mesh=mesh,
     variant=variant, ...)).run(sm, generator)``.  Stage 2 runs over the
-    row-partitioned edges (:class:`~repro_torch.core.operator.ShardedCooOperator`);
-    the shard_map plan also gets the one-all-reduce Stage 3."""
+    row-partitioned edges (:meth:`SpectralPipeline.operator`); the shard_map
+    plan also gets the one-all-reduce Stage 3."""
     warnings.warn(
         "spectral_cluster_sharded is deprecated; use SpectralPipeline with "
         "Plan(device='sharded', variant=..., mesh=...) (repro_torch.core.spectral)",

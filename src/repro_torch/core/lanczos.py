@@ -20,6 +20,18 @@ cycle that broke down is therefore replayed from its saved start with a
 host check after every step, and its draws then land exactly where a
 step-by-step run would have put them.  The draws are made on the device,
 and one seed gives the same draws on the CPU and on the card.
+
+On a mesh (an operator with a :class:`~repro_torch.sparse.distributed.RowBlock`,
+``op.rows``, such as :class:`~repro_torch.core.operator.ShardedCooOperator`
+over a mesh) the basis is distributed by rows as the reference's specs
+distribute it: each rank keeps its [m+b, rows] block, every contraction
+over n all-reduces its small result (the Gram–Schmidt couplings, the
+norms), the QRs are tall-skinny (:meth:`RowBlock.qr`), and v0, X0 and the
+careful path's random directions are drawn whole from the one stream and
+sliced, so each rank's rows are the one-device draw's.  T, its eigenpairs,
+the residuals and the breakdown and convergence flags come from
+all-reduced values and are the same on every rank, so every rank takes the
+same control path.  On a one-rank axis nothing of this changes a bit.
 """
 from __future__ import annotations
 
@@ -32,11 +44,12 @@ import torch
 from repro_torch import _random
 from repro_torch._device import cpu_generator
 from repro_torch.core import health
+from repro_torch.sparse.distributed import RowBlock
 
 
 class LanczosResult(NamedTuple):
     eigenvalues: torch.Tensor  # [k]  descending (for which="LA")
-    eigenvectors: torch.Tensor  # [n, k]
+    eigenvectors: torch.Tensor  # [n, k] (a mesh's rank: its rows of them)
     residuals: torch.Tensor  # [k]  per returned pair
     restarts: int  # restart cycles executed
     converged: bool
@@ -190,8 +203,10 @@ def eigsh(op, cfg, *, v0: Optional[torch.Tensor] = None,
     (:func:`repro_torch.core.chebyshev.chebyshev_eigsh`) under the same
     contract.  Runs on the device of ``v0`` (else the operator's); random
     draws are made there, from a stream keyed by one draw from the CPU
-    ``generator`` (seed 0 by default)."""
+    ``generator`` (seed 0 by default).  ``v0`` is whole; under an operator
+    with ``rows`` the eigenvectors are this rank's rows of them."""
     from repro_torch.core.chebyshev import ChebConfig, chebyshev_eigsh
+    from repro_torch.core.operator import row_block
 
     if isinstance(cfg, ChebConfig):
         return chebyshev_eigsh(op, cfg, v0=v0, generator=generator)
@@ -202,9 +217,10 @@ def eigsh(op, cfg, *, v0: Optional[torch.Tensor] = None,
     validate_basis(cfg, n)
     rng = _random.Stream.from_generator(cpu_generator(0) if generator is None else generator)
     dev = _op_device(op, v0)
+    rows = row_block(op, n)
     if cfg.block_size > 1:
-        return _lanczos_topk_block(op.mm, n, cfg, v0=v0, rng=rng, device=dev)
-    return _lanczos_topk_single(op.mv, n, cfg, v0=v0, rng=rng, device=dev)
+        return _lanczos_topk_block(op.mm, n, cfg, v0=v0, rng=rng, device=dev, rows=rows)
+    return _lanczos_topk_single(op.mv, n, cfg, v0=v0, rng=rng, device=dev, rows=rows)
 
 
 def lanczos_topk(matvec, n: int, cfg: LanczosConfig, *,
@@ -277,19 +293,20 @@ def _extract(cfg: LanczosConfig, out, sign: float, restarts: int, n_conv: int):
 # Single-vector thick-restart Lanczos
 # ---------------------------------------------------------------------------
 
-def _orthonormal_against(v, basis, rng):
-    """Random unit vector orthogonal to the (zero-padded) basis rows."""
-    r = rng.normal(v.shape, v.device)
-    r = r - basis.T @ (basis @ r)
-    return r / torch.clamp(torch.linalg.norm(r), min=1e-30)
+def _orthonormal_against(basis, rng, rows: RowBlock):
+    """Random unit vector orthogonal to the (zero-padded) basis rows: an [n]
+    draw, this rank's rows of it."""
+    r = rows.take(rng.normal((rows.n,), basis.device))
+    r = r - basis.T @ rows.psum(basis @ r)
+    return r / torch.clamp(rows.norm(r), min=1e-30)
 
 
 def _lanczos_topk_single(matvec: Callable, n: int, cfg: LanczosConfig, *,
-                         v0, rng, device) -> LanczosResult:
+                         v0, rng, device, rows: RowBlock) -> LanczosResult:
     k, m = cfg.k, cfg.m
     f32 = torch.float32
     v0 = rng.normal((n,), device) if v0 is None else v0.to(device, f32)
-    v0 = v0 / torch.clamp(torch.linalg.norm(v0), min=1e-30)
+    v0 = rows.take(v0 / torch.clamp(torch.linalg.norm(v0), min=1e-30))
     sign = 1.0 if cfg.which == "LA" else -1.0
     l_keep = restart_keep_size(cfg)
 
@@ -297,17 +314,17 @@ def _lanczos_topk_single(matvec: Callable, n: int, cfg: LanczosConfig, *,
         """Expand basis row j+1 and record T row/col j; returns the device
         breakdown flag (or None once handled on the host)."""
         w = matvec(V[j]).to(f32) * sign
-        c = V @ w
+        c = rows.psum(V @ w)
         T[j, :] = c
         T[:, j] = c
         w = w - V.T @ c
-        w = w - V.T @ (V @ w)  # second Gram-Schmidt pass
-        beta = torch.linalg.norm(w)
+        w = w - V.T @ rows.psum(V @ w)  # second Gram-Schmidt pass
+        beta = rows.norm(w)
         ok = beta > 1e-10
         v_next = w / torch.clamp(beta, min=1e-30)
         if careful:
             if not bool(ok):
-                v_next = _orthonormal_against(w, V, rng)
+                v_next = _orthonormal_against(V, rng, rows)
             ok = None
         V[j + 1] = v_next
         T[j + 1, j] = beta
@@ -348,7 +365,7 @@ def _lanczos_topk_single(matvec: Callable, n: int, cfg: LanczosConfig, *,
         return V_new, T_new, (theta, S, V, res), n_conv
 
     def start():
-        V = torch.zeros((m + 1, n), dtype=f32, device=device)
+        V = torch.zeros((m + 1, rows.size), dtype=f32, device=device)
         V[0] = v0
         return V, torch.zeros((m + 1, m + 1), dtype=f32, device=device)
 
@@ -360,16 +377,17 @@ def _lanczos_topk_single(matvec: Callable, n: int, cfg: LanczosConfig, *,
 # Block thick-restart Lanczos
 # ---------------------------------------------------------------------------
 
-def _orthonormal_block_against(W, basis, rng):
-    """[n, b] random directions orthogonal to the basis rows and to each other."""
-    r = rng.normal(W.shape, W.device)
-    r = r - basis.T @ (basis @ r)
-    q, _ = torch.linalg.qr(r)
+def _orthonormal_block_against(basis, b: int, rng, rows: RowBlock):
+    """[n, b] random directions orthogonal to the basis rows and to each
+    other: an [n, b] draw, this rank's rows of it."""
+    r = rows.take(rng.normal((rows.n, b), basis.device))
+    r = r - basis.T @ rows.psum(basis @ r)
+    q, _ = rows.qr(r)
     return q
 
 
 def _lanczos_topk_block(matmat: Callable, n: int, cfg: LanczosConfig, *,
-                        v0, rng, device) -> LanczosResult:
+                        v0, rng, device, rows: RowBlock) -> LanczosResult:
     """Block thick-restart Lanczos: one ``matmat`` streams the operator for
     b new columns; reorthogonalization is [m+b, n]·[n, b] GEMM pairs; the
     in-block factorization is a [n, b] QR whose R is the band coupling."""
@@ -379,29 +397,29 @@ def _lanczos_topk_block(matmat: Callable, n: int, cfg: LanczosConfig, *,
     X0 = rng.normal((n, b), device)
     if v0 is not None:
         X0[:, 0] = v0.to(device, f32)
-    Q0, _ = torch.linalg.qr(X0)  # column 0 keeps v0's direction
+    Q0, _ = rows.qr(rows.take(X0))  # column 0 keeps v0's direction
     sign = 1.0 if cfg.which == "LA" else -1.0
     l_keep = restart_keep_size(cfg)
 
     def step(V, T, j, careful):
         """Expand basis rows j+b..j+2b-1 and record the T blocks."""
         W = matmat(V[j:j + b].T).to(f32).T * sign  # [b, n] — one operator stream
-        C = V @ W.T  # [m+b, b] couplings
+        C = rows.psum(V @ W.T)  # [m+b, b] couplings
         T[:, j:j + b] = C
         T[j:j + b, :] = C.T
         W = W - C.T @ V
-        W = W - (V @ W.T).T @ V  # second Gram-Schmidt pass
-        Q, R = torch.linalg.qr(W.T)  # [n, b], [b, b]
+        W = W - rows.psum(V @ W.T).T @ V  # second Gram-Schmidt pass
+        Q, R = rows.qr(W.T)  # [n, b], [b, b]
         ok = torch.diagonal(R).abs() > 1e-10
         if careful:
             if not bool(ok.all()):  # escape deficient directions
-                E = _orthonormal_block_against(W.T, V, rng)
+                E = _orthonormal_block_against(V, b, rng, rows)
                 Q = torch.where(ok[None, :], Q, E)
             ok = None
         else:
             ok = ok.all()
-        Qf = Q - V.T @ (V @ Q)  # cleanup vs old basis
-        Q2, R2 = torch.linalg.qr(Qf)
+        Qf = Q - V.T @ rows.psum(V @ Q)  # cleanup vs old basis
+        Q2, R2 = rows.qr(Qf)
         B = R2 @ R  # deficient columns of R are ~0 -> ~zero coupling
         V[j + b:j + 2 * b] = Q2.T
         T[j + b:j + 2 * b, j:j + b] = B
@@ -442,7 +460,7 @@ def _lanczos_topk_block(matmat: Callable, n: int, cfg: LanczosConfig, *,
         return V_new, T_new, (theta, S, V, res), n_conv
 
     def start():
-        V = torch.zeros((m + b, n), dtype=f32, device=device)
+        V = torch.zeros((m + b, rows.size), dtype=f32, device=device)
         V[:b] = Q0.T
         return V, torch.zeros((m + b, m + b), dtype=f32, device=device)
 

@@ -8,7 +8,11 @@ streams, padding included) and the ``device`` their tensors live on.
 
 Operators may also provide the optional ``cheb_step(x, prev, ca, cb)``
 hook (``ca·(A x) + cb·x − prev``), which the Chebyshev filter uses when it
-is there.
+is there, and ``rows`` (a
+:class:`~repro_torch.sparse.distributed.RowBlock`): the operator then maps
+this rank's rows to this rank's rows, and the solvers keep their vectors
+distributed by rows (:func:`row_block`): :class:`ShardedCooOperator` under a
+mesh, and :class:`RowBlockEllOperator`.
 """
 from __future__ import annotations
 
@@ -111,17 +115,99 @@ class BlockEllOperator:
 
 
 @dataclasses.dataclass(frozen=True)
+class RowBlockEllOperator:
+    """This rank's rows of a BlockELL(+tail) operator under a mesh axis of
+    more than one rank: ``mv``, ``mm`` and ``cheb_step`` map this rank's
+    rows to this rank's rows through the ``ell_spmv`` and ``ell_spmm``
+    kernels and the fused Chebyshev step, as :class:`ShardedCooOperator`
+    does through its index-add.  The input's row blocks are all-gathered
+    (one collective a product) into the whole input rotated so that this
+    rank's rows come first, and the layout's column ids are rotated alike
+    (``(col − lo) mod n``), so the fused step's ``cb·x`` term reads the
+    rank's own rows.  ``gather_dtype`` casts the rows the other ranks
+    send; the rank's own rows enter as they are.  ``shape`` stays global;
+    :attr:`rows` names the rank's rows.  Built by :meth:`of`.
+    """
+
+    a: BlockELL  # the rank's [rows, n] layout, column ids rotated by −rows.lo
+    rows: Any  # RowBlock
+    gather_dtype: Any = None
+
+    @classmethod
+    def of(cls, row, col, val, rows, *, width=None, gather_dtype=None) -> "RowBlockEllOperator":
+        """From the rank's entries: in-block ``row`` ids, global ``col``
+        ids and ``val``, laid out in row order (a stable sort keeps each
+        row's entries in their order, so its ELL slots are those of the
+        whole graph's layout at the same ``width``)."""
+        from repro_torch.sparse.formats import coo_to_csr, csr_to_blockell
+
+        order = torch.argsort(row, stable=True)
+        local = COO(row[order], (col[order] - rows.lo) % rows.n, val[order],
+                    (rows.size, rows.n))
+        return cls(csr_to_blockell(coo_to_csr(local), width=width), rows, gather_dtype)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.rows.n, self.rows.n)
+
+    @property
+    def dtype(self):
+        return self.a.vals.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.a.device
+
+    @property
+    def nnz(self) -> int:
+        return int(self.a.vals.numel()) + self.a.tail.nnz
+
+    def _whole(self, x_blk: torch.Tensor) -> torch.Tensor:
+        """The whole input from the ranks' row blocks, this rank's first."""
+        from repro_torch.sparse.distributed import _gather_block, all_gather
+
+        ax, lo, n = self.rows.ax, self.rows.lo, self.rows.n
+        gdt = None if self.gather_dtype is None else getattr(torch, str(self.gather_dtype))
+        g = x_blk if gdt is None else x_blk.to(gdt)
+        g = all_gather(g, ax) if g.ndim == 1 else _gather_block(g, ax)
+        x = torch.empty(g.shape, dtype=x_blk.dtype, device=g.device)
+        x[:n - lo] = g[lo:]
+        x[n - lo:] = g[:lo]
+        if gdt is not None:
+            x[:self.rows.size] = x_blk
+        return x
+
+    def mv(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.kernels.ell_spmv.ops import ell_spmv
+
+        return ell_spmv(self.a, self._whole(x))
+
+    def mm(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.kernels.ell_spmm.ops import ell_spmm
+
+        return ell_spmm(self.a, self._whole(x))
+
+    def cheb_step(self, x: torch.Tensor, prev: torch.Tensor, ca, cb) -> torch.Tensor:
+        from repro_torch.kernels.ell_spmm.ops import ell_spmm_cheb_step
+
+        return ell_spmm_cheb_step(self.a, self._whole(x), prev, ca, cb)
+
+
+@dataclasses.dataclass(frozen=True)
 class ShardedCooOperator:
     """Row-block-partitioned operator over a
     :class:`~repro_torch.sparse.distributed.ShardedCOO`.
 
     Without a mesh (``variant="gspmd"``) it is the single-process layout
-    path: one index-add over the global rows.  With a mesh (a
-    ``DeviceMesh``; required by ``variant="shard_map"``) each rank
-    index-adds its own bucket into its row block of the product and
-    all-gathers it, one collective an application, whichever variant is
-    named; ``gather_dtype`` casts the gathered block.  ``mm`` moves one
-    [n, b] block a collective (the block-Lanczos amortization).
+    path: one index-add over the global rows, whole vectors in and out.
+    With a mesh (a ``DeviceMesh``; required by ``variant="shard_map"``),
+    whichever variant is named, ``mv``/``mm`` map this rank's rows to this
+    rank's rows, as the reference's ``shard_map`` specs do: the input's row
+    blocks are all-gathered (one collective an application; ``gather_dtype``
+    casts them first) and the rank's bucket is index-added into its row
+    block of the product.  ``mm`` moves one [n, b] block a collective (the
+    block-Lanczos amortization).  ``shape`` stays global; :attr:`rows`
+    names the rank's rows.
     """
 
     sm: Any  # ShardedCOO
@@ -129,12 +215,15 @@ class ShardedCooOperator:
     mesh: Any = None
     axis: Any = "data"
     gather_dtype: Any = None
-    # the mesh path's product closures, built once (None without a mesh)
+    # the mesh path's product closures and row block, built once (None
+    # without a mesh)
     _spmv: Any = dataclasses.field(default=None, init=False, repr=False, compare=False)
     _spmm: Any = dataclasses.field(default=None, init=False, repr=False, compare=False)
+    _rows: Any = dataclasses.field(default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):
-        from repro_torch.sparse.distributed import make_sharded_spmm, make_sharded_spmv
+        from repro_torch.sparse.distributed import (RowBlock, make_sharded_spmm,
+                                                    make_sharded_spmv, mesh_axis)
 
         if self.variant not in ("gspmd", "shard_map"):
             raise ValueError(
@@ -148,6 +237,8 @@ class ShardedCooOperator:
             kw = dict(axis=self.axis, gather_dtype=self.gather_dtype)
             object.__setattr__(self, "_spmv", make_sharded_spmv(self.mesh, self.sm, **kw))
             object.__setattr__(self, "_spmm", make_sharded_spmm(self.mesh, self.sm, **kw))
+            object.__setattr__(self, "_rows",
+                               RowBlock.of(mesh_axis(self.mesh, self.axis), self.sm.shape[0]))
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -166,6 +257,12 @@ class ShardedCooOperator:
         # per-shard padding (null edges) is streamed like real entries
         return int(self.sm.val.shape[0])
 
+    @property
+    def rows(self):
+        """This rank's :class:`~repro_torch.sparse.distributed.RowBlock` of
+        the operator's rows under a mesh (``None`` without one: whole)."""
+        return self._rows
+
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         from repro_torch.sparse.distributed import spmv_gspmd
 
@@ -179,6 +276,16 @@ class ShardedCooOperator:
         if self.mesh is None:
             return spmm_gspmd(self.sm, x)
         return self._spmm(self.sm.row_local, self.sm.col, self.sm.val, x)
+
+
+def row_block(op, n: int):
+    """The operator's :class:`~repro_torch.sparse.distributed.RowBlock`
+    (``op.rows``), or all ``n`` rows when it has none: the rows of the
+    vectors that ``op.mv``/``op.mm`` take and return."""
+    from repro_torch.sparse.distributed import RowBlock
+
+    rows = getattr(op, "rows", None)
+    return RowBlock.whole(n) if rows is None else rows
 
 
 @dataclasses.dataclass(frozen=True)

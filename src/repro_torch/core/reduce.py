@@ -244,19 +244,24 @@ def lift_and_smooth(op, u0: torch.Tensor, *, steps: int = 2
     (columns descending by Ritz value), the [k] Ritz values and the residual
     norms ``‖A u − θ u‖``.  The k × k eigenproblem is solved in float64 (a
     float32 ``eigh`` on an H100 put eigenvalues ~5.5e-5 low; see
-    :func:`repro_torch.core.lanczos._eigh`)."""
+    :func:`repro_torch.core.lanczos._eigh`).  Under an operator with
+    ``rows`` (a mesh's), ``u0`` and ``u`` are this rank's rows: the QR is
+    tall-skinny and the Gram and the norms are all-reduced."""
+    from repro_torch.core.operator import row_block
+
     f32 = torch.float32
+    rows = row_block(op, op.shape[0])
     u = u0.to(f32)
     for _ in range(max(0, steps)):
         u = op.mm(u).to(f32)
-    q, _ = torch.linalg.qr(u)
+    q, _ = rows.qr(u)
     aq = op.mm(q).to(f32)  # the Rayleigh–Ritz stream
-    b = q.T @ aq
+    b = rows.psum(q.T @ aq)
     theta, s = _eigh(b)  # ascending
     sel = s.flip(1)  # descending
     u = q @ sel
     vals = theta.flip(0)
-    resid = torch.linalg.norm(aq @ sel - u * vals[None, :], dim=0)
+    resid = rows.norm(aq @ sel - u * vals[None, :], dim=0)
     return u, vals, resid
 
 

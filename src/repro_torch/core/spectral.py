@@ -24,7 +24,10 @@ in one process without a mesh, one all-gather a product over a
 ``torch.distributed`` ``DeviceMesh`` with one); and ``Plan(device="sharded",
 mesh=...)`` on raw points, whose Stage 1 runs row-block-parallel
 (:mod:`repro_torch.core.distributed_pipeline`).  Under a mesh every rank
-runs the same call on the same inputs.
+runs the same call on the same inputs, and Stage 2's and Stage 3's dense
+state is distributed by rows as the reference's specs distribute it: each
+rank holds its own row block of the Krylov basis or Chebyshev block and of
+the embedding (:class:`~repro_torch.sparse.distributed.RowBlock`).
 """
 from __future__ import annotations
 
@@ -43,15 +46,16 @@ import repro_torch.core.reduce as red
 from repro_torch._device import DeviceLike, cpu_generator, fold_in, resolve_device
 from repro_torch.core.health import HealthConfig, PipelineError, StageReport
 from repro_torch.core.operator import (BlockEllOperator, CooOperator, LinearOperator,
-                                       ShardedCooOperator)
+                                       RowBlockEllOperator, ShardedCooOperator, row_block)
 from repro_torch.core.reduce import CoarsenConfig, ReduceInfo, ReductionState, SparsifyConfig
 from repro_torch.core.similarity import build_knn_graph
 from repro_torch.kernels.lsh_candidates.ops import (DEFAULT_N_BITS, DEFAULT_N_TABLES,
                                                     MAX_N_BITS)
-from repro_torch.sparse.distributed import (ShardedCOO, all_gather, broadcast,
+from repro_torch.sparse.distributed import (RowBlock, ShardedCOO, all_gather, all_reduce,
                                             global_rows, mesh_axis, normalize_sharded,
-                                            partition_coo_by_rows, spmv_gspmd)
-from repro_torch.sparse.formats import COO, coo_to_csr, csr_to_blockell
+                                            partition_coo_by_rows, sharded_degrees,
+                                            spmv_gspmd)
+from repro_torch.sparse.formats import COO, coo_to_csr, csr_to_blockell, ell_width
 
 KMeansConfig = km.KMeansConfig  # the Stage-3 nested config (re-exported)
 
@@ -67,7 +71,7 @@ _REPRESENTATIONS = ("coo", "blockell")
 
 class SpectralResult(NamedTuple):
     labels: torch.Tensor  # [n] cluster assignment
-    embedding: torch.Tensor  # [n, k] row-normalized spectral embedding
+    embedding: torch.Tensor  # [n, k] row-normalized spectral embedding (a mesh's rank: its rows)
     eigenvalues: torch.Tensor  # [k] of L_sym (ascending; ~0 first)
     eig_residuals: torch.Tensor
     kmeans_inertia: torch.Tensor
@@ -149,8 +153,11 @@ class EigConfig:
     (thick-restart, exact to ``tol``) or ``"chebyshev"`` (Jackson-damped
     polynomial-filter embedding: ``cheb_degree``, ``n_signals``,
     ``lambda_cut``, ``cheb_margin``).  ``representation="blockell"``
-    converts the graph to BlockELL(+tail) host-side so both solvers stream
-    the ``ell_spmm`` kernel (and the Chebyshev filter its fused step)."""
+    converts the graph to BlockELL(+tail) so both solvers stream the
+    ``ell_spmm`` kernel (and the Chebyshev filter its fused step); under a
+    mesh axis of more than one rank each rank converts its own rows.  A
+    ShardedCOO graph off such an axis (no mesh, or a world-size-1 mesh)
+    runs its own index-add operator."""
 
     n_eigvecs: Optional[int] = None  # embedding width; default: n_clusters
     basis_m: Optional[int] = None  # Krylov basis (ARPACK ncv); default 2k-ish
@@ -202,13 +209,24 @@ class Plan:
                   routes Stage 3 to ``kmeans_sharded``.
     mesh          a ``torch.distributed.device_mesh.DeviceMesh`` (not
                   serialized by :meth:`to_dict`); every rank of it calls the
-                  pipeline with the same inputs, and every rank leaves Stage 2
-                  with coordinate 0's embedding (:meth:`embed` broadcasts it).
+                  pipeline with the same inputs.  Stage 2 and Stage 3 keep
+                  their dense state as each rank's own row block of the n
+                  rows (n/S each; a ShardedCOO's padded n): the Krylov basis
+                  or Chebyshev block, and ``EmbedState.embedding`` /
+                  ``SpectralResult.embedding``, which hold the rank's [n/S, k]
+                  rows — a caller that needs them whole gathers them
+                  (``sparse.distributed.all_gather``).  The labels, the
+                  eigenvalues, the residuals and the flags are whole and the
+                  same on every rank.  A COO graph (raw points' Stage 1) is
+                  partitioned by rows for Stage 2 on more than one rank, and
+                  its n must divide by the axis' size.
     axis          the mesh dimension the rows are partitioned over.
     variant       "gspmd" | "shard_map": the reference's two collective
                   schedules.  Both values load; under a mesh both run the one
-                  all-gather a product, and without one the layout path.
-    gather_dtype  optional cast of the gathered product (e.g. "bfloat16").
+                  all-gather a product and, with the fused k-means, the
+                  row-local Lloyd loop; without one the layout path.
+    gather_dtype  optional cast of the gathered operator input (e.g.
+                  "bfloat16").
     stage1_exchange
                   "gather" (every rank all-gathers the points) | "ring"
                   (blocks stream round the ring; no rank holds the pool).
@@ -273,7 +291,8 @@ class GraphState(NamedTuple):
 
 
 class EmbedState(NamedTuple):
-    """Stage-2 output: the spectral embedding, cacheable/re-clusterable."""
+    """Stage-2 output: the spectral embedding, cacheable/re-clusterable
+    (under a mesh of more than one rank, the rank's rows of it)."""
 
     embedding: torch.Tensor  # [n, k] row-normalized spectral embedding
     eigenvalues: torch.Tensor  # [k] Laplacian eigenvalues 1-θ (ascending)
@@ -350,6 +369,29 @@ def _drop_null_edges(w: COO) -> COO:
     keep = w.val != 0
     return COO(row=w.row[keep], col=w.col[keep], val=w.val[keep], shape=w.shape,
                sorted_rows=False)
+
+
+def _row_block_ell(adj, ax, gather_dtype) -> RowBlockEllOperator:
+    """This rank's rows of the graph as a :class:`RowBlockEllOperator`:
+    from a COO graph, which every rank holds whole, its rows at the whole
+    graph's ELL width (each row laid out as on one device); from a
+    ShardedCOO, the rank's bucket without its null edges."""
+    rows = RowBlock.of(ax, adj.shape[0])
+    if isinstance(adj, ShardedCOO):
+        if adj.num_shards != ax.size:
+            raise ValueError(
+                f"the ShardedCOO has {adj.num_shards} shards but the mesh axis has "
+                f"{ax.size} ranks — partition with partition_coo_by_rows(·, {ax.size})")
+        rl, c, v = adj.row_local, adj.col, adj.val
+        if rl.shape[0] == adj.num_shards * adj.edges_per_shard:
+            rl, c, v = adj.bucket(ax.rank)
+        keep = v != 0
+        return RowBlockEllOperator.of(rl[keep], c[keep], v[keep], rows,
+                                      gather_dtype=gather_dtype)
+    width = ell_width(torch.bincount(adj.row, minlength=adj.shape[0]))
+    own = (adj.row >= rows.lo) & (adj.row < rows.hi)
+    return RowBlockEllOperator.of(adj.row[own] - rows.lo, adj.col[own], adj.val[own], rows,
+                                  width=width, gather_dtype=gather_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -436,14 +478,32 @@ class SpectralPipeline:
         return self._lanczos_config(n, e)
 
     def operator(self, state: GraphState) -> LinearOperator:
-        """The Stage-2 operator for this graph: a ShardedCOO's
-        :class:`ShardedCooOperator` under this plan's mesh and variant; else
-        the COO index-add operator, or with ``eig.representation="blockell"``
-        a BlockELL(+tail) built on the graph's device, whose products are the
-        ``ell_spmv``/``ell_spmm`` kernels."""
-        if isinstance(state.adj, ShardedCOO):
-            p = self.plan
-            return ShardedCooOperator(state.adj, variant=p.variant, mesh=p.mesh, axis=p.axis,
+        """The Stage-2 operator for this graph.  Under a mesh axis of more
+        than one rank it maps each rank's rows to its rows: with
+        ``eig.representation="blockell"`` a :class:`RowBlockEllOperator`
+        (the ``ell_spmv``/``ell_spmm`` kernels), else a
+        :class:`ShardedCooOperator` (a COO graph partitioned by rows).
+        Otherwise a ShardedCOO's :class:`ShardedCooOperator` under this
+        plan's mesh and variant (a ShardedCOO is its own representation
+        there), or for a COO graph the index-add operator, or with
+        ``eig.representation="blockell"`` a BlockELL(+tail) built on the
+        graph's device, whose products are the ``ell_spmv``/``ell_spmm``
+        kernels."""
+        p = self.plan
+        adj = state.adj
+        ax = self._split_axis()
+        if ax is not None and not isinstance(adj, ShardedCOO) \
+                and adj.shape[0] % ax.size:
+            raise ValueError(
+                f"a COO graph of {adj.shape[0]} nodes does not split into {ax.size} "
+                f"row blocks — partition it (partition_coo_by_rows pads the rows) "
+                f"and pass the ShardedCOO")
+        if ax is not None and self.eig.representation == "blockell":
+            return _row_block_ell(adj, ax, p.gather_dtype)
+        if ax is not None and not isinstance(adj, ShardedCOO):
+            adj = partition_coo_by_rows(adj, ax.size)
+        if isinstance(adj, ShardedCOO):
+            return ShardedCooOperator(adj, variant=p.variant, mesh=p.mesh, axis=p.axis,
                                       gather_dtype=p.gather_dtype)
         if self.eig.representation == "blockell":
             return BlockEllOperator(csr_to_blockell(coo_to_csr(state.adj)))
@@ -461,12 +521,11 @@ class SpectralPipeline:
             # (an index-add on the card rounds differently from run to run);
             # a rank may hold only its own bucket, whose shard is its
             # coordinate on the axis
-            ones = torch.ones(w.shape[0], device=w.device)
-            if self.plan.mesh is None:
-                ax, deg = None, spmv_gspmd(w, ones)
+            ax = self._axis()
+            if ax is None:
+                deg = spmv_gspmd(w, torch.ones(w.shape[0], device=w.device))
             else:
-                ax = mesh_axis(self.plan.mesh, self.plan.axis)
-                deg = ShardedCooOperator(w, mesh=self.plan.mesh, axis=self.plan.axis).mv(ones)
+                deg = sharded_degrees(w, ax)
             d32 = deg.float()
             isd = torch.where(d32 > 0, torch.rsqrt(torch.clamp(d32, min=1e-30)),
                               torch.zeros_like(d32)).to(w.val.dtype)
@@ -540,6 +599,12 @@ class SpectralPipeline:
         state = state.to(dev)
         n = state.adj.shape[0]
         op = self.operator(state) if operator is None else operator
+        rows = row_block(op, n)
+        if self._split_axis() is not None and not rows.split:
+            raise ValueError(
+                f"{type(op).__name__} has no rows on this plan's mesh: under a mesh of "
+                f"more than one rank Stage 2 runs on each rank's rows (ShardedCooOperator, "
+                f"RowBlockEllOperator)")
         scfg = self._eig_config(n, eig)
         # D^{1/2}·1 is exactly the trivial eigenvector of A_sym (the
         # Chebyshev path seeds its sketch with it)
@@ -550,46 +615,38 @@ class SpectralPipeline:
         vecs, vals = res.eigenvectors, res.eigenvalues
         if ecfg.drop_first:
             vecs, vals = vecs[:, 1:], vals[1:]
-        return self._one_across_ranks(EmbedState(
-            embedding=lap.embed_rows(vecs, state.inv_sqrt_deg),
+        # under a mesh the eigenvectors are this rank's rows; the
+        # eigenvalues, residuals and flags come from all-reduced values and
+        # are the same on every rank
+        return EmbedState(
+            embedding=lap.embed_rows(vecs, rows.take(state.inv_sqrt_deg)),
             eigenvalues=lap.smallest_laplacian_eigs_from_adj(vals),
             residuals=res.residuals,
             restarts=res.restarts,
             converged=res.converged,
-        ))
-
-    def _one_across_ranks(self, emb: EmbedState) -> EmbedState:
-        """Under a mesh of more than one rank, coordinate 0's Stage-2 output
-        on every rank: the embedding in one broadcast, the eigenvalues,
-        residuals, convergence flag and restart count in a second.  The
-        ranks computed their copies alike, but a replicated index-add
-        rounds its own way on each card run, which can flip an
-        eigenvector's sign between ranks; from here on they share one
-        embedding, so every Stage-3 route and the health ladder's verdicts
-        agree."""
-        if self.plan.mesh is None:
-            return emb
-        ax = mesh_axis(self.plan.mesh, self.plan.axis)
-        if ax.size == 1:
-            return emb
-        e = broadcast(emb.embedding.contiguous().clone(), ax)
-        vals, resid = emb.eigenvalues.reshape(-1), emb.residuals.reshape(-1)
-        f64, dev = torch.float64, vals.device
-        flags = torch.stack([torch.as_tensor(emb.converged, device=dev).to(f64).reshape(()),
-                             torch.tensor(float(emb.restarts), dtype=f64, device=dev)])
-        tail = torch.cat([vals.double(), resid.double(), flags])
-        tail = broadcast(tail, ax)
-        nv, nr = vals.numel(), resid.numel()
-        # on values that are not concrete the restart count stays the static
-        # one every rank ran, and the flag a tensor
-        eager = health.is_concrete(tail)
-        return EmbedState(
-            embedding=e,
-            eigenvalues=tail[:nv].to(vals.dtype).reshape(emb.eigenvalues.shape),
-            residuals=tail[nv:nv + nr].to(resid.dtype).reshape(emb.residuals.shape),
-            restarts=int(tail[-1]) if eager else emb.restarts,
-            converged=bool(tail[-2]) if eager else tail[-2] > 0,
         )
+
+    def _axis(self):
+        """The plan's mesh :class:`~repro_torch.sparse.distributed.Axis`
+        (None without a mesh)."""
+        return None if self.plan.mesh is None else mesh_axis(self.plan.mesh, self.plan.axis)
+
+    def _split_axis(self):
+        """The plan's mesh axis when it has more than one rank — the
+        embedding is then distributed by rows —, else None."""
+        ax = self._axis()
+        return ax if ax is not None and ax.size > 1 else None
+
+    def _nonfinite_rows(self, h: torch.Tensor) -> int:
+        """Non-finite entries of an embedding: under a split axis this
+        rank's rows are counted and the counts all-reduced, so every rank
+        takes the same rung of a ladder."""
+        bad = health.nonfinite_count(h)
+        ax = self._split_axis()
+        if ax is None:
+            return bad
+        return int(all_reduce(torch.tensor([float(bad)], dtype=torch.float64,
+                                            device=h.device), ax)[0])
 
     # -- Stage 3 ------------------------------------------------------------
 
@@ -616,23 +673,32 @@ class SpectralPipeline:
         )
 
     def _shards(self) -> int:
-        return mesh_axis(self.plan.mesh, self.plan.axis).size
+        return self._axis().size
 
     def _kmeans_sharded_dispatch(self, n: int, kcfg: KMeansConfig) -> bool:
-        """True iff Stage 3 routes to ``kmeans_sharded``: the sharded plan
-        under ``variant="shard_map"`` with a mesh, the fused iteration, and
-        rows that tile the mesh axis."""
-        plan = self.plan
-        if not (plan.device == "sharded" and plan.variant == "shard_map"
-                and kcfg.iter == "fused" and plan.mesh is not None):
+        """True iff Stage 3 runs ``kmeans_sharded``: the fused iteration on
+        rows distributed over more than one rank, under either variant (the
+        reference computes the gspmd plan's Lloyd iteration through GSPMD on
+        the same rows); or, as the reference routes it to its ``shard_map``
+        loop, the sharded plan under ``variant="shard_map"`` on a mesh of
+        one rank, the fused iteration, and ``n`` rows that tile the axis."""
+        if kcfg.iter != "fused":
             return False
-        return n % self._shards() == 0
+        if self._split_axis() is not None:
+            return True
+        plan = self.plan
+        return (plan.device == "sharded" and plan.variant == "shard_map"
+                and plan.mesh is not None and n % self._shards() == 0)
 
     def _run_kmeans(self, h: torch.Tensor, kcfg: KMeansConfig, generator):
         if self._kmeans_sharded_dispatch(h.shape[0], kcfg):
             from repro_torch.core.distributed_pipeline import kmeans_sharded
 
             return kmeans_sharded(h, kcfg, generator, mesh=self.plan.mesh, axis=self.plan.axis)
+        ax = self._split_axis()
+        if ax is not None:
+            # the two-pass iteration runs on the whole embedding: gathered once
+            h = all_gather(h, ax)
         return km.kmeans(h, kcfg, generator)
 
     # -- the stage DAG ------------------------------------------------------
@@ -691,6 +757,9 @@ class SpectralPipeline:
                           nnz_before=w.nnz, nnz_after=wc.nnz)
         if sharded:
             wc = partition_coo_by_rows(wc, st.graph.adj.num_shards)
+        elif self._split_axis() is not None:
+            # the coarse graph's rows rarely divide by the ranks: pad them
+            wc = partition_coo_by_rows(wc, self._shards())
         g = self.prepare(wc, device=st.device)
         reduction = ReductionState(fine_graph=st.graph, prolong=prolong, info=info)
         return dataclasses.replace(
@@ -706,24 +775,31 @@ class SpectralPipeline:
             raise ValueError("refine runs after embed (no embedding in state)")
         fine = st.reduction.fine_graph
         # lift through the partition prolongation, smooth on the fine
-        # operator, map to NJW rows with the fine degrees
-        u0 = st.embedding.embedding[st.reduction.prolong]
-        u, theta, resid = red.lift_and_smooth(self.operator(fine), u0,
-                                              steps=self.coarsen.refine_steps)
-        emb = self._one_across_ranks(EmbedState(
-            embedding=lap.embed_rows(u, fine.inv_sqrt_deg),
+        # operator, map to NJW rows with the fine degrees; under a mesh the
+        # coarse embedding is gathered once (a fine row may point at any
+        # coarse row) and each rank lifts its own fine rows
+        op = self.operator(fine)
+        rows = row_block(op, fine.adj.shape[0])
+        coarse = st.embedding.embedding
+        ax = self._split_axis()
+        if ax is not None:
+            coarse = all_gather(coarse, ax)
+        u0 = coarse[rows.take(st.reduction.prolong)]
+        u, theta, resid = red.lift_and_smooth(op, u0, steps=self.coarsen.refine_steps)
+        emb = EmbedState(
+            embedding=lap.embed_rows(u, rows.take(fine.inv_sqrt_deg)),
             eigenvalues=lap.smallest_laplacian_eigs_from_adj(theta),
             residuals=resid,
             restarts=st.embedding.restarts,
             converged=st.embedding.converged,
-        ))
+        )
         return dataclasses.replace(st, graph=fine, embedding=emb, reduction=None,
                                    provenance=st.provenance + ("refine",))
 
     def _embed_failure(self, emb: EmbedState, ecfg: EigConfig) -> Optional[str]:
         """``None`` (healthy), ``"cheb_diverged"`` (the polynomial filter
         left its bounds interval), ``"nonfinite"`` or ``"unconverged"``."""
-        bad = health.nonfinite_count(emb.embedding) + health.nonfinite_count(emb.eigenvalues)
+        bad = self._nonfinite_rows(emb.embedding) + health.nonfinite_count(emb.eigenvalues)
         if ecfg.solver == "chebyshev" and (bad or cheb.diverged(emb.eigenvalues)):
             return "cheb_diverged"
         if bad:
@@ -817,7 +893,7 @@ class SpectralPipeline:
         rungs = []
         eager = health.is_concrete(res.labels, res.kmeans_inertia, st.embedding.embedding)
         if hc.enabled and eager:
-            if health.nonfinite_count(st.embedding.embedding):
+            if self._nonfinite_rows(st.embedding.embedding):
                 raise PipelineError(
                     "cluster", "input embedding contains non-finite values",
                     remedy="run the embed stage with health enabled (its "
@@ -826,10 +902,12 @@ class SpectralPipeline:
             empty = kcfg.k - int(torch.unique(res.labels).numel())
             bad = bool(health.nonfinite_count(res.kmeans_inertia))
             # one reseed rung; under kmeans_sharded it needs k rows a shard
-            n_rows = st.embedding.embedding.shape[0]
+            # (the embedding holds a shard's rows: a rank's own, or all of
+            # them on a one-rank axis)
+            h = st.embedding.embedding
             can_reseed = kcfg.empty == "keep"
-            if can_reseed and self._kmeans_sharded_dispatch(n_rows, kcfg):
-                can_reseed = n_rows // self._shards() >= kcfg.k
+            if can_reseed and self._kmeans_sharded_dispatch(h.shape[0], kcfg):
+                can_reseed = h.shape[0] >= kcfg.k
             if (empty > 0 or bad) and attempts < hc.max_attempts and can_reseed:
                 rungs.append(f"kmeans_reseed_farthest[empty={empty}]")
                 retry = dataclasses.replace(self.kmeans, empty="reseed_farthest")

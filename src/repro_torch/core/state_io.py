@@ -26,9 +26,17 @@ A :class:`~repro_torch.sparse.distributed.ShardedCOO` slot is the
 reference's ``"sharded"`` kind: its (row_local, col, val) buckets plus
 ``rows_per_shard`` / ``num_shards`` / ``edges_per_shard`` in the meta.  The
 layout is pure data; the mesh is a runtime resource of the plan.
+
+Under a mesh of more than one rank the embeddings (``EmbedState`` and
+``SpectralResult``) are each rank's row block: :func:`save_state`, given the
+pipeline, gathers each once so the checkpoint holds them whole, as the
+reference's does (every rank must call it, as every rank of the plan runs
+the stages), and :func:`load_state`, given a pipeline with such a mesh,
+hands each rank its rows again.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import warnings
 from typing import Any, Dict, Optional, Tuple
@@ -40,7 +48,7 @@ from repro_torch._device import DeviceLike, cpu_generator, resolve_device
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.core.health import StageReport
 from repro_torch.core.reduce import ReduceInfo, ReductionState
-from repro_torch.sparse.distributed import ShardedCOO
+from repro_torch.sparse.distributed import RowBlock, ShardedCOO, all_gather, mesh_axis
 from repro_torch.sparse.formats import COO
 
 _META_KEY = "__meta__"
@@ -99,10 +107,21 @@ def _get_graph(tree, meta, name, dev):
                       inv_sqrt_deg=_t(tree[f"{name}.inv_sqrt_deg"], dev))
 
 
+def _split_axis(pipeline):
+    """The mesh axis over which ``pipeline``'s embeddings are row blocks (a
+    mesh of more than one rank), else None."""
+    plan = getattr(pipeline, "plan", None)
+    if plan is None or plan.mesh is None:
+        return None
+    ax = mesh_axis(plan.mesh, plan.axis)
+    return ax if ax.size > 1 else None
+
+
 def state_to_tree(state, pipeline=None) -> Dict[str, np.ndarray]:
     """Flatten a :class:`PipelineState` to the flat dict the checkpoint
     manager stores.  ``pipeline`` (optional) embeds its ``to_dict()`` so
-    resume can warn on a config mismatch."""
+    resume can warn on a config mismatch; under its mesh the embeddings are
+    gathered whole (one all-gather each)."""
     tree: Dict[str, np.ndarray] = {}
     meta: dict = {
         "provenance": list(state.provenance),
@@ -127,18 +146,24 @@ def state_to_tree(state, pipeline=None) -> Dict[str, np.ndarray]:
         _put_coo(tree, meta, "input_graph", state.input_graph)
     if state.graph is not None:
         _put_graph(tree, meta, "graph", state.graph)
+    ax = _split_axis(pipeline)
+
+    def whole(h):
+        return _np(h if ax is None else all_gather(h, ax))
+
     if state.embedding is not None:
         e = state.embedding
-        tree["embedding.embedding"] = _np(e.embedding)
+        tree["embedding.embedding"] = whole(e.embedding)
         tree["embedding.eigenvalues"] = _np(e.eigenvalues)
         tree["embedding.residuals"] = _np(e.residuals)
         tree["embedding.restarts"] = np.asarray(e.restarts)
         tree["embedding.converged"] = np.asarray(e.converged)
     if state.result is not None:
         r = state.result
-        for f in ("labels", "embedding", "eigenvalues", "eig_residuals", "kmeans_inertia",
+        for f in ("labels", "eigenvalues", "eig_residuals", "kmeans_inertia",
                   "lanczos_restarts", "kmeans_iterations"):
             tree[f"result.{f}"] = _np(getattr(r, f))
+        tree["result.embedding"] = whole(r.embedding)
         meta["result_reports"] = [rep.to_dict() for rep in r.reports]
     if state.reduction is not None:
         red = state.reduction
@@ -234,11 +259,23 @@ def save_state(directory: str, state, pipeline=None) -> str:
 def load_state(directory: str, pipeline=None, *, device: DeviceLike = None):
     """``(state, pipeline_dict)`` from :func:`save_state`'s slot, tensors on
     ``device`` (the card unless the caller names another).  With ``pipeline`` given, warns if its config differs from
-    the one the state was produced under (resume still proceeds)."""
+    the one the state was produced under (resume still proceeds), and under
+    its mesh each rank keeps its own rows of the embeddings."""
     mgr = CheckpointManager(directory, keep=1)
     if not mgr._complete(STATE_STEP):
         raise FileNotFoundError(f"no intact pipeline-state checkpoint in {directory!r}")
     state, pipe_dict = state_from_tree(mgr.restore_dict(STATE_STEP), device=device)
+    ax = _split_axis(pipeline)
+    if ax is not None:  # each rank its own rows of the embeddings
+        def rows(h):
+            return RowBlock.of(ax, h.shape[0]).take(h)
+
+        if state.embedding is not None:
+            state = dataclasses.replace(state, embedding=state.embedding._replace(
+                embedding=rows(state.embedding.embedding)))
+        if state.result is not None:
+            state = dataclasses.replace(state, result=state.result._replace(
+                embedding=rows(state.result.embedding)))
     if pipeline is not None and pipe_dict is not None and pipeline.to_dict() != pipe_dict:
         warnings.warn(
             "resuming a pipeline-state checkpoint under a different pipeline config "

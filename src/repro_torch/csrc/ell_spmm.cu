@@ -332,7 +332,7 @@ extern "C" int ell_spmm_f32(const float* x, const int* cols, const float* vals,
 // for the first n_out ≤ n rows only (rows ≥ n of the padded layout would
 // see zero iterates and are never read, so they are not computed and x and
 // prev need no padding).  Replaces ell_spmm_cheb_pallas / _cheb_kernel in
-// src/repro/kernels/ell_spmm/kernel.py.  x, prev [n, b], y [n_out, b];
+// src/repro/kernels/ell_spmm/kernel.py.  x [n, b], prev and y [n_out, b];
 // coef = (ca, cb) in device memory; b % 4 == 0; x, prev, y 16-byte aligned.
 //
 // What bounds it: bytes, and where they come from.  At the Chebyshev

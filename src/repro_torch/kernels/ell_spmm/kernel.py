@@ -78,32 +78,34 @@ def ell_spmm_cuda(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor) -> to
 
 def ell_spmm_cheb_cuda(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
                        prev: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
-    """Raw fused-step entry: ``x, prev [n, b]`` fp32 with ``b % 4 == 0``,
-    ``cols/vals [R, W]`` (R ≥ n, every id in ``[0, n)``), ``coef [2]`` fp32
-    = ``(ca, cb)`` on the device.  Returns ``y [n, b] = ca·(A_ell x) + cb·x
-    − prev`` for the first n rows of the ELL body; launches on the current
-    stream and does not synchronise."""
+    """Raw fused-step entry: ``x [n, b]`` and ``prev [n_out, b]`` fp32 with
+    ``b % 4 == 0`` and n_out ≤ n, ``cols/vals [R, W]`` (R ≥ n_out, every id
+    in ``[0, n)``), ``coef [2]`` fp32 = ``(ca, cb)`` on the device.  Returns
+    ``y [n_out, b] = ca·(A_ell x) + cb·x[:n_out] − prev`` for the first
+    n_out rows of the ELL body; launches on the current stream and does not
+    synchronise."""
     _check_operands("ell_spmm_cheb_cuda", (("x", x, torch.float32),
                                            ("prev", prev, torch.float32)), cols, vals)
-    if prev.shape != x.shape:
-        raise ValueError(f"ell_spmm_cheb_cuda: prev {tuple(prev.shape)} must match x "
-                         f"{tuple(x.shape)}")
+    if prev.shape[1] != x.shape[1] or prev.shape[0] > x.shape[0]:
+        raise ValueError(f"ell_spmm_cheb_cuda: prev {tuple(prev.shape)} must have x's "
+                         f"columns and at most its rows {tuple(x.shape)}")
     if coef.device != x.device or coef.dtype != torch.float32 or coef.shape != (2,) \
             or not coef.is_contiguous():
         raise ValueError("ell_spmm_cheb_cuda: coef must be a contiguous float32 [2] "
                          "tensor (ca, cb) on the iterates' device")
     n, b = x.shape
+    n_out = prev.shape[0]
     n_rows, w = cols.shape
-    if n > n_rows:
-        raise ValueError(f"ell_spmm_cheb_cuda: {n} iterate rows but only {n_rows} ELL rows")
+    if n_out > n_rows:
+        raise ValueError(f"ell_spmm_cheb_cuda: {n_out} output rows but only {n_rows} ELL rows")
     if n_rows * b >= 2**31:
         raise ValueError("ell_spmm_cheb_cuda: rows·b must fit in int32")
-    y = torch.empty((n, b), dtype=torch.float32, device=x.device)
-    if n == 0 or b == 0:
+    y = torch.empty((n_out, b), dtype=torch.float32, device=x.device)
+    if n_out == 0 or b == 0:
         return y
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _cheb_lib()(x.data_ptr(), cols.data_ptr(), vals.data_ptr(), prev.data_ptr(),
-                          coef.data_ptr(), n, n, w, b, y.data_ptr(), stream)
+                          coef.data_ptr(), n, n_out, w, b, y.data_ptr(), stream)
     _build.check(err, "ell_spmm_cheb")
     return y

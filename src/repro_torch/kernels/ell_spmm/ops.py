@@ -60,14 +60,18 @@ def ell_spmm_cheb_step(m: BlockELL, x: torch.Tensor, prev: torch.Tensor, ca, cb)
 
     ``(ca, cb)`` may be 0-d tensors on the device of ``x``: the kernel reads
     them there, so a filter loop never reads them back to the host.  The
-    kernel computes only the first n rows of the ELL body, so unlike the
+    kernel computes only the first n_out = ``prev.shape[0]`` rows of the ELL
+    body (n_out ≤ n; ``x[:n_out]`` is the ``cb·x`` term), so unlike the
     reference the iterates are not padded to the layout's row count on
-    every step (the function is the same: padded rows are sliced off).
-    The COO tail contributes ``ca·(A_tail x)`` outside the kernel.
+    every step (the function is the same: padded rows are sliced off).  A
+    rank's [rows, n] layout under a mesh takes the whole x and its own
+    rows' ``prev``.  The COO tail contributes ``ca·(A_tail x)`` outside
+    the kernel.
     """
-    if x.ndim != 2 or prev.shape != x.shape:
-        raise ValueError(f"ell_spmm_cheb_step wants [n, b] iterates of one shape, got "
-                         f"{tuple(x.shape)} and {tuple(prev.shape)}")
+    if x.ndim != 2 or prev.ndim != 2 or prev.shape[1] != x.shape[1] \
+            or prev.shape[0] > x.shape[0]:
+        raise ValueError(f"ell_spmm_cheb_step wants [n, b] iterates and an [n_out ≤ n, b] "
+                         f"prev, got {tuple(x.shape)} and {tuple(prev.shape)}")
     nb, br, w = m.cols.shape
     cols2d = m.cols.reshape(nb * br, w)
     vals2d = m.vals.reshape(nb * br, w)

@@ -213,44 +213,67 @@ def _wigner_tables(l: int):
     return idx, coef, pc, ps, place
 
 
-def _complex_wigner_d_beta(l: int, beta: Tensor) -> Tensor:
-    """d^l(β): [..., 2l+1, 2l+1] real matrix (complex d is real-valued)."""
+@functools.lru_cache(maxsize=None)
+def _device_tables(l: int, device: torch.device):
+    """(coef, pc, ps, place) of :func:`_wigner_tables` and the rotation map
+    of :func:`_real_rotation_map` as fp32 tensors on ``device``: copied
+    there once a (degree, device), as ordinary tensors even when first
+    asked for under inference mode."""
     _, coef, pc, ps, place = _wigner_tables(l)
-    dev = beta.device
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
+                     for a in (coef, pc, ps, place, _real_rotation_map(l)))
+
+
+def _wigner_d_flat(l: int, beta: Tensor) -> Tensor:
+    """d^l(β) flattened row-major: [..., (2l+1)²]."""
+    coef, pc, ps, place, _ = _device_tables(l, beta.device)
     c = torch.cos(beta / 2.0)[..., None]
     s = torch.sin(beta / 2.0)[..., None]
-    vals = (torch.as_tensor(coef, dtype=torch.float32, device=dev)
-            * c ** torch.as_tensor(pc, dtype=torch.float32, device=dev)
-            * s ** torch.as_tensor(ps, dtype=torch.float32, device=dev))
-    out = vals @ torch.as_tensor(place, device=dev)
-    return out.reshape(beta.shape + (2 * l + 1, 2 * l + 1))
+    vals = coef * c ** pc * s ** ps
+    return vals @ place
+
+
+def _complex_wigner_d_beta(l: int, beta: Tensor) -> Tensor:
+    """d^l(β): [..., 2l+1, 2l+1] real matrix (complex d is real-valued)."""
+    return _wigner_d_flat(l, beta).reshape(beta.shape + (2 * l + 1, 2 * l + 1))
 
 
 @functools.lru_cache(maxsize=None)
-def _real_U(l: int):
+def _real_rotation_map(l: int) -> np.ndarray:
+    """The [2·(2l+1)², (2l+1)²] float32 map K with D^l's flat entries =
+    [cos(m_a α)·d_ab | sin(m_a α)·d_ab] · K, from the real basis change
+    U = Ur + i·Ui (see :func:`real_wigner_D`), formed in float64."""
     U = _real_basis_change(l)
-    return np.ascontiguousarray(U.real), np.ascontiguousarray(U.imag)
+    ur, ui = U.real, U.imag
+    n = 2 * l + 1
+    kc = np.einsum("ra,cb->abrc", ur, ur) + np.einsum("ra,cb->abrc", ui, ui)
+    ks = np.einsum("ra,cb->abrc", ur, ui) - np.einsum("ra,cb->abrc", ui, ur)
+    return np.concatenate([kc.reshape(n * n, n * n), ks.reshape(n * n, n * n)]).astype(np.float32)
 
 
 def real_wigner_D(l: int, alpha: Tensor, beta: Tensor) -> Tensor:
     """Real-basis Wigner D^l(Rz(α)·Ry(β)): [..., 2l+1, 2l+1].
 
     Complex D(α,β,0)_{m'm} = e^{-i m' α} d^l_{m'm}(β), transformed to the
-    real SH basis with conj(U)·D·Uᵀ (a real result).  Computed in real fp32
-    arithmetic: with U = Ur + i·Ui and Q = conj(U)·diag(e^{-imα}),
-    Q = Qr + i·Qi with Qr = Ur·cos(mα) − Ui·sin(mα),
+    real SH basis with conj(U)·D·Uᵀ (a real result).  With U = Ur + i·Ui
+    and Q = conj(U)·diag(e^{-imα}) = Qr + i·Qi, Qr = Ur·cos(mα) − Ui·sin(mα),
     Qi = −(Ur·sin(mα) + Ui·cos(mα)), and since d is real,
-    Re(Q·d·Uᵀ) = Qr·d·Urᵀ − Qi·d·Uiᵀ.
+    Re(Q·d·Uᵀ) = Qr·d·Urᵀ − Qi·d·Uiᵀ, whose entries are linear in
+    cos(m_a α)·d_ab and sin(m_a α)·d_ab: one fp32 product of those
+    2·(2l+1)² values a rotation with a constant map
+    (:func:`_real_rotation_map`).  Every op is elementwise over the leading
+    axes or a 2-D product on them (no batched product, no view that folds
+    them), so a DTensor sharded unevenly along the edges takes it as it is.
     """
-    d = _complex_wigner_d_beta(l, beta)
+    n = 2 * l + 1
+    d = _wigner_d_flat(l, beta)  # [..., n²], entry (a, b) at a·n + b
     dev = alpha.device
-    ur, ui = (torch.as_tensor(u, dtype=torch.float32, device=dev) for u in _real_U(l))
-    ms = torch.arange(-l, l + 1, dtype=torch.float32, device=dev)
-    ang = alpha.float()[..., None] * ms  # [..., 2l+1]
-    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
-    qr = ur * cos - ui * sin  # [..., r, m]
-    qi = -(ur * sin + ui * cos)
-    return qr @ d @ ur.T - qi @ d @ ui.T
+    ms = torch.arange(-l, l + 1, dtype=torch.float32, device=dev).repeat_interleave(n)
+    ang = alpha.float()[..., None] * ms  # [..., n²]: m_a α at (a, b)
+    feat = torch.cat([torch.cos(ang) * d, torch.sin(ang) * d], -1)
+    rot = feat @ _device_tables(l, dev)[4]
+    return rot.reshape(alpha.shape + (n, n))
 
 
 def edge_alignment_angles(vec: Tensor):

@@ -11,11 +11,16 @@ Two execution paths share it, as in the reference:
 ``spmv_gspmd`` / ``spmm_gspmd`` — the single-process layout path: one
     index-add over :func:`global_rows`, on one device.
 ``make_sharded_spmv`` / ``make_sharded_spmm`` — the mesh path over
-    ``torch.distributed``: each rank index-adds its own bucket into its row
-    block of ``A·x`` and all-gathers the product, one collective a product.
-    The reference gathers ``x`` before the product instead; here the dense
-    state stays whole on every rank (``core/distributed_pipeline.py`` says
-    why), so it is the output that travels.
+    ``torch.distributed``, row block in, row block out, as the reference's
+    ``shard_map`` specs say: each rank all-gathers the input ``x`` from
+    the ranks' row blocks (one collective a product) and index-adds its
+    own bucket into its row block of ``A·x``.
+
+Dense state on the mesh path is distributed the same way: a
+:class:`RowBlock` names this rank's rows of an n-row array and carries the
+collectives that a contraction over n needs (an all-reduce of the small
+result, a tall-skinny QR).  On a one-rank axis, or off a mesh, each of them
+is the identity or the plain one-device op.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (NCCL on cards,
 gloo on the CPU) and an axis one of its dimension names; the collectives
@@ -28,7 +33,7 @@ takes the place of the reference's jaxpr walk.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -154,6 +159,8 @@ class CollectiveCounter:
     """Calls and bytes of each collective, by the reference's model of bytes
     received per shard (``repro.sparse.distributed.collective_bytes``)."""
 
+    # no collective of the plan broadcasts: "broadcast" stays 0, and a run
+    # that shows it so says no rank's state is another's copy
     NAMES = ("all_gather", "ppermute", "psum", "broadcast")
 
     def __init__(self):
@@ -221,13 +228,6 @@ def all_reduce(t: torch.Tensor, ax: Axis) -> torch.Tensor:
     return t
 
 
-def broadcast(t: torch.Tensor, ax: Axis, src: int = 0) -> torch.Tensor:
-    """In place: coordinate ``src``'s ``t`` on every rank of the axis."""
-    dist.broadcast(t, src=ax.global_rank(src), group=ax.group)
-    COLLECTIVES.add("broadcast", t.numel() * t.element_size())
-    return t
-
-
 def ring_perm(size: int):
     """The forward ring over a ``size``-shard axis: shard i sends to shard
     (i+1) % size.  After t steps, shard i holds the payload that started on
@@ -287,38 +287,149 @@ def _check_mesh(sm: ShardedCOO, ax: Axis) -> None:
 
 
 def make_sharded_spmv(mesh, sm: ShardedCOO, *, axis="data", gather_dtype=None):
-    """``spmv(row_local, col, val, x) -> y``: ``x`` [n_pad] whole on every
-    rank, the rank's row block of ``W x`` index-added from its bucket (fp32),
-    cast to ``gather_dtype`` (optional: bf16 halves the bytes) and
-    all-gathered into the whole ``y`` — one collective a product."""
+    """``spmv(row_local, col, val, x_blk) -> y_blk``: this rank's row block
+    ``x_blk`` [rows_per_shard], cast to ``gather_dtype`` (optional: bf16
+    halves the bytes) and all-gathered into the whole ``x`` — one
+    collective a product —, then the rank's bucket index-added (fp32) into
+    its row block of ``W x``, returned in ``x_blk``'s dtype."""
     ax = mesh_axis(mesh, axis)
     _check_mesh(sm, ax)
     gdt = None if gather_dtype is None else getattr(torch, str(gather_dtype))
 
-    def spmv(row_local, col, val, x):
+    def spmv(row_local, col, val, x_blk):
         rl, c, v = _local_bucket(sm, row_local, col, val, ax)
-        y = torch.zeros(sm.rows_per_shard, dtype=torch.float32, device=x.device)
+        x = all_gather(x_blk if gdt is None else x_blk.to(gdt), ax)
+        y = torch.zeros(sm.rows_per_shard, dtype=torch.float32, device=x_blk.device)
         y.index_add_(0, rl, v.float() * x[c].float())
-        return all_gather(y.to(gdt or x.dtype), ax).to(x.dtype)
+        return y.to(x_blk.dtype)
 
     return spmv
 
 
+def _gather_block(x_blk: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """The whole [n, b] block from the ranks' [rows, b] blocks, laid out as
+    ``x_blk`` is: a column-major block (a Krylov block sliced from the basis)
+    is gathered column by column, so the product's row gather ``x[c]``
+    reads it as the caller laid it out (gathering a narrow block row-major
+    made the world-size-1 mesh path on an H100 1.7× slower; PERF.md)."""
+    b = x_blk.shape[1]
+    if b == 1 or not x_blk.T.is_contiguous():
+        return all_gather(x_blk, ax)
+    cols = all_gather(x_blk.T, ax)  # [S·b, rows]: each rank's columns
+    return cols.view(ax.size, b, -1).transpose(0, 1).reshape(b, -1).T
+
+
 def make_sharded_spmm(mesh, sm: ShardedCOO, *, axis="data", gather_dtype=None):
-    """``spmm(row_local, col, val, x) -> y`` for X/Y of shape [n_pad, b]:
-    one all-gather moves the whole [n_pad, b] product, so the collective
-    cost a vector drops b× (the block eigensolver's amortization)."""
+    """``spmm(row_local, col, val, x_blk) -> y_blk`` for row blocks of shape
+    [rows_per_shard, b]: one all-gather moves the whole [n_pad, b] input,
+    so the collective cost a vector drops b× (the block eigensolver's
+    amortization)."""
     ax = mesh_axis(mesh, axis)
     _check_mesh(sm, ax)
     gdt = None if gather_dtype is None else getattr(torch, str(gather_dtype))
 
-    def spmm(row_local, col, val, x):
+    def spmm(row_local, col, val, x_blk):
         rl, c, v = _local_bucket(sm, row_local, col, val, ax)
-        y = torch.zeros((sm.rows_per_shard, x.shape[1]), dtype=torch.float32, device=x.device)
+        x = _gather_block(x_blk if gdt is None else x_blk.to(gdt), ax)
+        y = torch.zeros((sm.rows_per_shard, x_blk.shape[1]), dtype=torch.float32,
+                        device=x_blk.device)
         y.index_add_(0, rl, v.float()[:, None] * x[c].float())
-        return all_gather(y.to(gdt or x.dtype), ax).to(x.dtype)
+        return y.to(x_blk.dtype)
 
     return spmm
+
+
+def sharded_degrees(sm: ShardedCOO, ax: Axis) -> torch.Tensor:
+    """The whole [n_pad] fp32 degree vector: each rank sums its own
+    bucket's rows (fp32, in the bucket's edge order) and the blocks are
+    all-gathered — one collective, and every rank holds the same degrees."""
+    rl, _, v = _local_bucket(sm, sm.row_local, sm.col, sm.val, ax)
+    d = torch.zeros(sm.rows_per_shard, dtype=torch.float32, device=v.device)
+    return all_gather(d.index_add_(0, rl, v.float()), ax)
+
+
+# ---------------------------------------------------------------------------
+# Dense state by row blocks
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RowBlock:
+    """This rank's rows ``[lo, hi)`` of an ``n``-row array distributed by
+    row blocks over ``ax`` (the sharded plan's layout of its Krylov basis,
+    Chebyshev block and embedding; ``ax`` None off a mesh).
+
+    A contraction over n is a local product plus :meth:`psum` of its small
+    result; :meth:`qr` is a tall-skinny QR; a draw or a vector every rank
+    holds whole is sliced with :meth:`take`.  Unless the axis has more
+    than one rank (:attr:`split`), each method is the identity or the plain
+    one-device op and makes no collective, so such a run computes bit for
+    bit what it computes without a mesh."""
+
+    ax: Optional[Axis]
+    lo: int
+    hi: int
+    n: int
+
+    @classmethod
+    def whole(cls, n: int) -> "RowBlock":
+        return cls(None, 0, n, n)
+
+    @classmethod
+    def of(cls, ax: Axis, n: int) -> "RowBlock":
+        """Coordinate ``ax.rank``'s block of ``n`` rows (``n`` divisible by
+        the axis' size)."""
+        if n % ax.size:
+            raise ValueError(f"{n} rows do not split into {ax.size} equal row blocks")
+        nl = n // ax.size
+        return cls(ax, ax.rank * nl, (ax.rank + 1) * nl, n)
+
+    @property
+    def split(self) -> bool:
+        return self.ax is not None and self.ax.size > 1
+
+    @property
+    def size(self) -> int:
+        return self.hi - self.lo
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``t``, which every rank holds whole."""
+        return t[self.lo:self.hi] if self.split else t
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the axis of each rank's partial ``t`` (a new tensor)."""
+        if not self.split:
+            return t
+        return all_reduce(t.clone(memory_format=torch.contiguous_format), self.ax)
+
+    def norm(self, x: torch.Tensor, dim=None) -> torch.Tensor:
+        """``torch.linalg.norm`` over the rows of all ranks (over every
+        element, or along ``dim``)."""
+        if not self.split:
+            return torch.linalg.norm(x, dim=dim)
+        sq = (x * x).sum() if dim is None else (x * x).sum(dim)
+        return torch.sqrt(self.psum(sq))
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole array from the ranks' row blocks."""
+        return all_gather(t, self.ax) if self.split else t
+
+    def qr(self, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Reduced QR of the row-distributed [n, b] ``w``: this rank's rows
+        of Q and the whole R, the same on every rank.  Tall-skinny: each
+        rank factors its rows (its R padded with zero rows to [b, b] when it
+        has fewer than b), one all-gather stacks the S small factors, and
+        every rank factors the [S·b, b] stack and keeps its block of that Q.
+        A column of ``w`` that R finds deficient gets an arbitrary direction,
+        as in the one-device QR."""
+        if not self.split:
+            return torch.linalg.qr(w)
+        b = w.shape[1]
+        q1, r1 = torch.linalg.qr(w)  # [nl, min(nl, b)], [min(nl, b), b]
+        if r1.shape[0] < b:
+            r1 = torch.cat([r1, r1.new_zeros((b - r1.shape[0], b))])
+        q2, r = torch.linalg.qr(all_gather(r1.contiguous(), self.ax))
+        blk = self.ax.rank * b
+        return q1 @ q2[blk:blk + q1.shape[1]], r
 
 
 def collective_bytes() -> dict:

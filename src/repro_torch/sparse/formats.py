@@ -178,6 +178,14 @@ def _quantile_int(deg: torch.Tensor, q: float) -> int:
     return int(b - (b - a) * (1 - t) if t >= 0.5 else a + (b - a) * t)
 
 
+def ell_width(deg: torch.Tensor, *, width_quantile: float = 0.95,
+              lane_multiple: int = 8) -> int:
+    """The ELL width :func:`csr_to_blockell` picks for rows of degrees
+    ``deg``: their ``width_quantile`` rounded up to ``lane_multiple``."""
+    q = _quantile_int(deg, width_quantile) if deg.numel() else lane_multiple
+    return max(lane_multiple, math.ceil(max(q, 1) / lane_multiple) * lane_multiple)
+
+
 def csr_to_blockell(
     m: CSR,
     *,
@@ -196,8 +204,7 @@ def csr_to_blockell(
     n_rows = m.shape[0]
     deg = m.indptr[1:] - m.indptr[:-1]
     if width is None:
-        q = _quantile_int(deg, width_quantile) if n_rows else lane_multiple
-        width = max(lane_multiple, math.ceil(max(q, 1) / lane_multiple) * lane_multiple)
+        width = ell_width(deg, width_quantile=width_quantile, lane_multiple=lane_multiple)
     n_blocks = (n_rows + block_rows - 1) // block_rows
     pad_rows = n_blocks * block_rows
 

@@ -159,46 +159,132 @@ def knn_rank(rank: int, world: int, spec: dict) -> dict:
 
 
 def kmeans_rank(rank: int, world: int, spec: dict) -> dict:
-    """``kmeans_sharded`` of ``spec["x"]`` under ``KMeansConfig(**spec["cfg"])``
-    (from ``spec["init"]`` when given, else seeded from ``spec["seed"]``)."""
+    """``kmeans_sharded`` of this rank's rows of ``spec["x"]`` under
+    ``KMeansConfig(**spec["cfg"])`` (from ``spec["init"]`` when given, else
+    seeded from ``spec["seed"]``)."""
     from repro_torch._device import cpu_generator
     from repro_torch.core.distributed_pipeline import kmeans_sharded
     from repro_torch.core.kmeans import KMeansConfig
-    from repro_torch.sparse.distributed import COLLECTIVES
+    from repro_torch.sparse.distributed import COLLECTIVES, shard_vector
 
     mesh, dev = _mesh(spec), _device(spec)
-    x = torch.as_tensor(spec["x"], device=dev)
+    axis = spec.get("axis", "data")
+    x = shard_vector(mesh, torch.as_tensor(spec["x"], device=dev), axis)
     init = spec.get("init")
     COLLECTIVES.reset()
     res = kmeans_sharded(x, KMeansConfig(**spec["cfg"]), cpu_generator(spec.get("seed", 0)),
-                         mesh=mesh, axis=spec.get("axis", "data"),
+                         mesh=mesh, axis=axis,
                          init_centroids=None if init is None else torch.as_tensor(init, device=dev))
     return {"labels": _np(res.labels), "centroids": _np(res.centroids),
             "inertia": float(res.inertia), "iterations": res.iterations, **_counts()}
 
 
 def operator_rank(rank: int, world: int, spec: dict) -> dict:
-    """``ShardedCooOperator(mesh=...)`` products ``mv`` and ``mm`` of
-    ``spec["x"]`` over the COO ``spec["graph"]`` (row, col, val, n)
-    partitioned onto the mesh axis, and ``make_sharded_spmm`` given only
-    this rank's bucket (``shard_edges``)."""
+    """``ShardedCooOperator(mesh=...)`` products ``mv`` and ``mm`` of this
+    rank's rows of ``spec["x"]`` over the COO ``spec["graph"]`` (row, col,
+    val, n) partitioned onto the mesh axis, and ``make_sharded_spmm`` given
+    only this rank's bucket (``shard_edges``), and ``mm`` of a column-major
+    block: the collectives of the first two products, each product's rows
+    (``*_rows``) and, gathered after the count, the whole products."""
     from repro_torch.core.operator import ShardedCooOperator
-    from repro_torch.sparse.distributed import (COLLECTIVES, make_sharded_spmm, mesh_axis,
-                                                partition_coo_by_rows, shard_edges)
+    from repro_torch.sparse.distributed import (COLLECTIVES, all_gather, make_sharded_spmm,
+                                                mesh_axis, partition_coo_by_rows, shard_edges,
+                                                shard_vector)
+    from repro_torch.sparse.formats import COO
+
+    mesh, dev = _mesh(spec), _device(spec)
+    ax = mesh_axis(mesh)
+    g = spec["graph"]
+    w = COO(torch.as_tensor(g["row"], device=dev).long(), torch.as_tensor(g["col"], device=dev).long(),
+            torch.as_tensor(g["val"], device=dev), (g["n"], g["n"]))
+    sm = partition_coo_by_rows(w, ax.size)
+    op = ShardedCooOperator(sm, variant="shard_map", mesh=mesh,
+                            gather_dtype=spec.get("gather_dtype"))
+    x = shard_vector(mesh, torch.as_tensor(spec["x"], device=dev))
+    COLLECTIVES.reset()
+    mv, mm = op.mv(x[:, 0]), op.mm(x)
+    out = _counts()
+    bucket = make_sharded_spmm(mesh, sm)(*shard_edges(mesh, sm), x)
+    by_cols = op.mm(x.T.contiguous().T)  # a column-major block, as Lanczos slices one
+    for name, y in (("mv", mv), ("mm", mm), ("mm_bucket", bucket), ("mm_colmajor", by_cols)):
+        out[f"{name}_rows"] = tuple(y.shape)
+        out[name] = _np(all_gather(y, ax))
+    return out
+
+
+def ell_operator_rank(rank: int, world: int, spec: dict) -> dict:
+    """``SpectralPipeline.operator`` under ``representation="blockell"`` on
+    the mesh, of the COO ``spec["graph"]`` (row, col, val, n) whole and
+    partitioned onto the mesh axis (``_sharded``), applied to this rank's
+    rows of ``spec["x"]`` [n, b]: ``mv`` of its first column, ``mm``,
+    ``mm`` of a column-major block and the fused ``cheb_step`` with
+    ``spec["prev"]``'s rows and (ca, cb) = (0.5, −0.25).  The operators'
+    classes, the collectives of the COO graph's ``mv`` and ``mm``, each
+    product's rows (``*_rows``) and, gathered after the count, the whole
+    products."""
+    from repro_torch.core.spectral import EigConfig, GraphState, Plan, SpectralPipeline
+    from repro_torch.sparse.distributed import (COLLECTIVES, all_gather, mesh_axis,
+                                                partition_coo_by_rows, shard_vector)
+    from repro_torch.sparse.formats import COO
+
+    mesh, dev = _mesh(spec), _device(spec)
+    ax = mesh_axis(mesh)
+    g = spec["graph"]
+    w = COO(torch.as_tensor(g["row"], device=dev).long(), torch.as_tensor(g["col"], device=dev).long(),
+            torch.as_tensor(g["val"], device=dev), (g["n"], g["n"]))
+    pipe = SpectralPipeline(n_clusters=2, eig=EigConfig(representation="blockell"),
+                            plan=Plan(device="sharded", variant="shard_map", mesh=mesh))
+    x = shard_vector(mesh, torch.as_tensor(spec["x"], device=dev))
+    prev = shard_vector(mesh, torch.as_tensor(spec["prev"], device=dev))
+    out = {}
+    for tag, adj in (("", w), ("_sharded", partition_coo_by_rows(w, ax.size))):
+        op = pipe.operator(GraphState(adj, None, None))
+        out[f"operator{tag}"] = type(op).__name__
+        COLLECTIVES.reset()
+        mv, mm = op.mv(x[:, 0]), op.mm(x)
+        if not tag:
+            out.update(_counts())
+        products = (("mv", mv), ("mm", mm), ("mm_colmajor", op.mm(x.T.contiguous().T)),
+                    ("cheb", op.cheb_step(x, prev, 0.5, -0.25)))
+        for name, y in products:
+            out[f"{name}{tag}_rows"] = tuple(y.shape)
+            out[f"{name}{tag}"] = _np(all_gather(y, ax))
+    return out
+
+
+def eigsh_rank(rank: int, world: int, spec: dict) -> dict:
+    """``lanczos.eigsh`` under ``LanczosConfig(**spec["cfg"])`` of the mesh
+    operator over the COO ``spec["graph"]`` (row, col, val, n) partitioned
+    onto the mesh axis: the eigenvalues, this rank's rows of the
+    eigenvectors and how many random directions the careful path drew."""
+    import repro_torch.core.lanczos as lz
+    from repro_torch._device import cpu_generator
+    from repro_torch.core.operator import ShardedCooOperator
+    from repro_torch.sparse.distributed import mesh_axis, partition_coo_by_rows
     from repro_torch.sparse.formats import COO
 
     mesh, dev = _mesh(spec), _device(spec)
     g = spec["graph"]
     w = COO(torch.as_tensor(g["row"], device=dev).long(), torch.as_tensor(g["col"], device=dev).long(),
             torch.as_tensor(g["val"], device=dev), (g["n"], g["n"]))
-    sm = partition_coo_by_rows(w, mesh_axis(mesh).size)
-    op = ShardedCooOperator(sm, variant="shard_map", mesh=mesh,
-                            gather_dtype=spec.get("gather_dtype"))
-    x = torch.as_tensor(spec["x"], device=dev)
-    COLLECTIVES.reset()
-    out = {"mv": _np(op.mv(x[:, 0])), "mm": _np(op.mm(x)), **_counts()}
-    out["mm_bucket"] = _np(make_sharded_spmm(mesh, sm)(*shard_edges(mesh, sm), x))
-    return out
+    op = ShardedCooOperator(partition_coo_by_rows(w, mesh_axis(mesh).size), mesh=mesh)
+    with _refills() as refills:
+        res = lz.eigsh(op, lz.LanczosConfig(**spec["cfg"]),
+                       generator=cpu_generator(spec.get("seed", 0)))
+    return {"eigenvalues": _np(res.eigenvalues), "eigenvectors": _np(res.eigenvectors),
+            "refills": len(refills)}
+
+
+def qr_rank(rank: int, world: int, spec: dict) -> dict:
+    """``RowBlock.qr`` of this rank's rows of ``spec["w"]`` [n, b] over the
+    mesh axis: its rows of Q and the whole R."""
+    from repro_torch.sparse.distributed import RowBlock, mesh_axis
+
+    mesh, dev = _mesh(spec), _device(spec)
+    w = torch.as_tensor(spec["w"], device=dev)
+    rows = RowBlock.of(mesh_axis(mesh), w.shape[0])
+    q, r = rows.qr(rows.take(w))
+    return {"q": _np(q), "r": _np(r)}
 
 
 def pipeline_rank(rank: int, world: int, spec: dict) -> dict:
@@ -206,12 +292,16 @@ def pipeline_rank(rank: int, world: int, spec: dict) -> dict:
     on ``spec["x"]`` (points, with ``spec["points"]`` as the search
     coordinates when given) or on ``spec["graph"]`` (a COO's row, col, val,
     n) partitioned onto the mesh axis — with ``spec["own_bucket"]`` each
-    rank is handed only its own bucket of it; the labels, embedding, eigenvalues,
-    the stage trail and the collectives the run made.  With
-    ``spec["flip_off_home"]`` the eigensolver of every rank but coordinate
-    0 returns its last eigenvector negated, as the card's rounding can flip
-    an eigenvector's sign on one rank and not on another."""
-    import repro_torch.core.lanczos as lz
+    rank is handed only its own bucket of it; the labels, this rank's rows
+    of the embedding, the eigenvalues, the stage trail, the collectives the
+    run made, the row counts of the vectors and blocks the eigensolver
+    applied the operator to (``basis_rows``) and the operators' classes
+    (``operators``), the BlockELL kernels' launches on the card
+    (``launches``), and how many random directions Lanczos' careful path
+    drew (``refills``).  With ``spec["draws"]`` the
+    Chebyshev solver's three draws are those arrays, not ``draw_signals``'s
+    (how parity tests put the reference's draws in)."""
+    import repro_torch.core.chebyshev as cheb
     from repro_torch._device import cpu_generator
     from repro_torch.core.spectral import SpectralPipeline
     from repro_torch.sparse.distributed import COLLECTIVES, mesh_axis, partition_coo_by_rows
@@ -220,17 +310,15 @@ def pipeline_rank(rank: int, world: int, spec: dict) -> dict:
     mesh, dev = _mesh(spec), _device(spec)
     pipe = SpectralPipeline.from_dict(spec["pipeline"], mesh=mesh)
     gen = cpu_generator(spec.get("seed", 0))
-    eigsh = lz.eigsh
-    if spec.get("flip_off_home") and mesh_axis(mesh, pipe.plan.axis).rank:
-        def flipped(*a, **kw):
-            res = eigsh(*a, **kw)
-            vecs = res.eigenvectors.clone()
-            vecs[:, -1] = -vecs[:, -1]
-            return res._replace(eigenvectors=vecs)
-
-        lz.eigsh = flipped
+    draw_signals = cheb.draw_signals
+    if "draws" in spec:
+        cheb.draw_signals = lambda gen, n, n_probes, r, device: tuple(
+            torch.as_tensor(a, device=device) for a in spec["draws"])
     COLLECTIVES.reset()
-    try:
+    kernels = _ell_wrappers()
+    for fn in kernels:
+        fn.launches = 0
+    with _basis_rows() as products, _refills() as refills:
         if "graph" in spec:
             g = spec["graph"]
             w = COO(torch.as_tensor(g["row"], device=dev).long(),
@@ -244,12 +332,106 @@ def pipeline_rank(rank: int, world: int, spec: dict) -> dict:
             st = pipe.run_state(sm, gen, device=dev)
         else:
             st = pipe.run_state(spec["x"], gen, points=spec.get("points"), device=dev)
-    finally:
-        lz.eigsh = eigsh
+    cheb.draw_signals = draw_signals
     res = st.result
     return {"labels": _np(res.labels), "embedding": _np(res.embedding),
             "eigenvalues": _np(res.eigenvalues), "kmeans_iterations": res.kmeans_iterations,
-            "provenance": st.provenance, **_counts()}
+            "provenance": st.provenance, "basis_rows": sorted(set(products.rows)),
+            "operators": sorted(products.kinds), "refills": len(refills),
+            "launches": {fn.__name__: fn.launches for fn in kernels}, **_counts()}
+
+
+def _ell_wrappers() -> tuple:
+    """The BlockELL kernels' wrappers, whose ``launches`` count their
+    launches on the card."""
+    from repro_torch.kernels.ell_spmm.ops import ell_spmm, ell_spmm_cheb_step
+    from repro_torch.kernels.ell_spmv.ops import ell_spmv
+
+    return ell_spmv, ell_spmm, ell_spmm_cheb_step
+
+
+def checkpoint_rank(rank: int, world: int, spec: dict) -> dict:
+    """``pipeline_rank``'s run of ``spec["graph"]``, its state saved with
+    ``state_io.save_state`` (this rank's directory under ``spec["dir"]``)
+    and loaded back with the pipeline: the saved embeddings' shapes, this
+    rank's rows, and whether the loaded rows are the run's."""
+    from repro_torch._device import cpu_generator
+    from repro_torch.core import state_io
+    from repro_torch.core.spectral import SpectralPipeline
+    from repro_torch.sparse.distributed import mesh_axis, partition_coo_by_rows
+    from repro_torch.sparse.formats import COO
+
+    mesh, dev = _mesh(spec), _device(spec)
+    pipe = SpectralPipeline.from_dict(spec["pipeline"], mesh=mesh)
+    g = spec["graph"]
+    w = COO(torch.as_tensor(g["row"], device=dev).long(), torch.as_tensor(g["col"], device=dev).long(),
+            torch.as_tensor(g["val"], device=dev), (g["n"], g["n"]))
+    sm = partition_coo_by_rows(w, mesh_axis(mesh, pipe.plan.axis).size)
+    st = pipe.run_state(sm, cpu_generator(0), device=dev)
+    tree = state_io.state_to_tree(st, pipe)
+    directory = state_io.save_state(os.path.join(spec["dir"], f"rank{rank}"), st, pipe)
+    back, _ = state_io.load_state(directory, pipe, device=dev)
+    return {"saved": {k: tree[k].shape for k in ("embedding.embedding", "result.embedding")},
+            "rows": _np(st.result.embedding), "whole": tree["result.embedding"],
+            "loaded_equal": bool(torch.equal(back.result.embedding, st.result.embedding)
+                                 and torch.equal(back.embedding.embedding,
+                                                 st.embedding.embedding))}
+
+
+class _basis_rows:
+    """Records the row count of every vector block the eigensolvers run on
+    (each row-distributed operator product's input: ``rows``) and the
+    operators' classes (``kinds``) while it is entered."""
+
+    def _products(self):
+        from repro_torch.core.operator import RowBlockEllOperator, ShardedCooOperator
+
+        return [(ShardedCooOperator, "mv"), (ShardedCooOperator, "mm"),
+                (RowBlockEllOperator, "mv"), (RowBlockEllOperator, "mm"),
+                (RowBlockEllOperator, "cheb_step")]
+
+    def __enter__(self) -> "_basis_rows":
+        self.rows, self.kinds = [], set()
+        self.saved = [getattr(c, name) for c, name in self._products()]
+
+        def spy(fn):
+            def product(op, x, *a):
+                self.rows.append(int(x.shape[0]))
+                self.kinds.add(type(op).__name__)
+                return fn(op, x, *a)
+            return product
+
+        for (c, name), fn in zip(self._products(), self.saved):
+            setattr(c, name, spy(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (c, name), fn in zip(self._products(), self.saved):
+            setattr(c, name, fn)
+
+
+class _refills:
+    """Records each random direction Lanczos' careful path draws while it
+    is entered."""
+
+    NAMES = ("_orthonormal_against", "_orthonormal_block_against")
+
+    def __enter__(self) -> list:
+        import repro_torch.core.lanczos as lz
+
+        self.calls, self.saved = [], [getattr(lz, name) for name in self.NAMES]
+        for name, fn in zip(self.NAMES, self.saved):
+            def drawn(*a, _fn=fn, **kw):
+                self.calls.append(1)
+                return _fn(*a, **kw)
+            setattr(lz, name, drawn)
+        return self.calls
+
+    def __exit__(self, *exc):
+        import repro_torch.core.lanczos as lz
+
+        for name, fn in zip(self.NAMES, self.saved):
+            setattr(lz, name, fn)
 
 
 def launch_rank(rank: int, world: int, spec: dict) -> dict:

@@ -216,7 +216,9 @@ def dry_runs(tmp_path_factory):
             from repro_torch.configs.cells import spectral_component_cells
             from repro_torch.core.health import is_concrete
 
-            res = {{"fb": dryrun.run_cell("spectral", "fb", "single", mesh=mesh)}}
+            res = {{"fb": dryrun.run_cell("spectral", "fb", "single", mesh=mesh),
+                    "dti": dryrun.run_cell("spectral", "dti", "single", mesh=mesh,
+                                           skip_cost_pass=True)}}
             cell = build_cell(ARCHS["spectral"], "fb", rules, mesh=mesh)
             step = spectral_component_cells(ARCHS["spectral"], "fb", rules, mesh=mesh)[0][1]
             with shd.axis_rules(rules, mesh), implicit_replication():
@@ -376,7 +378,8 @@ def _j_component_flops():
 
 def test_spectral_component_flops_are_the_analytic_formulas(dry_runs):
     """Each fb component cell's flops a call on one rank of (16, 16), as the
-    port's plan computes: its own bucket of E edges, the dense state whole.
+    port's plan computes: its own bucket of E edges and its own rps = n/16
+    rows of V, v and h (the reference's specs), derived from the shapes.
     The products are exact — SpMV 2·E, GEMV 2·rows·cols, GEMM 2·m·n·k, B2
     2·n·k·d plus its n·(d+1) epilogue adds —, and what the counter adds for
     the elementwise ops beside them (XLA's convention: one flop a result
@@ -387,23 +390,27 @@ def test_spectral_component_flops_are_the_analytic_formulas(dry_runs):
     k, m = d["k"], 2 * d["k"]
     sm = t_cells.build_cell(ARCHS["spectral"], "fb", {}).args[0]
     n, E = sm.shape[0], sm.edges_per_shard
+    rps = n // 16
     l_keep = min(m - 1, k + max(1, (m - k) // 2))
     products = {
-        # SpMV over the own bucket, 4 GEMVs against V [m+1, n]
-        "lanczos_step": 2 * E + 4 * 2 * (m + 1) * n,
-        # the Ritz rotation, a [l_keep, m] × [m, n] GEMM (eigh's 10·m³ is
+        # SpMV over the own bucket, 4 GEMVs against the rank's V [m+1, rps]
+        "lanczos_step": 2 * E + 4 * 2 * (m + 1) * rps,
+        # the Ritz rotation, a [l_keep, m] × [m, rps] GEMM (eigh's 10·m³ is
         # added analytically per run)
-        "restart": 2 * l_keep * m * n,
-        # B2 (d = k)
-        "kmeans_iter": 2 * n * k * k + n * (k + 1),
-        # h·c and the one-hot row read, two GEMVs against h [n, k]
-        "kmeanspp_step": 2 * 2 * n * k,
+        "restart": 2 * l_keep * m * rps,
+        # B2 (d = k) on the rank's rows
+        "kmeans_iter": 2 * rps * k * k + rps * (k + 1),
+        # h·c, one GEMV against the rank's h [rps, k] (the drawn row is
+        # fetched by an index, not a product)
+        "kmeanspp_step": 2 * rps * k,
     }
     elementwise = {
-        "lanczos_step": 4 * n,  # the two subtractions over n
+        "lanczos_step": 4 * rps,  # the two subtractions over the rank's rows
         "restart": m * m,  # none beside the GEMM
-        "kmeans_iter": 2 * n + 4 * k * (k + 1),  # the inertia's sum, the centroid update
-        "kmeanspp_step": 2 * n * k + 12 * n + 4 * k,  # ‖h‖², a dozen vector ops over n
+        # the inertia's sum over the rank's rows, the centroid update
+        "kmeans_iter": 2 * rps + 4 * k * (k + 1),
+        # ‖h‖², a dozen vector ops over the rank's rows, the fetch of [k]
+        "kmeanspp_step": 2 * rps * k + 12 * rps + 4 * k,
     }
     comps = dry_runs["fb"]["spectral_components"]
     ref = _j_component_flops()
@@ -416,12 +423,27 @@ def test_spectral_component_flops_are_the_analytic_formulas(dry_runs):
 
 
 def test_lanczos_step_gathers_one_product(dry_runs):
-    """The mesh path's one collective a Lanczos step: an all-gather of the
-    product's n_pad fp32 entries."""
+    """The reference's schedule of a Lanczos step on the mesh: one
+    all-gather of the operator's input, n_pad fp32 entries, and two
+    all-reduces of the (m+1)-entry coefficients ``V @ w``."""
     n = t_cells.build_cell(ARCHS["spectral"], "fb", {}).args[0].shape[0]
-    assert dry_runs["fb_step_coll"] == [["all_gather", n * 4]]
+    m = 2 * ARCHS["spectral"].shapes["fb"].dims["k"]
+    assert dry_runs["fb_step_coll"] == [["all_gather", n * 4], ["all_reduce", (m + 1) * 4],
+                                        ["all_reduce", (m + 1) * 4]]
     assert dry_runs["fb"]["spectral_components"]["lanczos_step"]["per_call"]["coll"] == {
-        "all_gather": n * 4, "all_reduce": 0, "reduce_scatter": 0, "all_to_all": 0}
+        "all_gather": n * 4, "all_reduce": 2 * (m + 1) * 4, "reduce_scatter": 0,
+        "all_to_all": 0}
+
+
+@pytest.mark.parametrize("cell", ["fb", "dti"])
+def test_spectral_cell_plans_each_rank_its_own_rows(dry_runs, cell):
+    """At (16, 16) a rank of ``spectral/fb`` or ``spectral/dti`` holds its
+    own rows of the Krylov basis and the embedding, not the whole of them:
+    at most 0.4 GB (GiB, as the report's) at peak — DTI's whole basis alone
+    is 0.53 GiB."""
+    res = dry_runs[cell]
+    assert "error" not in res
+    assert res["memory_analysis"]["total_hbm_gb"] <= 0.4, res["memory_analysis"]
 
 
 def test_equiv_norm_on_an_uneven_node_shard_is_the_plain_result(dry_runs):

@@ -9,11 +9,20 @@ mesh — is held against the single-device reference and the single-device
 port; the reference's sharded functions are called directly where they
 still run here (the layout, the gspmd operator, the layout path).
 
+The mesh path keeps Stage 2's and Stage 3's dense state as each rank's row
+block: every rank's operator inputs (the Krylov basis rows, the Chebyshev
+block) and its embedding hold n/S rows, and the eigenvalues are bitwise
+the same on every rank with no broadcast.
+
 Tolerances: kNN ids and distances bitwise across ring, gather and the
 single-device port, ids equal and distances rtol 1e-5 against the
 reference's BLAS-form distances; k-means labels and iterations equal,
-centroids rtol 1e-5; labels as partitions (ARI ≥ 0.99) against the
-reference's, whose random draws differ.
+centroids rtol 1e-5; eigenvalues within 1e-4 of the single-device port
+and of the reference (both converge to tol 1e-5 in fp32); labels as
+partitions (ARI ≥ 0.99) against the reference's, whose random draws
+differ; the gathered embedding of a gapped SBM within 1e-4 of the
+single-device port's up to column signs (the Lanczos tolerance over a
+gap of 0.01).
 """
 import dataclasses
 import math
@@ -32,15 +41,18 @@ from repro.kernels.knn_topk.ops import knn_topk_rerank as j_rerank
 from repro.kernels.lsh_candidates import ops as j_lsh
 from repro.serve.metrics import adjusted_rand_index
 from repro.sparse import distributed as jd
+from repro.sparse import formats as jf
 from repro_torch import convert
 from repro_torch._device import cpu_generator
 from repro_torch.core import spectral as tsp
 from repro_torch.core.distributed_pipeline import merge_topk
 from repro_torch.core.kmeans import KMeansConfig, kmeans
-from repro_torch.core.operator import ShardedCooOperator
+from repro_torch.core import lanczos as tlz
+from repro_torch.core.operator import CooOperator, ShardedCooOperator
 from repro_torch.kernels.knn_topk.ops import knn_topk
 from repro_torch.kernels.lsh_candidates.ops import DEFAULT_N_TABLES
 from repro_torch.sparse import distributed as tdist
+from repro_torch.sparse.formats import COO
 from repro_torch.sparse.ops import spmm_coo
 from repro_torch.testing import dist as td
 from tests._parity import to_np
@@ -70,6 +82,61 @@ def _ties_and_nan():
     x = g.astype(np.float32)
     x[5, 1] = np.nan
     return x
+
+
+def _cliques(n_per=16, blobs=4):
+    """Disconnected cliques: the top eigenvalue of A_sym has multiplicity 4
+    (found by a Krylov block of 4; at b = 1 both packages diverge, R3)."""
+    rows, cols = [], []
+    for b in range(blobs):
+        idx = np.arange(b * n_per, (b + 1) * n_per)
+        r, c = np.meshgrid(idx, idx, indexing="ij")
+        keep = r != c
+        rows.append(r[keep])
+        cols.append(c[keep])
+    r, c = np.concatenate(rows), np.concatenate(cols)
+    return dict(row=r, col=c, val=np.ones(r.size, np.float32), n=n_per * blobs)
+
+
+def _sbm():
+    """A gapped SBM (top eigenvalues of A_sym 1, 0.8145, 0.8043, 0.7879,
+    then 0.34): no near-ties among the four the pipeline keeps."""
+    coo, _ = sbm_graph(64, 4, 0.3, 0.02, seed=3)
+    return coo, dict(row=np.asarray(coo.row), col=np.asarray(coo.col), val=np.asarray(coo.val),
+                     n=coo.shape[0])
+
+
+def _isolated(n=32):
+    """32 isolated nodes: the zero operator, whose every Krylov step breaks
+    down exactly (w = 0), so each new basis direction is the careful path's
+    random refill."""
+    idx = np.arange(n)
+    return dict(row=idx, col=idx, val=np.zeros(n, np.float32), n=n)
+
+
+REFILL = dict(k=2, m=8, tol=1e-6, max_restarts=3)  # the reference's refill test's config
+QR_ROWS = (8, 64)  # [n, 4] blocks: 8 rows leave a rank fewer than 4 at S = 4
+
+
+def _cheb_draws(n: int, k: int = 4, n_probes: int = 8):
+    """The reference's three Chebyshev draws in ``run(w, PRNGKey(0))``: its
+    embed key, split three ways (bounds start, probes, sketch of k + 8)."""
+    kb, km_, ks = jax.random.split(jax.random.split(jax.random.PRNGKey(0), 3)[1], 3)
+    return (np.array(jax.random.normal(kb, (n,), jnp.float32)),
+            np.array(jax.random.rademacher(km_, (n, n_probes), jnp.float32)),
+            np.array(jax.random.rademacher(ks, (n, k + 8), jnp.float32)))
+
+# the row-distributed Stage 2: (graph, EigConfig, Plan.variant) of each task
+STAGE2 = {"graph_whole": ("sbm", {}, "gspmd"),
+          "graph_b4": ("sbm", {"block_size": 4}, "shard_map"),
+          "cliques_b4": ("cliques", {"block_size": 4}, "shard_map"),
+          "cheb": ("sbm", {"solver": "chebyshev"}, "shard_map"),
+          "ell_b1": ("sbm", {"representation": "blockell"}, "shard_map"),
+          "ell_b4": ("sbm", {"block_size": 4, "representation": "blockell"}, "gspmd")}
+# the Chebyshev runs with the reference's draws put in
+CHEB_REF = {"cheb_ref_draws": STAGE2["cheb"],
+            "ell_cheb_ref_draws": ("sbm", {"solver": "chebyshev", "representation": "blockell"},
+                                   "shard_map")}
 
 
 def _blobs5():
@@ -181,11 +248,8 @@ def ranks(request, tmp_path_factory):
     rng = np.random.default_rng(3)
     emb = rng.normal(size=(256, 6)).astype(np.float32)
     planes = np.asarray(j_lsh.make_planes(D, DEFAULT_N_TABLES, j_lsh.DEFAULT_N_BITS, 0))
-    coo, _ = sbm_graph(64, 4, 0.3, 0.02, seed=3)
-    graph = dict(row=np.asarray(coo.row), col=np.asarray(coo.col), val=np.asarray(coo.val),
-                 n=coo.shape[0])
-    cheb = tsp.SpectralPipeline(n_clusters=4, eig=tsp.EigConfig(solver="chebyshev"),
-                                plan=tsp.Plan(device="sharded", variant="shard_map"))
+    coo, graph = _sbm()
+    graphs = {"sbm": graph, "cliques": _cliques()}
     lanczos = tsp.SpectralPipeline(n_clusters=4, plan=tsp.Plan(device="sharded"))
 
     def pipe(graph=None, eig=None, **kw):
@@ -202,22 +266,33 @@ def ranks(request, tmp_path_factory):
         "ring_lsh": _knn(x, exchange="ring", method="lsh"),
         "ties_gather": _knn(lattice, k=12), "ties_ring": _knn(lattice, k=12, exchange="ring"),
         "kmeans": ("kmeans_rank", dict(x=emb, cfg=dict(k=5, max_iters=30))),
+        "kmeans_random": ("kmeans_rank", dict(x=emb, cfg=dict(k=5, max_iters=30, init="random"))),
         "reseed": ("kmeans_rank", dict(x=xk, init=init,
                                        cfg=dict(k=5, max_iters=30, empty="reseed_farthest"))),
         "operator": ("operator_rank", dict(graph=graph, x=emb[:, :3])),
         "e2e_gather": ("pipeline_rank", dict(x=blobs, pipeline=pipe(**e2e))),
-        "e2e_flipped": ("pipeline_rank", dict(x=blobs, pipeline=pipe(**e2e),
-                                              flip_off_home=True)),
         "e2e_ring": ("pipeline_rank", dict(x=blobs, pipeline=pipe(stage1_exchange="ring", **e2e))),
         "e2e_lsh_gather": ("pipeline_rank", dict(x=x, pipeline=pipe(graph=dict(method="lsh")))),
         "e2e_lsh_ring": ("pipeline_rank", dict(x=x, pipeline=pipe(graph=dict(method="lsh"),
                                                                   stage1_exchange="ring"))),
-        "cheb": ("pipeline_rank", dict(graph=graph, pipeline=cheb.to_dict())),
-        "graph_whole": ("pipeline_rank", dict(graph=graph, pipeline=lanczos.to_dict())),
+        **{name: ("pipeline_rank", dict(graph=graphs[g], pipeline=_stage2_pipe(eig, variant)))
+           for name, (g, eig, variant) in STAGE2.items()},
+        **{name: ("pipeline_rank", dict(graph=graph, draws=_cheb_draws(graph["n"]),
+                                        pipeline=_stage2_pipe(*cfg[1:])))
+           for name, cfg in CHEB_REF.items()},
+        "ell_operator": ("ell_operator_rank", dict(graph=graph, x=emb[:, :4], prev=emb[:, 2:])),
+        "e2e_ell": ("pipeline_rank", dict(x=blobs, pipeline=pipe(
+            graph=dict(sigma=2.0), eig=dict(block_size=KC, representation="blockell")))),
         "graph_bucket": ("pipeline_rank", dict(graph=graph, pipeline=lanczos.to_dict(),
                                                own_bucket=True)),
+        "checkpoint": ("checkpoint_rank", dict(graph=graph, pipeline=lanczos.to_dict(),
+                                               dir=str(tmp_path_factory.mktemp("ckpt")))),
         "gather_lsh_planes": ("knn_rank", dict(x=x, planes=planes,
                                                knn=dict(k=K, method="lsh"))),
+        **{f"refill_b{b}": ("eigsh_rank", dict(graph=_isolated(), cfg=dict(REFILL, block_size=b)))
+           for b in (1, 2)},
+        **{f"qr_{n}": ("qr_rank", dict(w=np.random.default_rng(n).normal(size=(n, 4))
+                                       .astype(np.float32))) for n in QR_ROWS},
     }
     for _, spec in tasks.values():
         spec["mesh"] = mesh
@@ -231,6 +306,15 @@ def ranks(request, tmp_path_factory):
     res["_S"], res["_inputs"] = shards, dict(x=x, lattice=lattice, emb=emb, xk=xk, init=init,
                                              planes=planes, coo=coo, blobs=blobs)
     return res
+
+
+def _stage2_pipe(eig: dict, variant: str, package=tsp) -> "dict | object":
+    """The four-cluster pipeline of a STAGE2 task: the port's as the dict a
+    rank loads, or the reference's (``package=jsp``) for one device."""
+    pipe = package.SpectralPipeline(n_clusters=4, eig=package.EigConfig(**eig),
+                                    plan=package.Plan(device="sharded", variant=variant))
+    return pipe.to_dict() if package is tsp else dataclasses.replace(pipe,
+                                                                     plan=package.Plan())
 
 
 def _rows(blocks, key):
@@ -314,9 +398,13 @@ def test_collective_bytes_follow_the_reference_model(ranks):
 
 
 def test_kmeans_sharded_one_allreduce_per_iteration(ranks):
-    """Labels, iterations and centroids of the single-device run (rtol 1e-5),
-    one all-reduce an iteration plus one for the inertia; the reseed config
-    revives the far centroid with one more all-reduce an iteration."""
+    """Each rank handed its own rows: labels, iterations and centroids of the
+    single-device run (rtol 1e-5; the k-means++ seeds are the whole array's
+    rows, picked without gathering it), one all-reduce an iteration plus one
+    for the inertia, beside the seeding's k row fetches (one all-reduce of
+    [d] each) and k − 1 all-gathers of the ranks' best (score, id) pairs,
+    and random-row seeding's one fetch of [k, d]; the reseed config revives
+    the far centroid with one more all-reduce an iteration."""
     emb = torch.as_tensor(ranks["_inputs"]["emb"])
     want = kmeans(emb, KMeansConfig(k=5, max_iters=30), cpu_generator(0))
     for got in ranks["_all"]["kmeans"]:
@@ -324,8 +412,15 @@ def test_kmeans_sharded_one_allreduce_per_iteration(ranks):
         assert got["iterations"] == want.iterations
         np.testing.assert_allclose(got["centroids"], to_np(want.centroids), rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(got["inertia"], float(want.inertia), rtol=1e-5)
-        assert got["calls"]["psum"] == want.iterations + 1
+        assert got["calls"]["psum"] == want.iterations + 1 + 5
+        assert got["calls"]["all_gather"] == 5 - 1 + 1  # the draws' best pairs, the labels
         assert got["calls"]["broadcast"] == 0
+    # random rows: the k picks fetched in one all-reduce of [k, d]
+    want = kmeans(emb, KMeansConfig(k=5, max_iters=30, init="random"), cpu_generator(0))
+    for got in ranks["_all"]["kmeans_random"]:
+        np.testing.assert_array_equal(got["labels"], to_np(want.labels))
+        np.testing.assert_allclose(got["centroids"], to_np(want.centroids), rtol=1e-5, atol=1e-6)
+        assert got["calls"]["psum"] == want.iterations + 1 + 1
     xk, init = (torch.as_tensor(a) for a in (ranks["_inputs"]["xk"], ranks["_inputs"]["init"]))
     want = kmeans(xk, KMeansConfig(k=5, max_iters=30, empty="reseed_farthest"),
                   init_centroids=init)
@@ -337,14 +432,62 @@ def test_kmeans_sharded_one_allreduce_per_iteration(ranks):
 
 
 def test_sharded_operator_on_the_mesh(ranks):
+    """Row block in, row block out: each rank's products are its n/S rows
+    of the whole products, one all-gather (of the input) a product; a
+    column-major input block, gathered by columns, gives the same product."""
     coo = ranks["_inputs"]["coo"]
     x = torch.as_tensor(ranks["_inputs"]["emb"][:, :3])
     want = spmm_coo(convert.coo(coo, device=CPU), x)
+    rps = coo.shape[0] // ranks["_S"]
     for got in ranks["_all"]["operator"]:
+        assert (got["mv_rows"], got["mm_rows"], got["mm_bucket_rows"]) == \
+            ((rps,), (rps, 3), (rps, 3))
         np.testing.assert_allclose(got["mm"], to_np(want), rtol=1e-6, atol=1e-6)
         np.testing.assert_array_equal(got["mm_bucket"], got["mm"])
+        np.testing.assert_array_equal(got["mm_colmajor"], got["mm"])  # gathered by columns
         np.testing.assert_allclose(got["mv"], to_np(want[:, 0]), rtol=1e-6, atol=1e-6)
         assert got["calls"]["all_gather"] == 2  # one a product
+        assert got["bytes"]["all_gather"] == (ranks["_S"] - 1) * rps * 4 * (1 + 3)
+
+
+def test_blockell_on_the_mesh_maps_each_ranks_rows_through_the_ell_kernels(ranks,
+                                                                           single_blobs):
+    """``representation="blockell"`` on a mesh of S ranks: the operator is
+    the rank's rows of BlockELL, whose ``mv``, ``mm`` (a column-major block
+    too) and fused ``cheb_step`` map its n/S rows to its rows with one
+    all-gather (of the input) a product.  Over a COO graph the gathered
+    products are the single-device BlockELL operator's bit for bit (each
+    row laid out at the whole graph's width); over a ShardedCOO's buckets
+    within 1e-6.  The raw-points pipeline (a COO graph) runs it too: ARI ≥
+    0.99 against the reference's labels, every rank the same labels and
+    eigenvalues."""
+    from repro_torch.core.operator import BlockEllOperator
+    from repro_torch.sparse.formats import coo_to_csr, csr_to_blockell
+
+    coo = ranks["_inputs"]["coo"]
+    emb = torch.as_tensor(ranks["_inputs"]["emb"])
+    x, prev = emb[:, :4], emb[:, 2:]
+    whole = BlockEllOperator(csr_to_blockell(coo_to_csr(convert.coo(coo, device=CPU))))
+    want = {"mv": whole.mv(x[:, 0]), "mm": whole.mm(x), "mm_colmajor": whole.mm(x),
+            "cheb": whole.cheb_step(x, prev, 0.5, -0.25)}
+    rps = coo.shape[0] // ranks["_S"]
+    for got in ranks["_all"]["ell_operator"]:
+        assert got["operator"] == got["operator_sharded"] == "RowBlockEllOperator"
+        for name, y in want.items():
+            y = to_np(y)
+            np.testing.assert_array_equal(got[name], y)
+            np.testing.assert_allclose(got[f"{name}_sharded"], y, rtol=1e-6, atol=1e-6)
+            assert got[f"{name}_rows"] == got[f"{name}_sharded_rows"] == (rps,) + y.shape[1:]
+        assert got["calls"]["all_gather"] == 2  # one a product
+        assert got["bytes"]["all_gather"] == (ranks["_S"] - 1) * rps * 4 * (1 + 4)
+    _, ref = single_blobs
+    runs = ranks["_all"]["e2e_ell"]
+    for run in runs:
+        assert run["operators"] == ["RowBlockEllOperator"]
+        assert (run["eigenvalues"].view(np.uint32)
+                == runs[0]["eigenvalues"].view(np.uint32)).all()
+        np.testing.assert_array_equal(run["labels"], runs[0]["labels"])
+    assert adjusted_rand_index(runs[0]["labels"], np.asarray(ref.labels)) >= 0.99
 
 
 @pytest.fixture(scope="module")
@@ -360,6 +503,134 @@ def single_blobs():
     return single, want
 
 
+@pytest.fixture(scope="module")
+def stage2_single():
+    """Each STAGE2 task on one device: the port's run and the reference's
+    (Chebyshev: the port's run with the reference's draws put in, as the
+    ``cheb_ref_draws`` ranks run)."""
+    from repro_torch.core import chebyshev as tch
+
+    coo, graph = _sbm()
+    graphs = {"sbm": graph, "cliques": _cliques()}
+    out = {}
+    for name, (g, eig, variant) in {**STAGE2, **CHEB_REF}.items():
+        w = graphs[g]
+        tw = COO(*(torch.tensor(np.asarray(w[f])) for f in ("row", "col", "val")),
+                 (w["n"], w["n"]))
+        tw = dataclasses.replace(tw, row=tw.row.long(), col=tw.col.long())
+        port = tsp.SpectralPipeline.from_dict(_stage2_pipe(eig, variant))
+        port = dataclasses.replace(port, plan=tsp.Plan())
+        jw = jf.coo_from_edges(w["row"], w["col"], w["val"], (w["n"], w["n"]))
+        ref = _stage2_pipe(eig, variant, package=jsp).run(jw, jax.random.PRNGKey(0))
+        if name not in CHEB_REF:
+            out[name] = (port.run(tw, cpu_generator(0), device=CPU), ref)
+            continue
+        draws = _cheb_draws(w["n"])
+        saved, tch.draw_signals = tch.draw_signals, lambda *a, **kw: tuple(
+            torch.as_tensor(d) for d in draws)
+        try:
+            out[name] = (port.run(tw, cpu_generator(0), device=CPU), ref)
+        finally:
+            tch.draw_signals = saved
+    return out
+
+
+@pytest.mark.parametrize("task", [t for t in STAGE2 if t != "cheb"] + list(CHEB_REF))
+def test_row_distributed_stage2_matches_one_device_and_the_reference(ranks, stage2_single,
+                                                                     task):
+    """Lanczos at b = 1 and b = 4 on a gapped SBM, block Lanczos on
+    disconnected cliques, and Chebyshev with the reference's draws put in,
+    over the COO operator and (``ell_*``) over BlockELL, on S ranks: every
+    rank's operator (the row-distributed one the representation names)
+    takes and gives its n/S rows, and its embedding holds them; the
+    eigenvalues are bitwise the same on every rank, with no broadcast, and
+    within 1e-4 of the single-device port's and of the reference's; the
+    labels ARI ≥ 0.99 against the reference's."""
+    port, ref = stage2_single[task]
+    n = port.labels.shape[0]
+    rps = n // ranks["_S"]
+    runs = ranks["_all"][task]
+    kind = "RowBlockEllOperator" if task.startswith("ell") else "ShardedCooOperator"
+    for got in runs:
+        assert got["operators"] == [kind], got["operators"]
+        assert got["basis_rows"] == [rps], got["basis_rows"]
+        assert got["embedding"].shape == (rps, 4)
+        assert (got["eigenvalues"].view(np.uint32)
+                == runs[0]["eigenvalues"].view(np.uint32)).all()
+        assert got["calls"]["broadcast"] == 0
+        np.testing.assert_array_equal(got["labels"], runs[0]["labels"])
+    vals = runs[0]["eigenvalues"]
+    np.testing.assert_allclose(vals, to_np(port.eigenvalues), atol=1e-4)
+    np.testing.assert_allclose(vals, np.asarray(ref.eigenvalues), atol=1e-4)
+    assert adjusted_rand_index(runs[0]["labels"], np.asarray(ref.labels)) >= 0.99
+    if task.startswith("cliques"):  # the 4-fold Laplacian eigenvalue 0
+        np.testing.assert_allclose(vals, 0.0, atol=1e-4)
+
+
+@pytest.mark.parametrize("block_size", [1, 2])
+def test_careful_path_refills_each_ranks_rows_of_one_draw(ranks, block_size):
+    """The reference's refill test on S ranks: the zero operator breaks down
+    at every step, so every basis direction after the first is a random
+    draw — made whole from the one stream and sliced, orthogonalized with
+    all-reduced dot products and a tall-skinny QR.  The spectrum is {0};
+    the ranks' rows, gathered, are orthonormal and the single-device port's
+    eigenvectors (1e-5) up to column signs (a tall-skinny QR's R may differ
+    from the one-device R in the signs of its rows)."""
+    w = _isolated()
+    op = CooOperator(COO(torch.as_tensor(w["row"]).long(), torch.as_tensor(w["col"]).long(),
+                         torch.as_tensor(w["val"]), (w["n"], w["n"])))
+    want = tlz.eigsh(op, tlz.LanczosConfig(**REFILL, block_size=block_size),
+                     generator=cpu_generator(0))
+    blocks = ranks[f"refill_b{block_size}"]
+    u = np.concatenate([b["eigenvectors"] for b in blocks])
+    assert {b["eigenvectors"].shape[0] for b in blocks} == {w["n"] // ranks["_S"]}
+    assert all(b["refills"] > 0 for b in blocks)
+    for b in blocks:
+        np.testing.assert_allclose(b["eigenvalues"], 0.0, atol=1e-6)
+        assert (b["eigenvalues"].view(np.uint32) == blocks[0]["eigenvalues"].view(np.uint32)).all()
+    np.testing.assert_allclose(u.T @ u, np.eye(2), atol=1e-5)
+    want = to_np(want.eigenvectors)
+    np.testing.assert_allclose(u * np.sign((u * want).sum(0)), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", QR_ROWS)
+def test_tall_skinny_qr_of_each_ranks_rows(ranks, n):
+    """``RowBlock.qr`` on S ranks (at n = 8 and S = 4 a rank has 2 rows of a
+    4-column block, so its factor is padded with zero rows): the ranks' Q
+    rows, gathered, are orthonormal, Q·R is the block (1e-5), and R is
+    bitwise the same on every rank and upper triangular."""
+    blocks = ranks[f"qr_{n}"]
+    w = np.random.default_rng(n).normal(size=(n, 4)).astype(np.float32)
+    q = np.concatenate([b["q"] for b in blocks])
+    r = blocks[0]["r"]
+    assert {b["q"].shape for b in blocks} == {(n // ranks["_S"], 4)}
+    for b in ranks["_all"][f"qr_{n}"]:
+        assert (b["r"].view(np.uint32) == r.view(np.uint32)).all()
+    np.testing.assert_allclose(q.T @ q, np.eye(4), atol=1e-5)
+    np.testing.assert_allclose(q @ r, w, atol=1e-5)
+    np.testing.assert_array_equal(np.tril(r, -1), 0.0)
+
+
+def test_world_size_one_mesh_is_the_layout_path_bitwise(tmp_path):
+    """On a one-rank mesh every row-distribution hook is the identity: the
+    mesh run (block Lanczos, b = 4) computes the layout path's embedding,
+    eigenvalues and labels bit for bit, with one all-gather an operator
+    product (plus the degree pass's and the labels') and no all-reduce in
+    Stage 2 (gspmd: Stage 3 is ``kmeans``)."""
+    coo, graph = _sbm()
+    pipe = _stage2_pipe({"block_size": 4}, "gspmd")
+    got = td.run_ranks(td.pipeline_rank, 1, dict(graph=graph, pipeline=pipe,
+                                                 mesh=((1,), ("data",))),
+                       tmpdir=str(tmp_path), timeout=60.0, join_timeout=120.0)[0]
+    sm = tdist.partition_coo_by_rows(convert.coo(coo, device=CPU), 1)
+    want = tsp.SpectralPipeline.from_dict(pipe).run(sm, cpu_generator(0), device=CPU)
+    for key in ("embedding", "eigenvalues", "labels"):
+        np.testing.assert_array_equal(got[key], to_np(getattr(want, key)))
+    assert got["basis_rows"] == [coo.shape[0]]
+    assert got["calls"]["psum"] == 0 and got["calls"]["broadcast"] == 0
+    assert got["calls"]["all_gather"] > 2
+
+
 def test_sharded_points_pipeline_matches_single_device(ranks, single_blobs):
     """The raw-points sharded plan, gather and ring: labels bitwise the
     single-device port's on every rank (eigenvalues within 1e-6), ARI ≥ 0.99
@@ -373,26 +644,30 @@ def test_sharded_points_pipeline_matches_single_device(ranks, single_blobs):
         assert adjusted_rand_index(got["labels"], np.asarray(want.labels)) >= 0.99
 
 
-def test_ranks_leave_stage2_with_one_embedding(ranks, single_blobs):
-    """Every rank but coordinate 0 has its eigensolver return the last
-    eigenvector negated (the card's rounding can flip a sign on one rank
-    only): after Stage 2 every rank holds coordinate 0's embedding and
-    eigenvalues, bitwise, through two broadcasts, and the labels are the
-    single-device port's."""
-    single, _ = single_blobs
-    for mode in ("e2e_gather", "e2e_flipped"):
-        runs = ranks["_all"][mode]
-        for got in runs:
-            np.testing.assert_array_equal(got["embedding"], runs[0]["embedding"])
-            assert (got["eigenvalues"].view(np.uint32)
-                    == runs[0]["eigenvalues"].view(np.uint32)).all(), mode
-            np.testing.assert_array_equal(got["labels"], to_np(single.labels))
-            assert got["calls"]["broadcast"] == 2
+def test_ranks_leave_stage2_with_one_embedding(ranks, stage2_single):
+    """Each rank leaves Stage 2 with its own n/S rows of one embedding, and
+    nothing is broadcast: on the gapped SBM the ranks' rows, gathered in
+    coordinate order, are the single-device port's embedding up to column
+    signs (1e-4), and on the blobs every rank holds the same eigenvalues
+    and labels, the labels the single-device port's."""
+    rows = [b["embedding"] for b in ranks["graph_whole"]]
+    got = np.concatenate(rows)
+    want = to_np(stage2_single["graph_whole"][0].embedding)
+    assert {r.shape for r in rows} == {(want.shape[0] // ranks["_S"], want.shape[1])}
+    signs = np.sign((got * want).sum(0))
+    np.testing.assert_allclose(got * signs, want, atol=1e-4)
+    runs = ranks["_all"]["e2e_gather"]
+    for run in runs:
+        assert (run["eigenvalues"].view(np.uint32)
+                == runs[0]["eigenvalues"].view(np.uint32)).all()
+        np.testing.assert_array_equal(run["labels"], runs[0]["labels"])
+        assert run["calls"]["broadcast"] == 0
 
 
 def test_sharded_chebyshev_matches_single(ranks):
     """The reference's ``test_sharded_chebyshev_matches_single`` on the mesh
-    (shard_map): labels equal, eigenvalues within 1e-5."""
+    (shard_map), the Chebyshev block distributed by rows: labels equal,
+    eigenvalues within 1e-5."""
     coo = ranks["_inputs"]["coo"]
     single = tsp.SpectralPipeline(n_clusters=4, eig=tsp.EigConfig(solver="chebyshev")).run(
         convert.coo(coo, device=CPU), cpu_generator(0), device=CPU)
@@ -410,6 +685,20 @@ def test_a_rank_handed_only_its_own_bucket_runs_the_whole_layouts_pipeline(ranks
         for key in ("labels", "embedding", "eigenvalues"):
             np.testing.assert_array_equal(got[key], want[key])
         assert got["calls"] == want["calls"]
+
+
+def test_a_checkpoint_holds_the_embedding_whole_and_each_rank_loads_its_rows(ranks):
+    """``save_state`` under the mesh gathers the row-distributed embeddings
+    once, so the checkpoint holds them whole, as the reference's does (and
+    cross-loads with it: the layout is the reference's); ``load_state``
+    with the pipeline gives each rank back its own rows."""
+    outs = ranks["checkpoint"]
+    whole = np.concatenate([o["rows"] for o in outs])
+    for o in outs:
+        assert o["saved"] == {"embedding.embedding": whole.shape,
+                              "result.embedding": whole.shape}
+        np.testing.assert_array_equal(o["whole"], whole)
+        assert o["loaded_equal"]
 
 
 def test_normalize_sharded_on_each_ranks_bucket_is_its_slice():

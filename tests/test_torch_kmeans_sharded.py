@@ -2,11 +2,14 @@
 ``kmeans_sharded``, which still runs on this jax — in a subprocess with 8
 virtual CPU devices and a ``(4, 2)`` ``("data", "model")`` mesh, as the
 reference's ``tests/test_distributed.py`` runs it — beside the port's on 4
-gloo ranks (``repro_torch.testing.dist``), from the reference's own k-means++
-seeds.
+gloo ranks (``repro_torch.testing.dist``), each handed its own rows as the
+reference's ``P(axes, None)`` hands them: from the reference's own k-means++
+seeds, and with each package seeding itself (the port's k-means++ over the
+ranks' rows, never gathering the points).
 
 Tolerances: labels and iterations equal, centroids rtol 1e-5 / atol 1e-6
-(per-shard sums in another order), inertia rtol 1e-5.
+(per-shard sums in another order), inertia rtol 1e-5; from each package's
+own seeds (their random streams differ) labels ARI ≥ 0.99.
 """
 import os
 import subprocess
@@ -14,13 +17,17 @@ import sys
 import textwrap
 
 import numpy as np
+import pytest
 
 from repro_torch.testing import dist as td
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _reference(out: str) -> dict:
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory) -> dict:
+    """The reference's runs, once for the module."""
+    out = str(tmp_path_factory.mktemp("reference") / "ref.npz")
     script = f"""
         import numpy as np, jax, jax.numpy as jnp
         from repro.core import kmeans as km
@@ -42,7 +49,9 @@ def _reference(out: str) -> dict:
                  labels=np.asarray(r.labels), centroids=np.asarray(r.centroids),
                  inertia=np.asarray(r.inertia), iterations=np.asarray(r.iterations),
                  r_labels=np.asarray(rr.labels), r_centroids=np.asarray(rr.centroids),
-                 r_iterations=np.asarray(rr.iterations))
+                 r_iterations=np.asarray(rr.iterations),
+                 pp_labels=np.asarray(kmeans_sharded(jnp.asarray(xk), km.KMeansConfig(k=4),
+                                                     key, mesh=mesh, axis="data").labels))
     """
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(REPO, "src"))
@@ -52,8 +61,8 @@ def _reference(out: str) -> dict:
     return dict(np.load(out))
 
 
-def test_kmeans_sharded_matches_reference_kmeans_sharded(tmp_path):
-    ref = _reference(str(tmp_path / "ref.npz"))
+def test_kmeans_sharded_matches_reference_kmeans_sharded(reference, tmp_path):
+    ref = reference
     mesh = ((4,), ("data",))
     tasks = [("kmeans_rank", dict(x=ref["x"], init=ref["c0"], mesh=mesh,
                                   cfg=dict(k=5, max_iters=30))),
@@ -73,10 +82,35 @@ def test_kmeans_sharded_matches_reference_kmeans_sharded(tmp_path):
         assert reseed["calls"]["psum"] == 2 * reseed["iterations"] + 1
 
 
+def test_kmeans_sharded_seeds_itself_over_the_ranks_rows(reference, tmp_path):
+    """k-means++ over 4 ranks' rows of four blobs, each package seeding
+    itself: the port's labels, iterations and centroids are its one-device
+    ``kmeans``' (the seeds are the whole array's, picked with one all-reduce
+    of [d] a centroid and an all-gather of the ranks' best pairs a draw), and
+    ARI ≥ 0.99 against the reference's ``kmeans_sharded``."""
+    import torch
+
+    from repro.serve.metrics import adjusted_rand_index
+    from repro_torch._device import cpu_generator
+    from repro_torch.core.kmeans import KMeansConfig, kmeans
+
+    ref = reference
+    outs = td.run_ranks(td.kmeans_rank, 4, dict(x=ref["xk"], cfg=dict(k=4), seed=0,
+                                                mesh=((4,), ("data",))),
+                        tmpdir=str(tmp_path / "ranks"))
+    want = kmeans(torch.as_tensor(ref["xk"]), KMeansConfig(k=4), cpu_generator(0))
+    for got in outs:
+        np.testing.assert_array_equal(got["labels"], want.labels.numpy())
+        assert got["iterations"] == want.iterations
+        np.testing.assert_allclose(got["centroids"], want.centroids.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+        assert got["calls"]["psum"] == got["iterations"] + 1 + 4
+        assert got["calls"]["all_gather"] == 3 + 1
+        assert adjusted_rand_index(ref["pp_labels"], got["labels"]) >= 0.99
+
+
 def test_kmeans_sharded_reseed_needs_k_rows_per_shard(tmp_path):
     """The reference's error, on a one-rank mesh."""
-    import pytest
-
     with pytest.raises(RuntimeError, match="rows per shard"):
         td.run_ranks(td.kmeans_rank, 1, dict(x=np.zeros((8, 2), np.float32),
                                              cfg=dict(k=16, empty="reseed_farthest")),

@@ -79,6 +79,20 @@ def test_words_layout_and_chunk_invariance():
         _random.words(key, 1 << 32, 1, 1, "cpu")
 
 
+@pytest.mark.parametrize("col0,cols", [(0, 9), (1, 7), (4, 5), (6, 3), (10, 1)])
+def test_a_column_window_is_those_columns_of_the_whole_draw(col0, cols):
+    """``col0`` draws only the window's Philox blocks, and gives the bits of
+    the whole draw's columns there (how a rank draws its own columns of the
+    k-means++ Gumbel rows); so does each derived draw."""
+    key = (12345, 678)
+    whole = _random.words(key, 3, 5, 11, "cpu", row0=2)
+    got = _random.words(key, 3, 5, cols, "cpu", row0=2, col0=col0)
+    assert torch.equal(got, whole[:, col0:col0 + cols])
+    g = _random.gumbel(key, 3, (5, 11), "cpu")
+    assert torch.equal(_random.gumbel(key, 3, (5, cols), "cpu", col0=col0),
+                       g[:, col0:col0 + cols])
+
+
 def test_uniform_and_rademacher_come_from_the_words():
     key = (7, 8)
     w = _random.words(key, 0, 5, 64, "cpu")
