@@ -63,7 +63,10 @@ result line):
    ``kmeans_sharded`` one all-reduce a Lloyd iteration; the layout path's
    graph as a one-block ShardedCOO under ``variant="shard_map"``, one
    all-gather an operator product); card vs CPU at n = 4000 against one gloo rank (ARI ≥ 0.99);
-   4 gloo ranks sharing the card with the gather exchange (every rank the
+   4 gloo ranks sharing the card with the gather exchange (fused and
+   two-pass ``kmeans_sharded`` on each rank's rows of the world-size-1
+   embedding = the card's ``kmeans``, two-pass launching ``kmeans_assign``
+   on every rank and all-gathering no [n, k]; every rank the
    same labels and eigenvalues, held to the world-size-1 run, and its own
    n/4 rows of the Krylov basis and the embedding, nothing broadcast, its
    rows of BlockELL through ``ell_spmm``; the
@@ -245,6 +248,13 @@ def check(cond: bool, what: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def gpu_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -1256,13 +1266,11 @@ def iter_on_embedding(emb, labels) -> dict:
     return dict(differing=int(rows.numel()), max_gap=gap, turns=turns)
 
 
-def assign_on_embedding(emb, labels) -> dict:
-    """``kmeans_assign`` against its plain version on real data: the
-    scalable path's final embedding and the centroids of its final labels.
-    A label may differ only at a near-tie: the two centroids' float64
-    distances to the row agree within 1e-5·(‖x‖²+‖c‖²), the dmin gate."""
-    x = emb.float().contiguous()
-    c = tkm.update_centroids(x, labels, K_FULL, torch.zeros(K_FULL, x.shape[1], device=x.device))
+def hold_assign_near_ties(x, c, tag: str):
+    """``kmeans_assign`` through its wrapper against its plain version: dmin
+    at 1e-5·(‖x‖²+‖c‖²), and a label may differ only where the two
+    centroids' float64 distances to the row agree within that.  Returns
+    (the differing rows, the largest gap, the scale, max|Δdmin|)."""
     gl, gd = ka_ops.kmeans_assign(x, c)
     wl, wd = kmeans_assign_ref(x, c)
     scale = float((x * x).sum(1).max() + (c * c).sum(1).max())
@@ -1272,8 +1280,19 @@ def assign_on_embedding(emb, labels) -> dict:
     d_got = ((x64 - c64[gl[rows].long()]) ** 2).sum(1)
     d_want = ((x64 - c64[wl[rows].long()]) ** 2).sum(1)
     gap = float((d_got - d_want).abs().max()) if rows.numel() else 0.0
-    check(gap <= 1e-5 * scale, f"kmeans_assign on the embedding: a differing label is not a "
+    check(gap <= 1e-5 * scale, f"kmeans_assign {tag}: a differing label is not a "
                                f"near-tie (float64 gap {gap:.3e})")
+    return rows, gap, scale, float((gd - wd).abs().max())
+
+
+def assign_on_embedding(emb, labels) -> dict:
+    """``kmeans_assign`` against its plain version on real data: the
+    scalable path's final embedding and the centroids of its final labels.
+    A label may differ only at a near-tie: the two centroids' float64
+    distances to the row agree within 1e-5·(‖x‖²+‖c‖²), the dmin gate."""
+    x = emb.float().contiguous()
+    c = tkm.update_centroids(x, labels, K_FULL, torch.zeros(K_FULL, x.shape[1], device=x.device))
+    rows, gap, scale, _ = hold_assign_near_ties(x, c, "on the embedding")
     log(f"[kernel] kmeans_assign on the scalable path's embedding [{x.shape[0]} × {x.shape[1]}] "
         f"and final centroids: {rows.numel()} labels differ from the plain version, each a "
         f"near-tie in float64 (largest gap {gap:.3e}, gate {1e-5 * scale:.3e})")
@@ -2308,7 +2327,8 @@ def card_vs_cpu_sharded(mesh, tmp: Path) -> tuple:
 def ranks_on_one_card(spec, card, tmp: Path) -> dict:
     """4 gloo ranks sharing the card, the gather exchange: first
     ``kmeans_sharded`` on 4 ranks of the world-size-1 run's embedding must
-    give the labels and iterations of ``kmeans`` on it; then the n = 4000
+    give the labels and iterations of ``kmeans`` on it, fused and two-pass
+    (:func:`two_pass_ranks_on_one_card`); then the n = 4000
     sharded path on 4 ranks, gated against the world-size-1 run ``card``:
     every rank the same labels and eigenvalues (bitwise), its operator's
     inputs (the Krylov basis rows) and its embedding n/4 rows, no broadcast,
@@ -2334,6 +2354,7 @@ def ranks_on_one_card(spec, card, tmp: Path) -> dict:
         f"{got[0]['calls']['psum']}")
     check(all(same) and all(g["iterations"] == want.iterations for g in got),
           "sharded: kmeans_sharded on 4 ranks on one card differs from kmeans")
+    two_pass = two_pass_ranks_on_one_card(emb, tmp)
     t0 = time.perf_counter()
     outs = run_ranks(pipeline_rank, SHARDS,
                      dict(spec, device="cuda", mesh=((SHARDS,), ("data",))),
@@ -2372,9 +2393,56 @@ def ranks_on_one_card(spec, card, tmp: Path) -> dict:
     check(abs(pur - card["purity"]) <= 0.01,
           f"sharded: {SHARDS} ranks on one card, purity {pur:.4f} not within 0.01 of the "
           f"world-size-1 run's {card['purity']:.4f}")
-    return dict(kmeans_iterations=want.iterations,
+    return dict(kmeans_iterations=want.iterations, two_pass=two_pass,
                 gather=dict(wall_s=wall, ari=ari, purity=pur, max_eig_diff=ev,
                             calls=outs[0]["calls"], rows=shapes, ell=ell))
+
+
+def two_pass_ranks_on_one_card(emb, tmp: Path) -> dict:
+    """Two-pass ``kmeans_sharded`` on 4 gloo ranks sharing the card, each on
+    its rows of the world-size-1 run's embedding: labels and iterations
+    those of the card's one-device two-pass ``kmeans``, the ``kmeans_assign``
+    kernel launched on every rank, and no all-gather of [n, k]: the
+    all-gathers carry the k-means++ draws' (score, id) pairs and the [n]
+    int32 labels only."""
+    from repro_torch.testing.dist import kmeans_rank, run_ranks
+
+    cfg = KMeansConfig(k=12, iter="two_pass")
+    t0 = time.perf_counter()
+    want = tkm.kmeans(torch.as_tensor(emb, device="cuda"), cfg, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = run_ranks(kmeans_rank, SHARDS,
+                    dict(x=emb, cfg=dict(k=12, iter="two_pass"), seed=0, device="cuda",
+                         mesh=((SHARDS,), ("data",))),
+                    tmpdir=str(tmp / "ranks_two_pass"), backend="gloo", timeout=60.0,
+                    join_timeout=180.0)
+    ranks_s = time.perf_counter() - t0
+    n, k = emb.shape
+    pairs_and_labels = (SHARDS - 1) * ((cfg.k - 1) * 16 + (n // SHARDS) * 4)
+    same = [bool(np.array_equal(g["labels"], want.labels.cpu().numpy())) for g in got]
+    launches = [g["launches"]["kmeans_assign"] for g in got]
+    gathered = [g["bytes"].get("all_gather", 0) for g in got]
+    log(f"[sharded] two-pass kmeans_sharded on {SHARDS} gloo ranks on the one card "
+        f"({gpu_line()}), each rank's {n // SHARDS} rows of the world-size-1 embedding "
+        f"[{n} × {k}]: labels equal to the card's two-pass kmeans' {same}, iterations "
+        f"{[g['iterations'] for g in got]} (kmeans {want.iterations}), kmeans_assign launches "
+        f"{launches}, all-reduces {got[0]['calls']['psum']}, all-gather bytes {gathered} "
+        f"(pairs and labels {pairs_and_labels}; [n, k] would be "
+        f"{(SHARDS - 1) * (n // SHARDS) * k * 4}); {ranks_s:.2f} s with start-up, one-device "
+        f"{one_s:.3f} s")
+    check(all(same) and all(g["iterations"] == want.iterations for g in got),
+          "sharded: two-pass kmeans_sharded on 4 ranks on one card differs from kmeans")
+    check(all(c > 0 for c in launches),
+          f"sharded: two-pass kmeans_sharded did not launch kmeans_assign on every rank: "
+          f"{launches}")
+    check(all(b == pairs_and_labels for b in gathered),
+          f"sharded: two-pass kmeans_sharded all-gathered {gathered} bytes, not the seeding's "
+          f"pairs and the labels' {pairs_and_labels}")
+    return dict(iterations=want.iterations, launches=launches, all_gather_bytes=gathered,
+                psum=got[0]["calls"]["psum"], ranks_s=ranks_s, one_device_s=one_s,
+                rank_shape=f"[{n // SHARDS} × {k}]")
 
 
 def knn_shard_record(pos) -> dict:
@@ -2467,6 +2535,33 @@ def kmeans_shard_record(emb, labels) -> dict:
     return dict(name="kmeans_iter@shard", route="cuda",
                 source="src/repro_torch/csrc/kmeans_iter.cu",
                 replaces="src/repro/kernels/kmeans_iter/kernel.py:98", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
+                shape=f"[{n} × {d}], k={K_FULL}")
+
+
+def assign_shard_record(emb, labels) -> dict:
+    """``kmeans_assign`` on a 4-rank plan's shard, the two-pass iteration's
+    first pass on a rank's rows: the first 35,635 rows of the first path's
+    embedding and the centroids of its final labels (k = 500), held to the
+    plain version (labels up to float64 near-ties) and timed."""
+    x = emb.float().contiguous()
+    c = tkm.update_centroids(x, labels, K_FULL, torch.zeros(K_FULL, x.shape[1], device=x.device))
+    x = x[:NL_SHARD].contiguous()
+    rows, gap, _, err = hold_assign_near_ties(x, c, "@shard")
+    cn = (c * c).sum(1)
+    ms = cuda_ms(lambda: kmeans_assign_cuda(x, c, cn), iters=20)
+    plain_ms = cuda_ms(lambda: kmeans_assign_ref(x, c), iters=3)
+    library_ms = cuda_ms(lambda: [torch.cdist(x[s:s + 16384], c).min(1)
+                                  for s in range(0, x.shape[0], 16384)], iters=3)
+    n, d = x.shape
+    bms, by = kmeans_bound((n * d + K_FULL * d + K_FULL) * 4 + n * 8, n, K_FULL, d)
+    log(f"[sharded] kernel kmeans_assign@shard (tol: labels up to float64 near-ties, dmin atol "
+        f"1e-5·(‖x‖²+‖c‖²)) on {gpu_line()}: [{n} × {d}], k={K_FULL}: {rows.numel()} labels "
+        f"differ (largest gap {gap:.3e}); kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+        f"library_ms={library_ms:.3f} (chunked cdist + min) bound_ms={bms:.4f} ({by})")
+    return dict(name="kmeans_assign@shard", route="cuda",
+                source="src/repro_torch/csrc/kmeans_assign.cu",
+                replaces="src/repro/kernels/kmeans_assign/kernel.py:61", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
                 shape=f"[{n} × {d}], k={K_FULL}")
 
@@ -2571,6 +2666,7 @@ def sharded_phase(pos, prof, region, first, scalable) -> tuple:
         dist.destroy_process_group()
     rec["ranks_on_one_card"] = ranks_on_one_card(spec, card, tmp)
     kernels = [knn_shard_record(pos), kmeans_shard_record(first[0].embedding, first[0].labels),
+               assign_shard_record(first[0].embedding, first[0].labels),
                hash_shard_record(pos)]
     # the launches are counted on the world-size-1 mesh runs, whose one rank
     # gives each kernel the whole problem, not the 4-rank shapes timed here
@@ -2580,7 +2676,11 @@ def sharded_phase(pos, prof, region, first, scalable) -> tuple:
         kmeans_iter=(rec["mesh"]["gather"]["launches"]["kmeans_iter"],
                      f"[{N_FULL} × {K_FULL}], k={K_FULL} (world-size-1 mesh run, gather)"),
         hash_codes=(rec["mesh"]["lsh-ring"]["launches"]["hash_codes"],
-                    f"[{N_FULL} × 3] (world-size-1 mesh run, LSH ring)"))
+                    f"[{N_FULL} × 3] (world-size-1 mesh run, LSH ring)"),
+        # two-pass Stage 3 on rank 0's rows of 4 gloo ranks sharing the card
+        kmeans_assign=(rec["ranks_on_one_card"]["two_pass"]["launches"][0],
+                       f"{rec['ranks_on_one_card']['two_pass']['rank_shape']}, k=12 (rank 0 of "
+                       f"{SHARDS} gloo ranks sharing the card, two-pass kmeans_sharded)"))
     for kern in kernels:
         kern["launches"], kern["launches_at"] = launches[kern["name"].split("@")[0]]
     rec["examples"] = examples_phase()

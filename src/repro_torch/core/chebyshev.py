@@ -36,7 +36,7 @@ the filter reads nothing back to the host.
 
 On a mesh (an operator with ``rows``, see :mod:`repro_torch.core.lanczos`)
 the vectors and blocks are this rank's rows: the three draws are made whole
-and sliced, the bounds estimator's dot products and norms, the Hutchinson
+and sliced (zero on the rows a padded graph adds), the bounds estimator's dot products and norms, the Hutchinson
 moments (summed locally, all-reduced once) and the Rayleigh–Ritz Gram are
 all-reduced, and the QR is tall-skinny, so the interval, the cut, the Ritz
 values and the residuals are the same on every rank.
@@ -245,7 +245,8 @@ def chebyshev_moments(op, lo, hi, degree: int, z: torch.Tensor, *,
         tp, tc = tc, tn
     if rows.split:
         dots = list(rows.psum(torch.stack(dots)))
-    mus = [torch.tensor(float(n), dtype=f32, device=z.device)]  # zᵀz = n exactly
+    n_live = n if rows.live is None else rows.live  # zᵀz exactly (zero padding rows)
+    mus = [torch.tensor(float(n_live), dtype=f32, device=z.device)]
     return torch.stack(mus + [d.mean() for d in dots])[: degree + 1]
 
 
@@ -347,7 +348,10 @@ def chebyshev_eigsh(op, cfg: ChebConfig, *, v0: Optional[torch.Tensor] = None,
     sign = 1.0 if cfg.which == "LA" else -1.0  # "SA" filters -A's top
 
     rows = row_block(op, n)
-    v_bounds, z, g = draw_signals(gen, n, cfg.n_probes, r, dev)
+    # zero on a padded graph's padding rows, so the moments, the bounds and
+    # the sketch are those of the real rows
+    v_bounds, z, g = (rows.pad(t) for t in draw_signals(gen, n, cfg.n_probes, r, dev))
+    n_live = n if rows.live is None else rows.live
     lo, hi = estimate_spectral_bounds(_signed(op, sign), v_bounds, iters=cfg.bounds_iters,
                                       margin=cfg.margin, rows=rows)
     if cfg.lambda_cut is not None:
@@ -361,7 +365,8 @@ def chebyshev_eigsh(op, cfg: ChebConfig, *, v0: Optional[torch.Tensor] = None,
         # seed the sketch with the caller's start vector (the pipeline passes
         # the exact trivial eigenvector, so it is in the subspace)
         v = v0.to(dev, f32)
-        g[:, 0] = v * (math.sqrt(float(n)) / torch.clamp(torch.linalg.norm(v), min=1e-30))
+        g[:, 0] = rows.pad(v) * (math.sqrt(float(n_live))
+                                 / torch.clamp(torch.linalg.norm(v), min=1e-30))
 
     y = chebyshev_filter(op, rows.take(g), lo, hi, a, cfg.degree, sign=sign)
     q, _ = rows.qr(y)  # [n, R] whitened basis

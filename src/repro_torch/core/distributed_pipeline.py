@@ -2,8 +2,8 @@
 (mirrors :mod:`repro.core.distributed_pipeline`), over ``torch.distributed``.
 
 * :func:`make_knn_rowblock` — the row-block Stage-1 neighbour search;
-* :func:`kmeans_sharded` — Stage 3 on each rank's rows, with one packed
-  all-reduce a Lloyd iteration;
+* :func:`kmeans_sharded` — Stage 3 on each rank's rows (the fused or the
+  two-pass iteration), with one packed all-reduce a Lloyd iteration;
 * :func:`spectral_cluster_sharded` / :func:`spectral_cluster_from_points_sharded`
   — thin shims over ``SpectralPipeline`` with ``Plan(device="sharded")``.
 
@@ -24,8 +24,9 @@ whole and sliced (:class:`~repro_torch.sparse.distributed.RowBlock`).  So
 the eigenvalues, residuals and flags are the same on every rank with no
 broadcast, and every rank takes the same control path.  What still
 gathers: the degrees (an [n] vector, once), the labels (once, at the end),
-the two-pass k-means (the embedding, once), refine (the coarse embedding,
-once) and a checkpoint save (the embeddings, once).
+Stage 3 of a COO graph whose n does not divide by the ranks (its n real
+rows of the embedding, once, as the reference's route for such n), refine
+(the coarse embedding, once) and a checkpoint save (the embeddings, once).
 """
 from __future__ import annotations
 
@@ -262,9 +263,13 @@ def kmeans_sharded(x: torch.Tensor, cfg: km.KMeansConfig,
     ``P(axes, None)`` hands it (the pipeline's embed stage leaves each rank
     its rows; on a one-rank axis the whole array).  The seeding picks from
     the whole array without gathering it (:func:`_seed_rows`; on a one-rank
-    axis ``km.seed_centroids`` itself); then every rank runs the fused
-    iteration (:func:`repro_torch.core.kmeans.lloyd_iter`, the
-    ``kmeans_iter`` kernel on the card) on its rows, packs its partial
+    axis ``km.seed_centroids`` itself); then every rank runs an iteration on
+    its rows — the fused one (:func:`repro_torch.core.kmeans.lloyd_iter`,
+    the ``kmeans_iter`` kernel on the card) or, with
+    ``iter="two_pass"``, the configured assignment
+    (``km._assign``: the ``kmeans_assign`` kernel on the card, or
+    ``assign="ref"``) and then ``cfg.update``'s partial sums and counts
+    (:func:`repro_torch.core.kmeans.cluster_sums`) —, packs its partial
     statistics into one ``[k, d+2]`` block ``[Σx | counts | label changes]``
     and all-reduces it; every rank then forms the same centroids and the
     same convergence test.  The inertia is reduced once, after the loop, and
@@ -276,10 +281,6 @@ def kmeans_sharded(x: torch.Tensor, cfg: km.KMeansConfig,
     donors are the k farthest of the sum — exact, since a globally farthest
     point is farthest on its own shard.  It needs ``n // S >= k``.
     """
-    if cfg.iter != "fused":
-        raise ValueError(
-            "kmeans_sharded runs the fused one-pass engine only (the two-pass "
-            f"modes stay on km.kmeans); got KMeansConfig.iter={cfg.iter!r}")
     if cfg.k is None:
         raise ValueError("KMeansConfig.k is unset — standalone kmeans_sharded needs an "
                          "explicit k (use cfg.resolved(k))")
@@ -315,7 +316,11 @@ def kmeans_sharded(x: torch.Tensor, cfg: km.KMeansConfig,
         return buf[sel, :d]  # [k, d] donors, farthest first
 
     def one_iter(c, labels):
-        new_labels, dmin, sums, counts = km.lloyd_iter(x, c, x_norm, cfg)
+        if cfg.iter == "fused":
+            new_labels, dmin, sums, counts = km.lloyd_iter(x, c, x_norm, cfg)
+        else:  # two-pass: the assignment, then a second pass for the partials
+            new_labels, dmin = km._assign(x, c, x_norm, cfg)
+            sums, counts = km.cluster_sums(x, new_labels, k, how=cfg.update)
         changed_pc = torch.zeros(k, dtype=torch.float32, device=x.device).index_add_(
             0, new_labels.long(), (new_labels != labels).float())
         packed = torch.cat([sums.float(), counts.float()[:, None], changed_pc[:, None]], 1)

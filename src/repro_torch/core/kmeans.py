@@ -145,21 +145,26 @@ def reseed_empty_farthest(c: torch.Tensor, counts: torch.Tensor, x: torch.Tensor
 # update step (two-pass mode)
 # ---------------------------------------------------------------------------
 
-def update_centroids(x: torch.Tensor, labels: torch.Tensor, k: int, prev: torch.Tensor, *,
-                     how: str = "matmul") -> torch.Tensor:
-    """New centroids = per-cluster means via a second pass over ``x``:
-    ``how="matmul"`` materializes the n×k one-hot and multiplies (fp32, no
-    TF32 on the card), ``how="segment"`` index-adds the rows."""
+def cluster_sums(x: torch.Tensor, labels: torch.Tensor, k: int, *,
+                 how: str = "matmul"):
+    """Per-cluster ``(sums [k, d], counts [k])`` of ``x``'s rows, fp32, by a
+    second pass over ``x``: ``how="matmul"`` materializes the n×k one-hot
+    and multiplies (fp32, no TF32 on the card), ``how="segment"``
+    index-adds the rows.  The sharded loop all-reduces a rank's partials."""
     xf = x.float()
     lab = labels.long()
     if how == "matmul":
         h = torch.nn.functional.one_hot(lab, k).float()  # [n, k]
-        sums = h.T @ xf
-        counts = h.sum(0)
-    else:
-        sums = torch.zeros((k, xf.shape[1]), dtype=torch.float32, device=x.device)
-        sums.index_add_(0, lab, xf)
-        counts = torch.bincount(lab, minlength=k).float()
+        return h.T @ xf, h.sum(0)
+    sums = torch.zeros((k, xf.shape[1]), dtype=torch.float32, device=x.device)
+    sums.index_add_(0, lab, xf)
+    return sums, torch.bincount(lab, minlength=k).float()
+
+
+def update_centroids(x: torch.Tensor, labels: torch.Tensor, k: int, prev: torch.Tensor, *,
+                     how: str = "matmul") -> torch.Tensor:
+    """New centroids = per-cluster means (:func:`cluster_sums`)."""
+    sums, counts = cluster_sums(x, labels, k, how=how)
     return centroids_from_sums(sums, counts, prev)
 
 

@@ -28,7 +28,8 @@ distribute it: each rank keeps its [m+b, rows] block, every contraction
 over n all-reduces its small result (the Gram–Schmidt couplings, the
 norms), the QRs are tall-skinny (:meth:`RowBlock.qr`), and v0, X0 and the
 careful path's random directions are drawn whole from the one stream and
-sliced, so each rank's rows are the one-device draw's.  T, its eigenpairs,
+sliced, so each rank's rows are the one-device draw's (zero on the rows
+a padded graph adds, which the Krylov space then never reaches).  T, its eigenpairs,
 the residuals and the breakdown and convergence flags come from
 all-reduced values and are the same on every rank, so every rank takes the
 same control path.  On a one-rank axis nothing of this changes a bit.
@@ -295,8 +296,8 @@ def _extract(cfg: LanczosConfig, out, sign: float, restarts: int, n_conv: int):
 
 def _orthonormal_against(basis, rng, rows: RowBlock):
     """Random unit vector orthogonal to the (zero-padded) basis rows: an [n]
-    draw, this rank's rows of it."""
-    r = rows.take(rng.normal((rows.n,), basis.device))
+    draw (zero on padding rows), this rank's rows of it."""
+    r = rows.take(rows.pad(rng.normal((rows.n,), basis.device)))
     r = r - basis.T @ rows.psum(basis @ r)
     return r / torch.clamp(rows.norm(r), min=1e-30)
 
@@ -305,7 +306,7 @@ def _lanczos_topk_single(matvec: Callable, n: int, cfg: LanczosConfig, *,
                          v0, rng, device, rows: RowBlock) -> LanczosResult:
     k, m = cfg.k, cfg.m
     f32 = torch.float32
-    v0 = rng.normal((n,), device) if v0 is None else v0.to(device, f32)
+    v0 = rows.pad(rng.normal((n,), device) if v0 is None else v0.to(device, f32))
     v0 = rows.take(v0 / torch.clamp(torch.linalg.norm(v0), min=1e-30))
     sign = 1.0 if cfg.which == "LA" else -1.0
     l_keep = restart_keep_size(cfg)
@@ -379,8 +380,8 @@ def _lanczos_topk_single(matvec: Callable, n: int, cfg: LanczosConfig, *,
 
 def _orthonormal_block_against(basis, b: int, rng, rows: RowBlock):
     """[n, b] random directions orthogonal to the basis rows and to each
-    other: an [n, b] draw, this rank's rows of it."""
-    r = rows.take(rng.normal((rows.n, b), basis.device))
+    other: an [n, b] draw (zero on padding rows), this rank's rows of it."""
+    r = rows.take(rows.pad(rng.normal((rows.n, b), basis.device)))
     r = r - basis.T @ rows.psum(basis @ r)
     q, _ = rows.qr(r)
     return q
@@ -397,7 +398,7 @@ def _lanczos_topk_block(matmat: Callable, n: int, cfg: LanczosConfig, *,
     X0 = rng.normal((n, b), device)
     if v0 is not None:
         X0[:, 0] = v0.to(device, f32)
-    Q0, _ = rows.qr(rows.take(X0))  # column 0 keeps v0's direction
+    Q0, _ = rows.qr(rows.take(rows.pad(X0)))  # column 0 keeps v0's direction
     sign = 1.0 if cfg.which == "LA" else -1.0
     l_keep = restart_keep_size(cfg)
 

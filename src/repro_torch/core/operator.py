@@ -124,17 +124,18 @@ class RowBlockEllOperator:
     (one collective a product) into the whole input rotated so that this
     rank's rows come first, and the layout's column ids are rotated alike
     (``(col − lo) mod n``), so the fused step's ``cb·x`` term reads the
-    rank's own rows.  ``gather_dtype`` casts the rows the other ranks
-    send; the rank's own rows enter as they are.  ``shape`` stays global;
-    :attr:`rows` names the rank's rows.  Built by :meth:`of`.
+    rank's own rows.  It is the row analogue of the reference's
+    ``BlockEllOperator`` over a COO graph, and like that operator it
+    ignores ``Plan.gather_dtype``: the input is gathered at its own dtype.
+    ``shape`` stays global; :attr:`rows` names the rank's rows.  Built by
+    :meth:`of`.
     """
 
     a: BlockELL  # the rank's [rows, n] layout, column ids rotated by −rows.lo
     rows: Any  # RowBlock
-    gather_dtype: Any = None
 
     @classmethod
-    def of(cls, row, col, val, rows, *, width=None, gather_dtype=None) -> "RowBlockEllOperator":
+    def of(cls, row, col, val, rows, *, width=None) -> "RowBlockEllOperator":
         """From the rank's entries: in-block ``row`` ids, global ``col``
         ids and ``val``, laid out in row order (a stable sort keeps each
         row's entries in their order, so its ELL slots are those of the
@@ -144,7 +145,7 @@ class RowBlockEllOperator:
         order = torch.argsort(row, stable=True)
         local = COO(row[order], (col[order] - rows.lo) % rows.n, val[order],
                     (rows.size, rows.n))
-        return cls(csr_to_blockell(coo_to_csr(local), width=width), rows, gather_dtype)
+        return cls(csr_to_blockell(coo_to_csr(local), width=width), rows)
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -167,14 +168,10 @@ class RowBlockEllOperator:
         from repro_torch.sparse.distributed import _gather_block, all_gather
 
         ax, lo, n = self.rows.ax, self.rows.lo, self.rows.n
-        gdt = None if self.gather_dtype is None else getattr(torch, str(self.gather_dtype))
-        g = x_blk if gdt is None else x_blk.to(gdt)
-        g = all_gather(g, ax) if g.ndim == 1 else _gather_block(g, ax)
+        g = all_gather(x_blk, ax) if x_blk.ndim == 1 else _gather_block(x_blk, ax)
         x = torch.empty(g.shape, dtype=x_blk.dtype, device=g.device)
         x[:n - lo] = g[lo:]
         x[n - lo:] = g[:lo]
-        if gdt is not None:
-            x[:self.rows.size] = x_blk
         return x
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
@@ -207,7 +204,11 @@ class ShardedCooOperator:
     casts them first) and the rank's bucket is index-added into its row
     block of the product.  ``mm`` moves one [n, b] block a collective (the
     block-Lanczos amortization).  ``shape`` stays global; :attr:`rows`
-    names the rank's rows.
+    names the rank's rows.  ``live_rows`` is set when the ShardedCOO pads a
+    COO graph of that many rows for this operator
+    (:meth:`~repro_torch.sparse.distributed.RowBlock.padded`: the solvers'
+    draws are zero on the padding); a ShardedCOO a caller hands in keeps
+    every row.
     """
 
     sm: Any  # ShardedCOO
@@ -215,6 +216,7 @@ class ShardedCooOperator:
     mesh: Any = None
     axis: Any = "data"
     gather_dtype: Any = None
+    live_rows: Optional[int] = None
     # the mesh path's product closures and row block, built once (None
     # without a mesh)
     _spmv: Any = dataclasses.field(default=None, init=False, repr=False, compare=False)
@@ -237,8 +239,8 @@ class ShardedCooOperator:
             kw = dict(axis=self.axis, gather_dtype=self.gather_dtype)
             object.__setattr__(self, "_spmv", make_sharded_spmv(self.mesh, self.sm, **kw))
             object.__setattr__(self, "_spmm", make_sharded_spmm(self.mesh, self.sm, **kw))
-            object.__setattr__(self, "_rows",
-                               RowBlock.of(mesh_axis(self.mesh, self.axis), self.sm.shape[0]))
+            n = self.sm.shape[0] if self.live_rows is None else self.live_rows
+            object.__setattr__(self, "_rows", RowBlock.padded(mesh_axis(self.mesh, self.axis), n))
 
     @property
     def shape(self) -> Tuple[int, int]:

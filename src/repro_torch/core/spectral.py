@@ -27,7 +27,9 @@ mesh=...)`` on raw points, whose Stage 1 runs row-block-parallel
 runs the same call on the same inputs, and Stage 2's and Stage 3's dense
 state is distributed by rows as the reference's specs distribute it: each
 rank holds its own row block of the Krylov basis or Chebyshev block and of
-the embedding (:class:`~repro_torch.sparse.distributed.RowBlock`).
+the embedding (:class:`~repro_torch.sparse.distributed.RowBlock`); a COO
+graph whose n does not divide by the ranks is padded for Stage 2, and its
+padding rows never enter the result.
 """
 from __future__ import annotations
 
@@ -52,9 +54,9 @@ from repro_torch.core.similarity import build_knn_graph
 from repro_torch.kernels.lsh_candidates.ops import (DEFAULT_N_BITS, DEFAULT_N_TABLES,
                                                     MAX_N_BITS)
 from repro_torch.sparse.distributed import (RowBlock, ShardedCOO, all_gather, all_reduce,
-                                            global_rows, mesh_axis, normalize_sharded,
-                                            partition_coo_by_rows, sharded_degrees,
-                                            spmv_gspmd)
+                                            gather_rows, global_rows, mesh_axis,
+                                            normalize_sharded, partition_coo_by_rows,
+                                            sharded_degrees, spmv_gspmd)
 from repro_torch.sparse.formats import COO, coo_to_csr, csr_to_blockell, ell_width
 
 KMeansConfig = km.KMeansConfig  # the Stage-3 nested config (re-exported)
@@ -153,11 +155,11 @@ class EigConfig:
     (thick-restart, exact to ``tol``) or ``"chebyshev"`` (Jackson-damped
     polynomial-filter embedding: ``cheb_degree``, ``n_signals``,
     ``lambda_cut``, ``cheb_margin``).  ``representation="blockell"``
-    converts the graph to BlockELL(+tail) so both solvers stream the
+    converts a COO graph to BlockELL(+tail) so both solvers stream the
     ``ell_spmm`` kernel (and the Chebyshev filter its fused step); under a
     mesh axis of more than one rank each rank converts its own rows.  A
-    ShardedCOO graph off such an axis (no mesh, or a world-size-1 mesh)
-    runs its own index-add operator."""
+    ShardedCOO graph runs its own index-add operator whatever this says,
+    as in the reference."""
 
     n_eigvecs: Optional[int] = None  # embedding width; default: n_clusters
     basis_m: Optional[int] = None  # Krylov basis (ARPACK ncv); default 2k-ish
@@ -218,13 +220,19 @@ class Plan:
                   (``sparse.distributed.all_gather``).  The labels, the
                   eigenvalues, the residuals and the flags are whole and the
                   same on every rank.  A COO graph (raw points' Stage 1) is
-                  partitioned by rows for Stage 2 on more than one rank, and
-                  its n must divide by the axis' size.
+                  partitioned by rows for Stage 2 on more than one rank,
+                  padded when its n does not divide by the axis' size; the
+                  padding rows are dropped from the embedding (the last
+                  ranks then hold fewer rows, ``EmbedState.n_rows`` says how
+                  many in all), and Stage 3 gathers the n real rows once
+                  and runs ``kmeans``, as the reference does when n does not
+                  tile the axis.
     axis          the mesh dimension the rows are partitioned over.
     variant       "gspmd" | "shard_map": the reference's two collective
-                  schedules.  Both values load; under a mesh both run the one
-                  all-gather a product and, with the fused k-means, the
-                  row-local Lloyd loop; without one the layout path.
+                  schedules.  Both values load; under a mesh of more than
+                  one rank both run the one all-gather a product and the
+                  row-local Lloyd loop (fused or two-pass); without a mesh
+                  the layout path.
     gather_dtype  optional cast of the gathered operator input (e.g.
                   "bfloat16").
     stage1_exchange
@@ -299,6 +307,9 @@ class EmbedState(NamedTuple):
     residuals: torch.Tensor  # eigensolver residuals
     restarts: int  # Lanczos restart count
     converged: bool = True
+    # the embedding's rows in all when a mesh's ranks hold blocks that do not
+    # tile them (a padded graph's real rows); None: each rank's rows × ranks
+    n_rows: Optional[int] = None
 
     def to(self, device) -> "EmbedState":
         return self._replace(embedding=self.embedding.to(device),
@@ -371,27 +382,15 @@ def _drop_null_edges(w: COO) -> COO:
                sorted_rows=False)
 
 
-def _row_block_ell(adj, ax, gather_dtype) -> RowBlockEllOperator:
-    """This rank's rows of the graph as a :class:`RowBlockEllOperator`:
-    from a COO graph, which every rank holds whole, its rows at the whole
-    graph's ELL width (each row laid out as on one device); from a
-    ShardedCOO, the rank's bucket without its null edges."""
-    rows = RowBlock.of(ax, adj.shape[0])
-    if isinstance(adj, ShardedCOO):
-        if adj.num_shards != ax.size:
-            raise ValueError(
-                f"the ShardedCOO has {adj.num_shards} shards but the mesh axis has "
-                f"{ax.size} ranks — partition with partition_coo_by_rows(·, {ax.size})")
-        rl, c, v = adj.row_local, adj.col, adj.val
-        if rl.shape[0] == adj.num_shards * adj.edges_per_shard:
-            rl, c, v = adj.bucket(ax.rank)
-        keep = v != 0
-        return RowBlockEllOperator.of(rl[keep], c[keep], v[keep], rows,
-                                      gather_dtype=gather_dtype)
+def _row_block_ell(adj: COO, rows: RowBlock) -> RowBlockEllOperator:
+    """This rank's ``rows`` of a COO graph, which every rank holds whole, as
+    a :class:`RowBlockEllOperator`: laid out at the whole graph's ELL width,
+    so each row's slots are those of the one-device layout (a padding row
+    has none)."""
     width = ell_width(torch.bincount(adj.row, minlength=adj.shape[0]))
     own = (adj.row >= rows.lo) & (adj.row < rows.hi)
     return RowBlockEllOperator.of(adj.row[own] - rows.lo, adj.col[own], adj.val[own], rows,
-                                  width=width, gather_dtype=gather_dtype)
+                                  width=width)
 
 
 # ---------------------------------------------------------------------------
@@ -478,36 +477,37 @@ class SpectralPipeline:
         return self._lanczos_config(n, e)
 
     def operator(self, state: GraphState) -> LinearOperator:
-        """The Stage-2 operator for this graph.  Under a mesh axis of more
-        than one rank it maps each rank's rows to its rows: with
-        ``eig.representation="blockell"`` a :class:`RowBlockEllOperator`
-        (the ``ell_spmv``/``ell_spmm`` kernels), else a
-        :class:`ShardedCooOperator` (a COO graph partitioned by rows).
-        Otherwise a ShardedCOO's :class:`ShardedCooOperator` under this
-        plan's mesh and variant (a ShardedCOO is its own representation
-        there), or for a COO graph the index-add operator, or with
-        ``eig.representation="blockell"`` a BlockELL(+tail) built on the
-        graph's device, whose products are the ``ell_spmv``/``ell_spmm``
-        kernels."""
+        """The Stage-2 operator for this graph, by the reference's routes.
+        A ShardedCOO gets its :class:`ShardedCooOperator` under this plan's
+        mesh and variant at every world size, whatever
+        ``eig.representation`` says (a ShardedCOO is its own
+        representation).  A COO graph under a mesh axis of more than one
+        rank is cut into the ranks' row blocks, padded when its n does not
+        divide by them (:meth:`RowBlock.padded`, the layout of
+        ``partition_coo_by_rows``): with ``eig.representation="blockell"``
+        a :class:`RowBlockEllOperator` (the ``ell_spmv``/``ell_spmm``
+        kernels on each rank's rows; it ignores ``gather_dtype``, as the
+        reference's ``BlockEllOperator`` does), else a
+        :class:`ShardedCooOperator` over the graph partitioned by rows.  Off
+        such an axis a COO graph gets the index-add operator, or with
+        ``"blockell"`` a BlockELL(+tail) built on the graph's device, whose
+        products are the ``ell_spmv``/``ell_spmm`` kernels."""
         p = self.plan
         adj = state.adj
-        ax = self._split_axis()
-        if ax is not None and not isinstance(adj, ShardedCOO) \
-                and adj.shape[0] % ax.size:
-            raise ValueError(
-                f"a COO graph of {adj.shape[0]} nodes does not split into {ax.size} "
-                f"row blocks — partition it (partition_coo_by_rows pads the rows) "
-                f"and pass the ShardedCOO")
-        if ax is not None and self.eig.representation == "blockell":
-            return _row_block_ell(adj, ax, p.gather_dtype)
-        if ax is not None and not isinstance(adj, ShardedCOO):
-            adj = partition_coo_by_rows(adj, ax.size)
         if isinstance(adj, ShardedCOO):
             return ShardedCooOperator(adj, variant=p.variant, mesh=p.mesh, axis=p.axis,
                                       gather_dtype=p.gather_dtype)
+        ax = self._split_axis()
+        if ax is not None:
+            rows = RowBlock.padded(ax, adj.shape[0])
+            if self.eig.representation == "blockell":
+                return _row_block_ell(adj, rows)
+            return ShardedCooOperator(partition_coo_by_rows(adj, ax.size), variant=p.variant,
+                                      mesh=p.mesh, axis=p.axis, gather_dtype=p.gather_dtype,
+                                      live_rows=rows.live)
         if self.eig.representation == "blockell":
-            return BlockEllOperator(csr_to_blockell(coo_to_csr(state.adj)))
-        return CooOperator(state.adj)
+            return BlockEllOperator(csr_to_blockell(coo_to_csr(adj)))
+        return CooOperator(adj)
 
     # -- Stage 1 ------------------------------------------------------------
 
@@ -594,12 +594,14 @@ class SpectralPipeline:
         thick-restart Lanczos (``eig.solver="lanczos"``) or the Chebyshev
         polynomial-filter sketch (``"chebyshev"``), mapped to
         Ng-Jordan-Weiss rows.  ``operator`` overrides the plan-chosen
-        operator; ``eig`` the Stage-2 config."""
+        operator; ``eig`` the Stage-2 config.  On an operator that pads the
+        graph's rows (:meth:`operator`) the start vector is zero on the
+        padding, and the embedding holds the rank's real rows only."""
         dev = resolve_device(device)
         state = state.to(dev)
         n = state.adj.shape[0]
         op = self.operator(state) if operator is None else operator
-        rows = row_block(op, n)
+        rows = row_block(op, op.shape[0])
         if self._split_axis() is not None and not rows.split:
             raise ValueError(
                 f"{type(op).__name__} has no rows on this plan's mesh: under a mesh of "
@@ -608,7 +610,7 @@ class SpectralPipeline:
         scfg = self._eig_config(n, eig)
         # D^{1/2}·1 is exactly the trivial eigenvector of A_sym (the
         # Chebyshev path seeds its sketch with it)
-        v0 = torch.sqrt(torch.clamp(state.deg.float(), min=0.0)) + 1e-3
+        v0 = rows.pad(torch.sqrt(torch.clamp(state.deg.float(), min=0.0)) + 1e-3)
         ecfg = eig if eig is not None else self.eig
         res = lz.eigsh(op, scfg, v0=v0,
                        generator=cpu_generator(0) if generator is None else generator)
@@ -619,11 +621,13 @@ class SpectralPipeline:
         # eigenvalues, residuals and flags come from all-reduced values and
         # are the same on every rank
         return EmbedState(
-            embedding=lap.embed_rows(vecs, rows.take(state.inv_sqrt_deg)),
+            embedding=lap.embed_rows(rows.drop_padding(vecs),
+                                     rows.take(state.inv_sqrt_deg)),
             eigenvalues=lap.smallest_laplacian_eigs_from_adj(vals),
             residuals=res.residuals,
             restarts=res.restarts,
             converged=res.converged,
+            n_rows=rows.live,
         )
 
     def _axis(self):
@@ -660,7 +664,7 @@ class SpectralPipeline:
         state = state.to(resolve_device(device))
         base = kmeans if kmeans is not None else self.kmeans
         kcfg = base.resolved(n_clusters or self.n_clusters)
-        res = self._run_kmeans(state.embedding, kcfg,
+        res = self._run_kmeans(state.embedding, self._embedding_rows(state), kcfg,
                                cpu_generator(0) if generator is None else generator)
         return SpectralResult(
             labels=res.labels,
@@ -675,31 +679,36 @@ class SpectralPipeline:
     def _shards(self) -> int:
         return self._axis().size
 
-    def _kmeans_sharded_dispatch(self, n: int, kcfg: KMeansConfig) -> bool:
-        """True iff Stage 3 runs ``kmeans_sharded``: the fused iteration on
-        rows distributed over more than one rank, under either variant (the
-        reference computes the gspmd plan's Lloyd iteration through GSPMD on
-        the same rows); or, as the reference routes it to its ``shard_map``
-        loop, the sharded plan under ``variant="shard_map"`` on a mesh of
-        one rank, the fused iteration, and ``n`` rows that tile the axis."""
-        if kcfg.iter != "fused":
-            return False
-        if self._split_axis() is not None:
-            return True
-        plan = self.plan
-        return (plan.device == "sharded" and plan.variant == "shard_map"
-                and plan.mesh is not None and n % self._shards() == 0)
+    def _embedding_rows(self, state: EmbedState) -> int:
+        """The embedding's rows in all (under a split axis, across the
+        ranks)."""
+        if state.n_rows is not None:
+            return state.n_rows
+        ax = self._split_axis()
+        return state.embedding.shape[0] * (1 if ax is None else ax.size)
 
-    def _run_kmeans(self, h: torch.Tensor, kcfg: KMeansConfig, generator):
-        if self._kmeans_sharded_dispatch(h.shape[0], kcfg):
+    def _kmeans_sharded_dispatch(self, n: int, kcfg: KMeansConfig) -> bool:
+        """True iff Stage 3 runs ``kmeans_sharded`` on the ``n`` rows of
+        the embedding: rows distributed over more than one rank that tile
+        the axis, under either variant and either iteration (the reference
+        computes the gspmd plan's and the two-pass Lloyd iterations through
+        GSPMD on the same rows); or, as the reference routes it to its
+        ``shard_map`` loop, the sharded plan under ``variant="shard_map"``
+        on a mesh of one rank with the fused iteration."""
+        if self._split_axis() is not None:
+            return n % self._shards() == 0
+        plan = self.plan
+        return (kcfg.iter == "fused" and plan.device == "sharded"
+                and plan.variant == "shard_map" and plan.mesh is not None)
+
+    def _run_kmeans(self, h: torch.Tensor, n: int, kcfg: KMeansConfig, generator):
+        if self._kmeans_sharded_dispatch(n, kcfg):
             from repro_torch.core.distributed_pipeline import kmeans_sharded
 
             return kmeans_sharded(h, kcfg, generator, mesh=self.plan.mesh, axis=self.plan.axis)
-        ax = self._split_axis()
-        if ax is not None:
-            # the two-pass iteration runs on the whole embedding: gathered once
-            h = all_gather(h, ax)
-        return km.kmeans(h, kcfg, generator)
+        # n rows that do not tile a split axis: the reference's route, its n
+        # real rows gathered once
+        return km.kmeans(gather_rows(h, self._split_axis(), n), kcfg, generator)
 
     # -- the stage DAG ------------------------------------------------------
 
@@ -757,9 +766,6 @@ class SpectralPipeline:
                           nnz_before=w.nnz, nnz_after=wc.nnz)
         if sharded:
             wc = partition_coo_by_rows(wc, st.graph.adj.num_shards)
-        elif self._split_axis() is not None:
-            # the coarse graph's rows rarely divide by the ranks: pad them
-            wc = partition_coo_by_rows(wc, self._shards())
         g = self.prepare(wc, device=st.device)
         reduction = ReductionState(fine_graph=st.graph, prolong=prolong, info=info)
         return dataclasses.replace(
@@ -779,19 +785,18 @@ class SpectralPipeline:
         # coarse embedding is gathered once (a fine row may point at any
         # coarse row) and each rank lifts its own fine rows
         op = self.operator(fine)
-        rows = row_block(op, fine.adj.shape[0])
-        coarse = st.embedding.embedding
-        ax = self._split_axis()
-        if ax is not None:
-            coarse = all_gather(coarse, ax)
-        u0 = coarse[rows.take(st.reduction.prolong)]
+        rows = row_block(op, op.shape[0])
+        coarse = gather_rows(st.embedding.embedding, self._split_axis(),
+                             self._embedding_rows(st.embedding))
+        u0 = rows.fill_padding(coarse[rows.take(st.reduction.prolong)])
         u, theta, resid = red.lift_and_smooth(op, u0, steps=self.coarsen.refine_steps)
         emb = EmbedState(
-            embedding=lap.embed_rows(u, rows.take(fine.inv_sqrt_deg)),
+            embedding=lap.embed_rows(rows.drop_padding(u), rows.take(fine.inv_sqrt_deg)),
             eigenvalues=lap.smallest_laplacian_eigs_from_adj(theta),
             residuals=resid,
             restarts=st.embedding.restarts,
             converged=st.embedding.converged,
+            n_rows=rows.live,
         )
         return dataclasses.replace(st, graph=fine, embedding=emb, reduction=None,
                                    provenance=st.provenance + ("refine",))
@@ -901,13 +906,12 @@ class SpectralPipeline:
                            "embedding before re-clustering")
             empty = kcfg.k - int(torch.unique(res.labels).numel())
             bad = bool(health.nonfinite_count(res.kmeans_inertia))
-            # one reseed rung; under kmeans_sharded it needs k rows a shard
-            # (the embedding holds a shard's rows: a rank's own, or all of
-            # them on a one-rank axis)
-            h = st.embedding.embedding
+            # one reseed rung; under kmeans_sharded (fused or two-pass) it
+            # needs k rows a shard
+            n = self._embedding_rows(st.embedding)
             can_reseed = kcfg.empty == "keep"
-            if can_reseed and self._kmeans_sharded_dispatch(h.shape[0], kcfg):
-                can_reseed = h.shape[0] >= kcfg.k
+            if can_reseed and self._kmeans_sharded_dispatch(n, kcfg):
+                can_reseed = n // self._shards() >= kcfg.k
             if (empty > 0 or bad) and attempts < hc.max_attempts and can_reseed:
                 rungs.append(f"kmeans_reseed_farthest[empty={empty}]")
                 retry = dataclasses.replace(self.kmeans, empty="reseed_farthest")

@@ -32,7 +32,9 @@ Under a mesh of more than one rank the embeddings (``EmbedState`` and
 pipeline, gathers each once so the checkpoint holds them whole, as the
 reference's does (every rank must call it, as every rank of the plan runs
 the stages), and :func:`load_state`, given a pipeline with such a mesh,
-hands each rank its rows again.
+hands each rank its rows again (the blocks of
+:meth:`~repro_torch.sparse.distributed.RowBlock.padded` when the rows do not
+divide by the ranks).
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ from repro_torch._device import DeviceLike, cpu_generator, resolve_device
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.core.health import StageReport
 from repro_torch.core.reduce import ReduceInfo, ReductionState
-from repro_torch.sparse.distributed import RowBlock, ShardedCOO, all_gather, mesh_axis
+from repro_torch.sparse.distributed import RowBlock, ShardedCOO, gather_rows, mesh_axis
 from repro_torch.sparse.formats import COO
 
 _META_KEY = "__meta__"
@@ -148,12 +150,14 @@ def state_to_tree(state, pipeline=None) -> Dict[str, np.ndarray]:
         _put_graph(tree, meta, "graph", state.graph)
     ax = _split_axis(pipeline)
 
-    def whole(h):
-        return _np(h if ax is None else all_gather(h, ax))
+    def whole(h, n_rows=None):
+        if ax is not None and n_rows is None:
+            n_rows = h.shape[0] * ax.size
+        return _np(gather_rows(h, ax, n_rows))
 
     if state.embedding is not None:
         e = state.embedding
-        tree["embedding.embedding"] = whole(e.embedding)
+        tree["embedding.embedding"] = whole(e.embedding, e.n_rows)
         tree["embedding.eigenvalues"] = _np(e.eigenvalues)
         tree["embedding.residuals"] = _np(e.residuals)
         tree["embedding.restarts"] = np.asarray(e.restarts)
@@ -163,7 +167,7 @@ def state_to_tree(state, pipeline=None) -> Dict[str, np.ndarray]:
         for f in ("labels", "eigenvalues", "eig_residuals", "kmeans_inertia",
                   "lanczos_restarts", "kmeans_iterations"):
             tree[f"result.{f}"] = _np(getattr(r, f))
-        tree["result.embedding"] = whole(r.embedding)
+        tree["result.embedding"] = whole(r.embedding, r.labels.shape[0])
         meta["result_reports"] = [rep.to_dict() for rep in r.reports]
     if state.reduction is not None:
         red = state.reduction
@@ -268,11 +272,12 @@ def load_state(directory: str, pipeline=None, *, device: DeviceLike = None):
     ax = _split_axis(pipeline)
     if ax is not None:  # each rank its own rows of the embeddings
         def rows(h):
-            return RowBlock.of(ax, h.shape[0]).take(h)
+            return RowBlock.padded(ax, h.shape[0]).take(h)
 
         if state.embedding is not None:
+            h = state.embedding.embedding
             state = dataclasses.replace(state, embedding=state.embedding._replace(
-                embedding=rows(state.embedding.embedding)))
+                embedding=rows(h), n_rows=RowBlock.padded(ax, h.shape[0]).live))
         if state.result is not None:
             state = dataclasses.replace(state, result=state.result._replace(
                 embedding=rows(state.result.embedding)))

@@ -363,12 +363,20 @@ class RowBlock:
     holds whole is sliced with :meth:`take`.  Unless the axis has more
     than one rank (:attr:`split`), each method is the identity or the plain
     one-device op and makes no collective, so such a run computes bit for
-    bit what it computes without a mesh."""
+    bit what it computes without a mesh.
+
+    ``live`` (from :meth:`padded`) marks rows ``[live, n)`` as padding that
+    :func:`partition_coo_by_rows` added to a graph of ``live`` rows: a draw
+    or a start vector is zero there (:meth:`pad`), so a Krylov space that
+    starts on the real rows stays on them, and :meth:`take`,
+    :meth:`gather_live` and the ``*_padding`` methods leave the padding
+    out."""
 
     ax: Optional[Axis]
     lo: int
     hi: int
     n: int
+    live: Optional[int] = None  # rows past it are padding (None: none are)
 
     @classmethod
     def whole(cls, n: int) -> "RowBlock":
@@ -383,6 +391,14 @@ class RowBlock:
         nl = n // ax.size
         return cls(ax, ax.rank * nl, (ax.rank + 1) * nl, n)
 
+    @classmethod
+    def padded(cls, ax: Axis, n: int) -> "RowBlock":
+        """Coordinate ``ax.rank``'s block of ``n`` rows padded, as
+        :func:`partition_coo_by_rows` pads them, to the next multiple of the
+        axis' size (no padding when ``n`` divides)."""
+        blk = cls.of(ax, padded_rows(n, ax.size))
+        return blk if blk.n == n else dataclasses.replace(blk, live=n)
+
     @property
     def split(self) -> bool:
         return self.ax is not None and self.ax.size > 1
@@ -391,9 +407,45 @@ class RowBlock:
     def size(self) -> int:
         return self.hi - self.lo
 
+    @property
+    def live_size(self) -> int:
+        """This rank's rows that are not padding."""
+        if self.live is None:
+            return self.size
+        return max(0, min(self.hi, self.live) - self.lo)
+
     def take(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of ``t``, which every rank holds whole."""
+        """This rank's rows of ``t``, which every rank holds whole (of
+        ``n`` rows, or of ``live``: then the rank's real rows)."""
         return t[self.lo:self.hi] if self.split else t
+
+    def pad(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole ``t`` (of ``live`` or ``n`` rows) over all ``n`` rows,
+        zero on the padding: a counter-based draw's real rows keep the bits
+        of the unpadded draw."""
+        if self.live is None:
+            return t
+        out = t.new_zeros((self.n,) + tuple(t.shape[1:]))
+        out[:self.live] = t[:self.live]
+        return out
+
+    def drop_padding(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's real rows of its rows ``t``."""
+        return t if self.live is None else t[:self.live_size]
+
+    def fill_padding(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's real rows ``t`` as its rows, zero on the padding."""
+        if self.live is None:
+            return t
+        out = t.new_zeros((self.size,) + tuple(t.shape[1:]))
+        out[:t.shape[0]] = t
+        return out
+
+    def gather_live(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole array of real rows from the ranks' real rows ``t``."""
+        if self.live is None:
+            return self.gather(t)
+        return self.gather(self.fill_padding(t))[:self.live]
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over the axis of each rank's partial ``t`` (a new tensor)."""
@@ -420,7 +472,8 @@ class RowBlock:
         has fewer than b), one all-gather stacks the S small factors, and
         every rank factors the [S·b, b] stack and keeps its block of that Q.
         A column of ``w`` that R finds deficient gets an arbitrary direction,
-        as in the one-device QR."""
+        as in the one-device QR, but never on a padding row: Q is zero
+        there."""
         if not self.split:
             return torch.linalg.qr(w)
         b = w.shape[1]
@@ -429,7 +482,10 @@ class RowBlock:
             r1 = torch.cat([r1, r1.new_zeros((b - r1.shape[0], b))])
         q2, r = torch.linalg.qr(all_gather(r1.contiguous(), self.ax))
         blk = self.ax.rank * b
-        return q1 @ q2[blk:blk + q1.shape[1]], r
+        q = q1 @ q2[blk:blk + q1.shape[1]]
+        if self.live_size < self.size:
+            q[self.live_size:] = 0.0
+        return q, r
 
 
 def collective_bytes() -> dict:
@@ -446,6 +502,14 @@ def shard_vector(mesh, x: torch.Tensor, axis="data") -> torch.Tensor:
     ax = mesh_axis(mesh, axis)
     nl = x.shape[0] // ax.size
     return x[ax.rank * nl:(ax.rank + 1) * nl]
+
+
+def gather_rows(t: torch.Tensor, ax: Optional[Axis], n: int) -> torch.Tensor:
+    """The whole [n, ...] array from each rank's real rows ``t`` of it (the
+    blocks of :meth:`RowBlock.padded`); ``t`` itself off a split axis."""
+    if ax is None or ax.size == 1:
+        return t
+    return RowBlock.padded(ax, n).gather_live(t)
 
 
 def shard_edges(mesh, sm: ShardedCOO, axis="data") -> Tuple[torch.Tensor, ...]:

@@ -161,7 +161,8 @@ def knn_rank(rank: int, world: int, spec: dict) -> dict:
 def kmeans_rank(rank: int, world: int, spec: dict) -> dict:
     """``kmeans_sharded`` of this rank's rows of ``spec["x"]`` under
     ``KMeansConfig(**spec["cfg"])`` (from ``spec["init"]`` when given, else
-    seeded from ``spec["seed"]``)."""
+    seeded from ``spec["seed"]``), with the k-means kernels' launches on
+    the card (``launches``)."""
     from repro_torch._device import cpu_generator
     from repro_torch.core.distributed_pipeline import kmeans_sharded
     from repro_torch.core.kmeans import KMeansConfig
@@ -171,12 +172,25 @@ def kmeans_rank(rank: int, world: int, spec: dict) -> dict:
     axis = spec.get("axis", "data")
     x = shard_vector(mesh, torch.as_tensor(spec["x"], device=dev), axis)
     init = spec.get("init")
+    kernels = _kmeans_wrappers()
+    for fn in kernels:
+        fn.launches = 0
     COLLECTIVES.reset()
     res = kmeans_sharded(x, KMeansConfig(**spec["cfg"]), cpu_generator(spec.get("seed", 0)),
                          mesh=mesh, axis=axis,
                          init_centroids=None if init is None else torch.as_tensor(init, device=dev))
     return {"labels": _np(res.labels), "centroids": _np(res.centroids),
-            "inertia": float(res.inertia), "iterations": res.iterations, **_counts()}
+            "inertia": float(res.inertia), "iterations": res.iterations,
+            "launches": {fn.__name__: fn.launches for fn in kernels}, **_counts()}
+
+
+def _kmeans_wrappers() -> tuple:
+    """The k-means kernels' wrappers, whose ``launches`` count their
+    launches on the card."""
+    from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
+    from repro_torch.kernels.kmeans_iter.ops import kmeans_iter
+
+    return kmeans_assign, kmeans_iter
 
 
 def operator_rank(rank: int, world: int, spec: dict) -> dict:
@@ -213,15 +227,16 @@ def operator_rank(rank: int, world: int, spec: dict) -> dict:
 
 
 def ell_operator_rank(rank: int, world: int, spec: dict) -> dict:
-    """``SpectralPipeline.operator`` under ``representation="blockell"`` on
-    the mesh, of the COO ``spec["graph"]`` (row, col, val, n) whole and
-    partitioned onto the mesh axis (``_sharded``), applied to this rank's
-    rows of ``spec["x"]`` [n, b]: ``mv`` of its first column, ``mm``,
-    ``mm`` of a column-major block and the fused ``cheb_step`` with
-    ``spec["prev"]``'s rows and (ca, cb) = (0.5, −0.25).  The operators'
-    classes, the collectives of the COO graph's ``mv`` and ``mm``, each
-    product's rows (``*_rows``) and, gathered after the count, the whole
-    products."""
+    """``SpectralPipeline.operator`` under ``representation="blockell"``
+    and ``Plan(gather_dtype=spec.get("gather_dtype"))`` on the mesh, of the
+    COO ``spec["graph"]`` (row, col, val, n), applied to this rank's rows
+    of ``spec["x"]`` [n, b]: ``mv`` of its first column, ``mm``, ``mm`` of a
+    column-major block and the fused ``cheb_step`` with ``spec["prev"]``'s
+    rows and (ca, cb) = (0.5, −0.25).  The operator's class, the
+    collectives of ``mv`` and ``mm``, each product's rows (``*_rows``) and,
+    gathered after the count, the whole products; and the class of the
+    operator the same plan gives the graph partitioned onto the mesh axis
+    (``operator_sharded``), with its ``mv`` and ``mm`` (``*_sharded``)."""
     from repro_torch.core.spectral import EigConfig, GraphState, Plan, SpectralPipeline
     from repro_torch.sparse.distributed import (COLLECTIVES, all_gather, mesh_axis,
                                                 partition_coo_by_rows, shard_vector)
@@ -233,30 +248,33 @@ def ell_operator_rank(rank: int, world: int, spec: dict) -> dict:
     w = COO(torch.as_tensor(g["row"], device=dev).long(), torch.as_tensor(g["col"], device=dev).long(),
             torch.as_tensor(g["val"], device=dev), (g["n"], g["n"]))
     pipe = SpectralPipeline(n_clusters=2, eig=EigConfig(representation="blockell"),
-                            plan=Plan(device="sharded", variant="shard_map", mesh=mesh))
+                            plan=Plan(device="sharded", variant="shard_map", mesh=mesh,
+                                      gather_dtype=spec.get("gather_dtype")))
     x = shard_vector(mesh, torch.as_tensor(spec["x"], device=dev))
     prev = shard_vector(mesh, torch.as_tensor(spec["prev"], device=dev))
-    out = {}
-    for tag, adj in (("", w), ("_sharded", partition_coo_by_rows(w, ax.size))):
-        op = pipe.operator(GraphState(adj, None, None))
-        out[f"operator{tag}"] = type(op).__name__
-        COLLECTIVES.reset()
-        mv, mm = op.mv(x[:, 0]), op.mm(x)
-        if not tag:
-            out.update(_counts())
-        products = (("mv", mv), ("mm", mm), ("mm_colmajor", op.mm(x.T.contiguous().T)),
-                    ("cheb", op.cheb_step(x, prev, 0.5, -0.25)))
-        for name, y in products:
-            out[f"{name}{tag}_rows"] = tuple(y.shape)
-            out[f"{name}{tag}"] = _np(all_gather(y, ax))
+    op = pipe.operator(GraphState(w, None, None))
+    out = {"operator": type(op).__name__}
+    COLLECTIVES.reset()
+    mv, mm = op.mv(x[:, 0]), op.mm(x)
+    out.update(_counts())
+    products = (("mv", mv), ("mm", mm), ("mm_colmajor", op.mm(x.T.contiguous().T)),
+                ("cheb", op.cheb_step(x, prev, 0.5, -0.25)))
+    sharded = pipe.operator(GraphState(partition_coo_by_rows(w, ax.size), None, None))
+    out["operator_sharded"] = type(sharded).__name__
+    products += (("mv_sharded", sharded.mv(x[:, 0])), ("mm_sharded", sharded.mm(x)))
+    for name, y in products:
+        out[f"{name}_rows"] = tuple(y.shape)
+        out[name] = _np(all_gather(y, ax))
     return out
 
 
 def eigsh_rank(rank: int, world: int, spec: dict) -> dict:
     """``lanczos.eigsh`` under ``LanczosConfig(**spec["cfg"])`` of the mesh
     operator over the COO ``spec["graph"]`` (row, col, val, n) partitioned
-    onto the mesh axis: the eigenvalues, this rank's rows of the
-    eigenvectors and how many random directions the careful path drew."""
+    onto the mesh axis (its padding rows marked, as the pipeline marks
+    them, when n does not divide by the ranks): the eigenvalues, this
+    rank's rows of the eigenvectors and how many random directions the
+    careful path drew."""
     import repro_torch.core.lanczos as lz
     from repro_torch._device import cpu_generator
     from repro_torch.core.operator import ShardedCooOperator
@@ -267,7 +285,8 @@ def eigsh_rank(rank: int, world: int, spec: dict) -> dict:
     g = spec["graph"]
     w = COO(torch.as_tensor(g["row"], device=dev).long(), torch.as_tensor(g["col"], device=dev).long(),
             torch.as_tensor(g["val"], device=dev), (g["n"], g["n"]))
-    op = ShardedCooOperator(partition_coo_by_rows(w, mesh_axis(mesh).size), mesh=mesh)
+    op = ShardedCooOperator(partition_coo_by_rows(w, mesh_axis(mesh).size), mesh=mesh,
+                            live_rows=g["n"])
     with _refills() as refills:
         res = lz.eigsh(op, lz.LanczosConfig(**spec["cfg"]),
                        generator=cpu_generator(spec.get("seed", 0)))
@@ -292,15 +311,20 @@ def pipeline_rank(rank: int, world: int, spec: dict) -> dict:
     on ``spec["x"]`` (points, with ``spec["points"]`` as the search
     coordinates when given) or on ``spec["graph"]`` (a COO's row, col, val,
     n) partitioned onto the mesh axis — with ``spec["own_bucket"]`` each
-    rank is handed only its own bucket of it; the labels, this rank's rows
+    rank is handed only its own bucket of it, with ``spec["as_coo"]`` the
+    graph is handed over as the COO itself; the labels, this rank's rows
     of the embedding, the eigenvalues, the stage trail, the collectives the
     run made, the row counts of the vectors and blocks the eigensolver
-    applied the operator to (``basis_rows``) and the operators' classes
-    (``operators``), the BlockELL kernels' launches on the card
+    applied the operator to (``basis_rows``), the operators' classes
+    (``operators``), the real rows of those that pad the graph's
+    (``live_rows``), the BlockELL kernels' launches on the card
     (``launches``), and how many random directions Lanczos' careful path
     drew (``refills``).  With ``spec["draws"]`` the
     Chebyshev solver's three draws are those arrays, not ``draw_signals``'s
-    (how parity tests put the reference's draws in)."""
+    (how parity tests put the reference's draws in).  ``stage3`` holds
+    Stage 3's collectives and, with ``spec["gathered"]``, ``kmeans`` run
+    once more on the embedding gathered whole from the same generator
+    (``gathered_labels``)."""
     import repro_torch.core.chebyshev as cheb
     from repro_torch._device import cpu_generator
     from repro_torch.core.spectral import SpectralPipeline
@@ -318,27 +342,42 @@ def pipeline_rank(rank: int, world: int, spec: dict) -> dict:
     kernels = _ell_wrappers()
     for fn in kernels:
         fn.launches = 0
-    with _basis_rows() as products, _refills() as refills:
+    with _basis_rows() as products, _refills() as refills, _stage3() as stage3:
         if "graph" in spec:
             g = spec["graph"]
             w = COO(torch.as_tensor(g["row"], device=dev).long(),
                     torch.as_tensor(g["col"], device=dev).long(),
                     torch.as_tensor(g["val"], device=dev), (g["n"], g["n"]))
             ax = mesh_axis(mesh, pipe.plan.axis)
-            sm = partition_coo_by_rows(w, ax.size)
-            if spec.get("own_bucket"):  # the rank is handed only its own edges
-                rl, c, v = sm.bucket(ax.rank)
-                sm = dataclasses.replace(sm, row_local=rl, col=c, val=v)
-            st = pipe.run_state(sm, gen, device=dev)
+            if spec.get("as_coo"):
+                graph = w
+            else:
+                graph = partition_coo_by_rows(w, ax.size)
+                if spec.get("own_bucket"):  # the rank is handed only its own edges
+                    rl, c, v = graph.bucket(ax.rank)
+                    graph = dataclasses.replace(graph, row_local=rl, col=c, val=v)
+            st = pipe.run_state(graph, gen, device=dev)
         else:
             st = pipe.run_state(spec["x"], gen, points=spec.get("points"), device=dev)
     cheb.draw_signals = draw_signals
     res = st.result
-    return {"labels": _np(res.labels), "embedding": _np(res.embedding),
-            "eigenvalues": _np(res.eigenvalues), "kmeans_iterations": res.kmeans_iterations,
-            "provenance": st.provenance, "basis_rows": sorted(set(products.rows)),
-            "operators": sorted(products.kinds), "refills": len(refills),
-            "launches": {fn.__name__: fn.launches for fn in kernels}, **_counts()}
+    out = {"labels": _np(res.labels), "embedding": _np(res.embedding),
+           "eigenvalues": _np(res.eigenvalues), "kmeans_iterations": res.kmeans_iterations,
+           "provenance": st.provenance, "basis_rows": sorted(set(products.rows)),
+           "operators": sorted(products.kinds), "live_rows": sorted(products.live),
+           "refills": len(refills),
+           "launches": {fn.__name__: fn.launches for fn in kernels}, **_counts(),
+           "stage3": stage3.counts}
+    if spec.get("gathered"):  # the route that gathers the embedding, from the same seeds
+        from repro_torch.core import kmeans as km
+        from repro_torch.sparse.distributed import gather_rows
+
+        ax = pipe._split_axis()
+        h = gather_rows(st.embedding.embedding, ax, pipe._embedding_rows(st.embedding))
+        gen3 = torch.Generator()
+        gen3.set_state(stage3.generator_state)
+        out["gathered_labels"] = _np(km.kmeans(h, stage3.kcfg, gen3).labels)
+    return out
 
 
 def _ell_wrappers() -> tuple:
@@ -380,8 +419,9 @@ def checkpoint_rank(rank: int, world: int, spec: dict) -> dict:
 
 class _basis_rows:
     """Records the row count of every vector block the eigensolvers run on
-    (each row-distributed operator product's input: ``rows``) and the
-    operators' classes (``kinds``) while it is entered."""
+    (each row-distributed operator product's input: ``rows``), the
+    operators' classes (``kinds``) and their real rows when they pad the
+    graph's (``live``) while it is entered."""
 
     def _products(self):
         from repro_torch.core.operator import RowBlockEllOperator, ShardedCooOperator
@@ -391,13 +431,15 @@ class _basis_rows:
                 (RowBlockEllOperator, "cheb_step")]
 
     def __enter__(self) -> "_basis_rows":
-        self.rows, self.kinds = [], set()
+        self.rows, self.kinds, self.live = [], set(), set()
         self.saved = [getattr(c, name) for c, name in self._products()]
 
         def spy(fn):
             def product(op, x, *a):
                 self.rows.append(int(x.shape[0]))
                 self.kinds.add(type(op).__name__)
+                if op.rows.live is not None:
+                    self.live.add(op.rows.live)
                 return fn(op, x, *a)
             return product
 
@@ -408,6 +450,33 @@ class _basis_rows:
     def __exit__(self, *exc):
         for (c, name), fn in zip(self._products(), self.saved):
             setattr(c, name, fn)
+
+
+class _stage3:
+    """Records Stage 3's collectives (``counts``), its config and the state
+    of the generator it was handed while it is entered."""
+
+    def __enter__(self) -> "_stage3":
+        from repro_torch.core.spectral import SpectralPipeline
+        from repro_torch.sparse.distributed import COLLECTIVES
+
+        self.saved, self.counts = SpectralPipeline._run_kmeans, None
+
+        def run_kmeans(pipe, h, n, kcfg, generator):
+            self.kcfg, self.generator_state = kcfg, generator.get_state()
+            calls, sent = dict(COLLECTIVES.calls), dict(COLLECTIVES.bytes)
+            res = self.saved(pipe, h, n, kcfg, generator)
+            self.counts = {"calls": {k: COLLECTIVES.calls[k] - calls[k] for k in calls},
+                           "bytes": {k: COLLECTIVES.bytes[k] - sent[k] for k in sent}}
+            return res
+
+        SpectralPipeline._run_kmeans = run_kmeans
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.spectral import SpectralPipeline
+
+        SpectralPipeline._run_kmeans = self.saved
 
 
 class _refills:

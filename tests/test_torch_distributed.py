@@ -12,7 +12,13 @@ still run here (the layout, the gspmd operator, the layout path).
 The mesh path keeps Stage 2's and Stage 3's dense state as each rank's row
 block: every rank's operator inputs (the Krylov basis rows, the Chebyshev
 block) and its embedding hold n/S rows, and the eigenvalues are bitwise
-the same on every rank with no broadcast.
+the same on every rank with no broadcast.  The operator follows the
+reference's routes: a ShardedCOO keeps ``ShardedCooOperator`` whatever
+``representation`` says, and a COO graph under ``"blockell"`` gets
+``RowBlockEllOperator``, which ignores ``gather_dtype``.  A COO graph whose
+n (4001) does not divide by the ranks is padded for Stage 2 and held
+against the reference's single-device run, which is its sharded plan's
+route for such a graph (``CooOperator``, then ``kmeans``).
 
 Tolerances: kNN ids and distances bitwise across ring, gather and the
 single-device port, ids equal and distances rtol 1e-5 against the
@@ -115,6 +121,7 @@ def _isolated(n=32):
 
 
 REFILL = dict(k=2, m=8, tol=1e-6, max_restarts=3)  # the reference's refill test's config
+ISOLATED_PADDED = 31  # padded to 32 rows on S = 2 and on S = 4
 QR_ROWS = (8, 64)  # [n, 4] blocks: 8 rows leave a rank fewer than 4 at S = 4
 
 
@@ -126,7 +133,8 @@ def _cheb_draws(n: int, k: int = 4, n_probes: int = 8):
             np.array(jax.random.rademacher(km_, (n, n_probes), jnp.float32)),
             np.array(jax.random.rademacher(ks, (n, k + 8), jnp.float32)))
 
-# the row-distributed Stage 2: (graph, EigConfig, Plan.variant) of each task
+# the row-distributed Stage 2: (graph, EigConfig, Plan.variant) of each task; the
+# ell_* tasks hand the graph over as a COO (a ShardedCOO keeps its own operator)
 STAGE2 = {"graph_whole": ("sbm", {}, "gspmd"),
           "graph_b4": ("sbm", {"block_size": 4}, "shard_map"),
           "cliques_b4": ("cliques", {"block_size": 4}, "shard_map"),
@@ -137,6 +145,7 @@ STAGE2 = {"graph_whole": ("sbm", {}, "gspmd"),
 CHEB_REF = {"cheb_ref_draws": STAGE2["cheb"],
             "ell_cheb_ref_draws": ("sbm", {"solver": "chebyshev", "representation": "blockell"},
                                    "shard_map")}
+ELL_BF16 = ("ell_b1", "ell_b4")  # rerun under gather_dtype="bfloat16"
 
 
 def _blobs5():
@@ -239,10 +248,17 @@ def _knn(x, **kw):
 
 
 @pytest.fixture(scope="module", params=list(MESHES))
-def ranks(request, tmp_path_factory):
+def mesh_name(request) -> str:
+    """The mesh of ``ranks`` and ``repairs``, which a test taking both sees
+    alike."""
+    return request.param
+
+
+@pytest.fixture(scope="module")
+def ranks(mesh_name, tmp_path_factory):
     """One spawn of the mesh's ranks running every task below; the results
     of the ranks at model coordinate 0, in data-coordinate order."""
-    world, mesh = MESHES[request.param]
+    world, mesh = MESHES[mesh_name]
     x, lattice = _clustered(), _ties_and_nan()
     xk, init = _blobs5()
     rng = np.random.default_rng(3)
@@ -275,14 +291,17 @@ def ranks(request, tmp_path_factory):
         "e2e_lsh_gather": ("pipeline_rank", dict(x=x, pipeline=pipe(graph=dict(method="lsh")))),
         "e2e_lsh_ring": ("pipeline_rank", dict(x=x, pipeline=pipe(graph=dict(method="lsh"),
                                                                   stage1_exchange="ring"))),
-        **{name: ("pipeline_rank", dict(graph=graphs[g], pipeline=_stage2_pipe(eig, variant)))
+        **{name: ("pipeline_rank", dict(graph=graphs[g], pipeline=_stage2_pipe(eig, variant),
+                                        as_coo=name.startswith("ell")))
            for name, (g, eig, variant) in STAGE2.items()},
         **{name: ("pipeline_rank", dict(graph=graph, draws=_cheb_draws(graph["n"]),
-                                        pipeline=_stage2_pipe(*cfg[1:])))
+                                        pipeline=_stage2_pipe(*cfg[1:]),
+                                        as_coo=name.startswith("ell")))
            for name, cfg in CHEB_REF.items()},
         "ell_operator": ("ell_operator_rank", dict(graph=graph, x=emb[:, :4], prev=emb[:, 2:])),
         "e2e_ell": ("pipeline_rank", dict(x=blobs, pipeline=pipe(
             graph=dict(sigma=2.0), eig=dict(block_size=KC, representation="blockell")))),
+        "e2e_coarsen": ("pipeline_rank", dict(x=blobs, pipeline=_coarsen_pipe(tsp).to_dict())),
         "graph_bucket": ("pipeline_rank", dict(graph=graph, pipeline=lanczos.to_dict(),
                                                own_bucket=True)),
         "checkpoint": ("checkpoint_rank", dict(graph=graph, pipeline=lanczos.to_dict(),
@@ -308,11 +327,50 @@ def ranks(request, tmp_path_factory):
     return res
 
 
-def _stage2_pipe(eig: dict, variant: str, package=tsp) -> "dict | object":
+@pytest.fixture(scope="module")
+def repairs(mesh_name, tmp_path_factory):
+    """One spawn of the mesh's ranks (its own, beside ``ranks``) running the
+    operator-route (P14), two-pass Stage 3 (A15) and padded-refill tasks;
+    the results of the ranks at model coordinate 0, by task."""
+    world, mesh = MESHES[mesh_name]
+    _, graph = _sbm()
+    emb = np.random.default_rng(3).normal(size=(256, 6)).astype(np.float32)
+    tasks = {
+        # P14: plans of the ranks fixture under gather_dtype="bfloat16"; the
+        # ShardedCOO's bf16 products cannot reach tol 1e-5, so 1e-2 there
+        **{f"{name}_bf16": ("pipeline_rank", dict(graph=graph, as_coo=True, pipeline=_stage2_pipe(
+            STAGE2[name][1], STAGE2[name][2], gather_dtype="bfloat16"))) for name in ELL_BF16},
+        **{f"sharded_{rep}_bf16": ("pipeline_rank", dict(graph=graph, pipeline=_stage2_pipe(
+            {"representation": rep, "tol": 1e-2}, "shard_map", gather_dtype="bfloat16")))
+           for rep in ("coo", "blockell")},
+        "ell_operator_bf16": ("ell_operator_rank", dict(graph=graph, x=emb[:, :4],
+                                                        prev=emb[:, 2:],
+                                                        gather_dtype="bfloat16")),
+        # A15: two-pass Stage 3 on the ranks' rows, beside the gathered route
+        "two_pass": ("pipeline_rank", dict(graph=graph, gathered=True, pipeline=_stage2_pipe(
+            {}, "gspmd", kmeans=dict(iter="two_pass")))),
+        **{f"refill_b{b}_padded": ("eigsh_rank", dict(graph=_isolated(ISOLATED_PADDED),
+                                                      cfg=dict(REFILL, block_size=b)))
+           for b in (1, 2)},
+    }
+    for _, spec in tasks.values():
+        spec["mesh"] = mesh
+    outs = td.run_ranks(td.tasks_rank, world, list(tasks.values()),
+                        tmpdir=str(tmp_path_factory.mktemp("repairs")), timeout=120.0,
+                        join_timeout=600.0)
+    shards = mesh[0][0]
+    lead = outs[:: world // shards]  # model coordinate 0 of each data coordinate
+    return {"_S": shards, **{name: [o[j] for o in lead] for j, name in enumerate(tasks)}}
+
+
+def _stage2_pipe(eig: dict, variant: str, package=tsp, kmeans=None,
+                 **plan) -> "dict | object":
     """The four-cluster pipeline of a STAGE2 task: the port's as the dict a
     rank loads, or the reference's (``package=jsp``) for one device."""
     pipe = package.SpectralPipeline(n_clusters=4, eig=package.EigConfig(**eig),
-                                    plan=package.Plan(device="sharded", variant=variant))
+                                    kmeans=package.KMeansConfig(**(kmeans or {})),
+                                    plan=package.Plan(device="sharded", variant=variant,
+                                                      **plan))
     return pipe.to_dict() if package is tsp else dataclasses.replace(pipe,
                                                                      plan=package.Plan())
 
@@ -450,17 +508,20 @@ def test_sharded_operator_on_the_mesh(ranks):
         assert got["bytes"]["all_gather"] == (ranks["_S"] - 1) * rps * 4 * (1 + 3)
 
 
-def test_blockell_on_the_mesh_maps_each_ranks_rows_through_the_ell_kernels(ranks,
+def test_blockell_on_the_mesh_maps_each_ranks_rows_through_the_ell_kernels(ranks, repairs,
                                                                            single_blobs):
-    """``representation="blockell"`` on a mesh of S ranks: the operator is
-    the rank's rows of BlockELL, whose ``mv``, ``mm`` (a column-major block
-    too) and fused ``cheb_step`` map its n/S rows to its rows with one
-    all-gather (of the input) a product.  Over a COO graph the gathered
+    """``representation="blockell"`` on a mesh of S ranks: over a COO graph
+    the operator is the rank's rows of BlockELL, whose ``mv``, ``mm`` (a
+    column-major block too) and fused ``cheb_step`` map its n/S rows to its
+    rows with one all-gather (of the input) a product, and the gathered
     products are the single-device BlockELL operator's bit for bit (each
-    row laid out at the whole graph's width); over a ShardedCOO's buckets
-    within 1e-6.  The raw-points pipeline (a COO graph) runs it too: ARI ≥
-    0.99 against the reference's labels, every rank the same labels and
-    eigenvalues."""
+    row laid out at the whole graph's width), under ``gather_dtype=
+    "bfloat16"`` too (the operator ignores it, as the reference's
+    ``BlockEllOperator`` does).  The same plan gives the graph partitioned
+    into a ShardedCOO its ``ShardedCooOperator``, as the reference does
+    (products within 1e-6).  The raw-points pipeline (a COO graph) runs it
+    too: ARI ≥ 0.99 against the reference's labels, every rank the same
+    labels and eigenvalues."""
     from repro_torch.core.operator import BlockEllOperator
     from repro_torch.sparse.formats import coo_to_csr, csr_to_blockell
 
@@ -471,15 +532,22 @@ def test_blockell_on_the_mesh_maps_each_ranks_rows_through_the_ell_kernels(ranks
     want = {"mv": whole.mv(x[:, 0]), "mm": whole.mm(x), "mm_colmajor": whole.mm(x),
             "cheb": whole.cheb_step(x, prev, 0.5, -0.25)}
     rps = coo.shape[0] // ranks["_S"]
-    for got in ranks["_all"]["ell_operator"]:
-        assert got["operator"] == got["operator_sharded"] == "RowBlockEllOperator"
-        for name, y in want.items():
-            y = to_np(y)
-            np.testing.assert_array_equal(got[name], y)
-            np.testing.assert_allclose(got[f"{name}_sharded"], y, rtol=1e-6, atol=1e-6)
-            assert got[f"{name}_rows"] == got[f"{name}_sharded_rows"] == (rps,) + y.shape[1:]
-        assert got["calls"]["all_gather"] == 2  # one a product
-        assert got["bytes"]["all_gather"] == (ranks["_S"] - 1) * rps * 4 * (1 + 4)
+    for task, runs in (("ell_operator", ranks["_all"]["ell_operator"]),
+                       ("ell_operator_bf16", repairs["ell_operator_bf16"])):
+        for got in runs:
+            assert got["operator"] == "RowBlockEllOperator"
+            assert got["operator_sharded"] == "ShardedCooOperator"
+            for name, y in want.items():
+                y = to_np(y)
+                np.testing.assert_array_equal(got[name], y)
+                assert got[f"{name}_rows"] == (rps,) + y.shape[1:]
+                if name in ("mv", "mm"):
+                    assert got[f"{name}_sharded_rows"] == (rps,) + y.shape[1:]
+                    if task == "ell_operator":  # the bf16 plan's ShardedCOO casts its input
+                        np.testing.assert_allclose(got[f"{name}_sharded"], y, rtol=1e-6,
+                                                   atol=1e-6)
+            assert got["calls"]["all_gather"] == 2  # one a product
+            assert got["bytes"]["all_gather"] == (ranks["_S"] - 1) * rps * 4 * (1 + 4)
     _, ref = single_blobs
     runs = ranks["_all"]["e2e_ell"]
     for run in runs:
@@ -488,6 +556,76 @@ def test_blockell_on_the_mesh_maps_each_ranks_rows_through_the_ell_kernels(ranks
                 == runs[0]["eigenvalues"].view(np.uint32)).all()
         np.testing.assert_array_equal(run["labels"], runs[0]["labels"])
     assert adjusted_rand_index(runs[0]["labels"], np.asarray(ref.labels)) >= 0.99
+
+
+def test_a_sharded_coo_keeps_its_operator_whatever_the_representation(repairs):
+    """P14: a ShardedCOO under ``representation="blockell"`` runs
+    ``ShardedCooOperator`` on every rank, as the reference routes it at any
+    world size, so under ``gather_dtype="bfloat16"`` its eigenvalues,
+    embedding rows and labels are bitwise those of ``representation="coo"``."""
+    for got, want in zip(repairs["sharded_blockell_bf16"], repairs["sharded_coo_bf16"]):
+        assert got["operators"] == want["operators"] == ["ShardedCooOperator"]
+        for key in ("eigenvalues", "embedding", "labels"):
+            np.testing.assert_array_equal(got[key], want[key])
+        assert got["calls"] == want["calls"]
+
+
+@pytest.mark.parametrize("task", ELL_BF16)
+def test_row_block_ell_ignores_gather_dtype(ranks, repairs, task):
+    """P14: a COO graph under ``representation="blockell"`` runs
+    ``RowBlockEllOperator``, which gathers its input at its own dtype, as
+    the reference's ``BlockEllOperator`` ignores ``gather_dtype``: the
+    eigenvalues and labels under ``gather_dtype="bfloat16"`` are bitwise
+    those without it (which
+    ``test_row_distributed_stage2_matches_one_device_and_the_reference``
+    holds to the reference's single-device BlockELL run), and so are the
+    bytes gathered."""
+    for got, want in zip(repairs[f"{task}_bf16"], ranks[task]):  # both in coordinate order
+        assert got["operators"] == want["operators"] == ["RowBlockEllOperator"]
+        for key in ("eigenvalues", "embedding", "labels"):
+            np.testing.assert_array_equal(got[key], want[key])
+        assert got["bytes"] == want["bytes"]
+
+
+def test_two_pass_stage3_runs_on_each_ranks_rows(repairs):
+    """A15: ``KMeansConfig(iter="two_pass")`` on S ranks clusters each
+    rank's rows: every rank the same labels, those of ``kmeans`` run on the
+    embedding gathered whole from the same generator (the route that
+    gathered it); Stage 3 all-reduces once an iteration, once for the
+    inertia and k times for the k-means++ seeds, and all-gathers only the
+    seeding's (score, id) pairs and the [n] int32 labels — never [n, k]."""
+    S, k = repairs["_S"], 4
+    runs = repairs["two_pass"]
+    for got in runs:
+        n = got["labels"].shape[0]
+        np.testing.assert_array_equal(got["labels"], runs[0]["labels"])
+        np.testing.assert_array_equal(got["labels"], got["gathered_labels"])
+        stage3 = got["stage3"]
+        assert stage3["calls"]["psum"] == got["kmeans_iterations"] + 1 + k
+        assert stage3["calls"]["all_gather"] == k - 1 + 1
+        assert stage3["bytes"]["all_gather"] == (S - 1) * ((k - 1) * 16 + (n // S) * 4)
+        assert got["embedding"].shape == (n // S, k)
+
+
+@pytest.mark.parametrize("block_size", [1, 2])
+def test_careful_path_refills_are_zero_on_padding_rows(repairs, block_size):
+    """A graph of 31 isolated nodes padded to 32 rows on S ranks: every
+    random direction the careful path draws is zero on the padding row, so
+    the eigenvectors are too, and their real rows are the single-device
+    port's on the 31 nodes (1e-5, up to column signs): the padded draw's
+    real rows carry the unpadded draw's bits."""
+    w = _isolated(ISOLATED_PADDED)
+    op = CooOperator(COO(torch.as_tensor(w["row"]).long(), torch.as_tensor(w["col"]).long(),
+                         torch.as_tensor(w["val"]), (w["n"], w["n"])))
+    want = to_np(tlz.eigsh(op, tlz.LanczosConfig(**REFILL, block_size=block_size),
+                           generator=cpu_generator(0)).eigenvectors)
+    blocks = repairs[f"refill_b{block_size}_padded"]
+    u = np.concatenate([b["eigenvectors"] for b in blocks])
+    assert u.shape[0] == 32 and all(b["refills"] > 0 for b in blocks)
+    np.testing.assert_array_equal(u[ISOLATED_PADDED:], 0.0)
+    u = u[:ISOLATED_PADDED]
+    np.testing.assert_allclose(u.T @ u, np.eye(2), atol=1e-5)
+    np.testing.assert_allclose(u * np.sign((u * want).sum(0)), want, atol=1e-5)
 
 
 @pytest.fixture(scope="module")
@@ -501,6 +639,27 @@ def single_blobs():
                                 eig=jsp.EigConfig(block_size=KC)).run(
         jnp.asarray(x), jax.random.PRNGKey(0))
     return single, want
+
+
+COARSEN_STAGES = ("prepare", "coarsen", "embed", "refine", "cluster")
+
+
+def _coarsen_pipe(package):
+    """The blobs' pipeline through coarsen and refine (one level: the
+    1024-node graph coarsens to 757 nodes, which divide by neither 2 nor 4
+    ranks); the reference's on one device."""
+    plan = package.Plan(device="sharded", variant="shard_map") if package is tsp else \
+        package.Plan()
+    return package.SpectralPipeline(n_clusters=KC, graph=package.GraphConfig(sigma=2.0),
+                                    eig=package.EigConfig(block_size=KC),
+                                    stages=COARSEN_STAGES, plan=plan)
+
+
+@pytest.fixture(scope="module")
+def coarsen_reference():
+    """The reference's single-device run of the blobs through coarsen and
+    refine."""
+    return _coarsen_pipe(jsp).run_state(jnp.asarray(_blobs()), jax.random.PRNGKey(0))
 
 
 @pytest.fixture(scope="module")
@@ -644,6 +803,35 @@ def test_sharded_points_pipeline_matches_single_device(ranks, single_blobs):
         assert adjusted_rand_index(got["labels"], np.asarray(want.labels)) >= 0.99
 
 
+def test_coarsen_refine_on_the_mesh_pads_the_coarse_graph(ranks, coarsen_reference):
+    """The raw points' COO graph coarsened on S ranks: the coarse graph, a
+    COO whose n divides by neither 2 nor 4, takes the operator's route for
+    such a graph (padded rows, marked as padding, so no draw or start
+    vector reaches them, as the reference keeps a coarse COO a COO), and
+    refine lifts the coarse embedding's real rows onto each rank's fine
+    rows.  Every rank the same labels and eigenvalues, the eigenvalues
+    within 1e-4 of the reference's single-device run and the labels ARI ≥
+    0.99 against it."""
+    S = ranks["_S"]
+    runs = ranks["_all"]["e2e_coarsen"]
+    ref = coarsen_reference
+    n = ranks["_inputs"]["blobs"].shape[0]
+    nc = ref.reductions[0].n_after
+    assert nc % 2 and nc % S
+    for got in runs:
+        assert got["provenance"] == tuple(ref.provenance)
+        assert got["operators"] == ["ShardedCooOperator"]
+        assert got["live_rows"] == [nc]  # the coarse graph's padding marked
+        assert got["basis_rows"] == sorted({-(-nc // S), n // S})
+        assert got["embedding"].shape == (n // S, KC)
+        np.testing.assert_array_equal(got["labels"], runs[0]["labels"])
+        assert (got["eigenvalues"].view(np.uint32)
+                == runs[0]["eigenvalues"].view(np.uint32)).all()
+    np.testing.assert_allclose(runs[0]["eigenvalues"], np.asarray(ref.result.eigenvalues),
+                               atol=1e-4)
+    assert adjusted_rand_index(runs[0]["labels"], np.asarray(ref.result.labels)) >= 0.99
+
+
 def test_ranks_leave_stage2_with_one_embedding(ranks, stage2_single):
     """Each rank leaves Stage 2 with its own n/S rows of one embedding, and
     nothing is broadcast: on the gapped SBM the ranks' rows, gathered in
@@ -736,3 +924,121 @@ def test_plan_needs_a_mesh_and_divisible_rows():
     assert plan.to_dict() == jsp.Plan(device="sharded", variant="shard_map", axis=("data",),
                                       stage1_exchange="ring",
                                       gather_dtype="bfloat16").to_dict()
+
+
+def test_world_size_one_mesh_two_pass_is_the_layout_path_bitwise(tmp_path):
+    """On a one-rank mesh two-pass Stage 3 stays ``kmeans`` on the whole
+    embedding, as in the reference: the mesh run's embedding, eigenvalues
+    and labels are the layout path's bit for bit, and Stage 3 makes no
+    collective but the labels' — none, on one rank, at all."""
+    coo, graph = _sbm()
+    pipe = _stage2_pipe({"block_size": 4}, "gspmd", kmeans=dict(iter="two_pass"))
+    got = td.run_ranks(td.pipeline_rank, 1, dict(graph=graph, pipeline=pipe,
+                                                 mesh=((1,), ("data",))),
+                       tmpdir=str(tmp_path), timeout=60.0, join_timeout=300.0)[0]
+    sm = tdist.partition_coo_by_rows(convert.coo(coo, device=CPU), 1)
+    want = tsp.SpectralPipeline.from_dict(pipe).run(sm, cpu_generator(0), device=CPU)
+    for key in ("embedding", "eigenvalues", "labels"):
+        np.testing.assert_array_equal(got[key], to_np(getattr(want, key)))
+    assert got["stage3"]["calls"] == dict.fromkeys(tdist.COLLECTIVES.NAMES, 0)
+
+
+# ---------------------------------------------------------------------------
+# P15: a COO graph whose n does not divide by the ranks
+# ---------------------------------------------------------------------------
+
+N_UNEVEN = 4001
+# (EigConfig, Chebyshev draws put in) of each case
+UNEVEN = {"lanczos": ({}, False), "blockell": ({"representation": "blockell"}, False),
+          "cheb_ref_draws": ({"solver": "chebyshev"}, True)}
+
+
+def _uneven_graph():
+    """A four-block SBM of 4004 nodes cut to its first 4001: its n leaves 1
+    padding row on S = 2 and 3 on S = 4."""
+    coo, truth = sbm_graph(1001, 4, 0.02, 0.001, seed=7)
+    r, c, v = (np.asarray(a) for a in (coo.row, coo.col, coo.val))
+    keep = (r < N_UNEVEN) & (c < N_UNEVEN)
+    return dict(row=r[keep], col=c[keep], val=v[keep].astype(np.float32), n=N_UNEVEN)
+
+
+@pytest.fixture(scope="module")
+def uneven_reference():
+    """The reference's single-device runs of each case on the 4001-node COO —
+    its sharded plan's route for such a graph (``CooOperator`` or
+    ``BlockEllOperator``, then ``kmeans``) — and the reference's Chebyshev
+    draws of that run."""
+    g = _uneven_graph()
+    jw = jf.coo_from_edges(g["row"], g["col"], g["val"], (g["n"], g["n"]))
+    out = {name: jsp.SpectralPipeline(n_clusters=4, eig=jsp.EigConfig(**eig)).run(
+        jw, jax.random.PRNGKey(0)) for name, (eig, _) in UNEVEN.items()}
+    return g, _cheb_draws(g["n"]), out
+
+
+@pytest.fixture(scope="module", params=[2, 4])
+def uneven(request, uneven_reference, tmp_path_factory):
+    """One spawn of S ranks (a 1-D mesh) running each case on the 4001-node
+    graph handed over as a COO, and once as the ShardedCOO a caller
+    partitions itself; every rank's results."""
+    S = request.param
+    g, draws, _ = uneven_reference
+    tasks = {name: dict(graph=g, as_coo=True, pipeline=_stage2_pipe(eig, "shard_map"),
+                        **({"draws": draws} if inject else {}))
+             for name, (eig, inject) in UNEVEN.items()}
+    tasks["sharded_coo"] = dict(graph=g, pipeline=_stage2_pipe({}, "shard_map"))
+    for spec in tasks.values():
+        spec["mesh"] = ((S,), ("data",))
+    outs = td.run_ranks(td.tasks_rank, S, [("pipeline_rank", t) for t in tasks.values()],
+                        tmpdir=str(tmp_path_factory.mktemp("uneven")), timeout=120.0,
+                        join_timeout=600.0)
+    return S, {name: [o[j] for o in outs] for j, name in enumerate(tasks)}
+
+
+@pytest.mark.parametrize("case", list(UNEVEN))
+def test_a_coo_graph_whose_n_does_not_divide_by_the_ranks(uneven, uneven_reference, case):
+    """P15: the 4001-node COO on S ranks is padded for Stage 2 — each rank's
+    operator takes and gives its ⌈n/S⌉ rows — and its padding never enters
+    the result: the ranks' embedding rows add up to n (the last rank holds
+    fewer), the labels have n rows and are the same on every rank, the
+    eigenvalues are bitwise the same on every rank and within 1e-4 of the
+    reference's single-device run, and the labels reach ARI ≥ 0.99 against
+    it.  Stage 3 takes the reference's route for n that does not tile the
+    axis: the n real rows of the embedding gathered once, then ``kmeans``."""
+    S, runs = uneven
+    _, _, ref = uneven_reference
+    ref = ref[case]
+    n, k = N_UNEVEN, 4
+    rps = -(-n // S)
+    kind = "RowBlockEllOperator" if case == "blockell" else "ShardedCooOperator"
+    for r, got in enumerate(runs[case]):
+        assert got["operators"] == [kind]
+        assert got["basis_rows"] == [rps]
+        assert got["embedding"].shape == (min(rps, n - r * rps), k)
+        assert got["labels"].shape == (n,)
+        np.testing.assert_array_equal(got["labels"], runs[case][0]["labels"])
+        assert (got["eigenvalues"].view(np.uint32)
+                == runs[case][0]["eigenvalues"].view(np.uint32)).all()
+        assert got["calls"]["broadcast"] == 0
+        assert got["stage3"]["calls"]["all_gather"] == 1
+        assert got["stage3"]["bytes"]["all_gather"] == (S - 1) * rps * k * 4
+        assert got["stage3"]["calls"]["psum"] == 0
+    np.testing.assert_allclose(runs[case][0]["eigenvalues"], np.asarray(ref.eigenvalues),
+                               atol=1e-4)
+    assert adjusted_rand_index(runs[case][0]["labels"], np.asarray(ref.labels)) >= 0.99
+
+
+def test_a_sharded_coo_a_caller_hands_in_keeps_its_padding(uneven):
+    """A ShardedCOO of the 4001-node graph that the caller partitioned keeps
+    its own n, padding included, as in the reference: n_pad labels, each
+    rank n_pad/S embedding rows, Stage 3 on the ranks' rows (no gather of
+    the embedding), and the real rows' labels a partition of the COO run's
+    (ARI ≥ 0.99)."""
+    S, runs = uneven
+    n_pad = tdist.padded_rows(N_UNEVEN, S)
+    for got in runs["sharded_coo"]:
+        assert got["operators"] == ["ShardedCooOperator"]
+        assert got["labels"].shape == (n_pad,)
+        assert got["embedding"].shape == (n_pad // S, 4)
+        assert got["stage3"]["bytes"]["all_gather"] == (S - 1) * (3 * 16 + n_pad // S * 4)
+    assert adjusted_rand_index(runs["sharded_coo"][0]["labels"][:N_UNEVEN],
+                               runs["lanczos"][0]["labels"]) >= 0.99
