@@ -206,7 +206,7 @@ from repro_torch.kernels.kmeans_iter import ops as km_ops  # noqa: E402
 from repro_torch.kernels.kmeans_iter.kernel import kmeans_iter_cuda  # noqa: E402
 from repro_torch.kernels.kmeans_iter.ref import kmeans_iter_ref  # noqa: E402
 from repro_torch.kernels.knn_topk import ops as knn_ops  # noqa: E402
-from repro_torch.kernels.knn_topk.kernel import knn_topk_cuda  # noqa: E402
+from repro_torch.kernels.knn_topk.kernel import choose_splits, knn_topk_cuda  # noqa: E402
 from repro_torch.kernels.knn_topk.ref import knn_topk_ref  # noqa: E402
 from repro_torch.kernels.lsh_candidates import ops as lsh_ops  # noqa: E402
 from repro_torch.kernels.lsh_candidates.kernel import hash_codes_cuda  # noqa: E402
@@ -1733,13 +1733,15 @@ def serve_all(index, queries):
     return OOSResult(*(torch.cat(f) for f in zip(*outs))), ms
 
 
-def knn_serve_record(pool, q) -> dict:
+def knn_serve_record(pool, q, queries) -> dict:
     """``knn_topk`` at the serving shape ([256 queries × 160,000 pool × 16],
     k = 10, query_offset = n) through the wrapper ``oos_embed`` calls,
     against its plain version (distances rtol 1e-5, ids equal up to
-    near-ties); real rows bitwise the same at 1, 37, 128, 129 and 256 query
-    rows (one block with spare threads, two blocks); timed with events
-    against ``torch.cdist`` + ``topk``."""
+    near-ties); real rows bitwise the same at 1, 37, 128, 129, 256 and 1,024
+    query rows (one block with spare threads, two blocks, eight; each row
+    count its own split of the candidates); a NaN query's row bitwise the
+    plain version's; the raw kernel at S = 1, 2, 7 and the binding's S
+    bitwise the same; timed with events against ``torch.cdist`` + ``topk``."""
     n = pool.shape[0]
     gd, gi = knn_ops.knn_topk(pool, KNN_SERVE, queries=q, query_offset=n)
     torch.cuda.synchronize()
@@ -1750,9 +1752,12 @@ def knn_serve_record(pool, q) -> dict:
     torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-6)
     swaps = near_tie_swaps(pool, gi, wi, wd, queries=q)
     check(bool((gi >= 0).all() & (gi < n).all()), "knn_topk@serve: an id outside the pool")
-    for r in (1, 37, 128, 129):
-        rd, ri = knn_ops.knn_topk(pool, KNN_SERVE, queries=q[:r].contiguous(), query_offset=n)
-        check(torch.equal(rd, gd[:r]) and torch.equal(ri, gi[:r]),
+    rows = (1, 37, 128, 129, q.shape[0], 1024)
+    for r in rows:
+        rd, ri = knn_ops.knn_topk(pool, KNN_SERVE, queries=queries[:r].contiguous(),
+                                  query_offset=n)
+        m = min(r, q.shape[0])
+        check(torch.equal(rd[:m], gd[:m]) and torch.equal(ri[:m], gi[:m]),
               f"knn_topk@serve: rows change with the batch's row count ({r} rows)")
     # a NaN query (the launcher's injected fault): its row is the plain
     # version's — NaN distances, the lowest ids — and no other row moves
@@ -1764,6 +1769,13 @@ def knn_serve_record(pool, q) -> dict:
     check(torch.equal(ni[5:6], pi) and bool(torch.isnan(nd[5]).all() & torch.isnan(pd).all())
           and torch.equal(nd[rest], gd[rest]) and torch.equal(ni[rest], gi[rest]),
           "knn_topk@serve: a NaN query's row differs from the plain version's")
+    # the candidate split: every S gives the same bits, the NaN row included
+    splits = choose_splits(q.shape[0], n, D_SERVE,
+                           torch.cuda.get_device_properties(q.device).multi_processor_count)
+    for s in sorted({1, 2, 7, splits}):
+        sd, si = knn_topk_cuda(qn, pool, KNN_SERVE, query_offset=n, d=D_SERVE, splits=s)
+        check(torch.equal(sd.view(torch.int32), nd.view(torch.int32)) and torch.equal(si, ni),
+              f"knn_topk@serve: S = {s} differs from the binding's S = {splits}")
     ms = cuda_ms(lambda: knn_topk_cuda(q, pool, KNN_SERVE, query_offset=n, d=D_SERVE), iters=20)
     library_ms = cuda_ms(lambda: torch.topk(torch.cdist(q, pool) ** 2, KNN_SERVE,
                                             largest=False), iters=20)
@@ -1772,22 +1784,24 @@ def knn_serve_record(pool, q) -> dict:
     bms, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
     err = float((gd - wd).abs().max())
     log(f"[serve] kernel knn_topk@serve (tol: rtol 1e-5, ids equal up to near-ties; rows "
-        f"bitwise the same at 1/37/128/129/256 rows; a NaN query's row bitwise the plain "
-        f"version's): [{q.shape[0]} × {n} × {D_SERVE}] "
-        f"k={KNN_SERVE} offset={n}: {swaps} ids swapped at near-ties, max|Δd|={err:.2e}; "
-        f"kernel_ms={ms:.4f} (events) plain_ms={plain_ms:.2f} library_ms={library_ms:.4f} "
-        f"(cdist + topk) bound_ms={bms:.4f} ({by}, fp32 issue slots)")
+        f"bitwise the same at " + "/".join(map(str, rows)) + " rows; a NaN query's row "
+        f"bitwise the plain version's; S = 1, 2, 7 and {splits} bitwise): [{q.shape[0]} × {n} × "
+        f"{D_SERVE}] k={KNN_SERVE} offset={n}: {swaps} ids swapped at near-ties, "
+        f"max|Δd|={err:.2e}; kernel_ms={ms:.4f} (events, S = {splits}) plain_ms={plain_ms:.2f} "
+        f"library_ms={library_ms:.4f} (cdist + topk) bound_ms={bms:.4f} ({by}, fp32 issue slots)")
     return dict(name="knn_topk@serve", route="cuda", source="src/repro_torch/csrc/knn_topk.cu",
                 replaces="src/repro/kernels/knn_topk/kernel.py:91", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
-                near_tie_swaps=swaps)
+                near_tie_swaps=swaps, splits=splits)
 
 
 def hash_serve_record(q) -> dict:
     """``hash_codes`` on one batch of query rows ([256 × 16], 16 tables of 16
-    bits, seed 0) against its plain version (``hold_hash``), timed as
-    profiler device time against ``x @ P`` + the pack."""
+    bits, seed 0) against its plain version (``hold_hash``), and the same
+    rows cut to d = 9 and 12 (other widths the kernel unrolls); timed as profiler device time against ``x @ P`` + the pack."""
     dev = q.device
+    for d in (9, 12):
+        hold_hash(q[:, :d].contiguous(), lsh_ops.make_planes(d, LSH_TABLES, LSH_BITS, 0).to(dev))
     planes = lsh_ops.make_planes(D_SERVE, LSH_TABLES, LSH_BITS, 0).to(dev)
     near, differ, err = hold_hash(q, planes)
     copies = [(q.clone(),) for _ in range(8)]
@@ -1806,7 +1820,8 @@ def hash_serve_record(q) -> dict:
                     2.0 * nq * LSH_TABLES * cols * D_SERVE)
     log(f"[serve] kernel hash_codes@serve (tol: codes exact where every |proj| >= "
         f"{HASH_EPS:g}, tie rtol 1e-5): [{nq} × {D_SERVE}] T={LSH_TABLES} bits={LSH_BITS}: "
-        f"{near} (table, point) pairs near 0, {differ} codes differ, max|Δtie|={err:.2e}; "
+        f"{near} (table, point) pairs near 0, {differ} codes differ, max|Δtie|={err:.2e} "
+        f"(d = 9, 12 held too); "
         f"kernel_ms device={ms:.4f} plain_ms={plain_ms:.4f} library_ms device={library_ms:.4f} "
         f"bound_ms={bms:.5f} ({by})")
     return dict(name="hash_codes@serve", route="cuda", source="src/repro_torch/csrc/hash_codes.cu",
@@ -1817,16 +1832,20 @@ def hash_serve_record(q) -> dict:
 def hold_pool_search(pool) -> dict:
     """Stage 1 of the serving cell's training, all pairs of the pool
     ([160,000 × 16], k = 10) through the wrapper Stage 1 calls, against its
-    plain version: distances rtol 1e-5, ids equal up to near-ties."""
+    plain version: distances rtol 1e-5, ids equal up to near-ties; the
+    kernel timed with events."""
     gd, gi = knn_ops.knn_topk(pool, KNN_SERVE)
     wd, wi = knn_topk_ref(pool, KNN_SERVE)
     torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-6)
     swaps = near_tie_swaps(pool, gi, wi, wd)
     err = float((gd - wd).abs().max())
+    ms = cuda_ms(lambda: knn_topk_cuda(pool, pool, KNN_SERVE, d=D_SERVE), iters=3)
+    bms = issue_ms(float(pool.shape[0]) * pool.shape[0] * D_SERVE)
     log(f"[serve] knn_topk on the pool (tol: rtol 1e-5, ids equal up to near-ties): "
         f"[{pool.shape[0]} × {D_SERVE}] k={KNN_SERVE}: {swaps} ids swapped at near-ties, "
-        f"max|Δd|={err:.2e}")
-    return dict(near_tie_swaps=swaps, max_abs_err=err)
+        f"max|Δd|={err:.2e}; kernel_ms={ms:.3f} (events) bound_ms={bms:.3f} (operations, "
+        f"fp32 issue slots)")
+    return dict(near_tie_swaps=swaps, max_abs_err=err, ms=ms, bound_ms=bms)
 
 
 def kmeans_serve_record(emb, labels) -> dict:
@@ -2057,7 +2076,7 @@ def serve_phase() -> tuple:
         f"[{N_SERVE} × {D_SERVE}]: {near} (table, point) pairs near 0, {differ} codes differ, "
         f"max|Δtie|={err:.2e}")
     q = queries[:B_SERVE].contiguous()
-    records = [knn_serve_record(pool, q), hash_serve_record(q),
+    records = [knn_serve_record(pool, q, queries), hash_serve_record(q),
                kmeans_serve_record(res.embedding, res.labels)]
     for r in records:
         r["launches"] = launches[r["name"].split("@")[0]]

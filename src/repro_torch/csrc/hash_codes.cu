@@ -1,5 +1,6 @@
 // Random-hyperplane LSH hashing for Hopper (sm_90a): the compute core of
-// the approximate Stage 1.  Per table t and point i, with
+// the approximate Stage 1, and the hash of a query batch on the serving
+// path.  Per table t and point i, with
 // proj[b] = Σ_j x[i, j] · planes[t, j, b]:
 //   codes[t, i] = Σ_{b < n_bits} (proj[b] ≥ 0) · 2^b     (int32)
 //   tie[t, i]   = proj[n_bits]                           (the tie-break)
@@ -9,17 +10,23 @@
 //
 // What bounds it on the H100: bytes.  At the DTI shapes (n = 142,541 points
 // in d = 3, T = 16 tables of 16 bits + 1 tie column) the outputs are
-// 18 MB and the work 0.23 GFLOP — about 6 µs at 3.35 TB/s.  The TPU kernel
-// ran one [block_n, d] × [d, 128] MXU product per (table, point block) and
-// packed the signs with a masked power-of-two contraction.  With d this
-// small a matrix unit has nothing to do, so on the card:
+// 18 MB and the work 0.23 GFLOP — about 6 µs at 3.35 TB/s; a serving batch
+// ([256 × 16]) is a few µs of launch.  The TPU kernel ran one
+// [block_n, d] × [d, 128] MXU product per (table, point block) and packed
+// the signs with a masked power-of-two contraction.  With d this small a
+// matrix unit has nothing to do, so on the card:
 //   * one thread per point takes every table of its block's group of
-//     kTablesABlock = 8 (5 % faster here than all 16 in one group, with
-//     twice the warps in flight; groups of 4, 2 and 1 were slower, 64
-//     threads a block slower and 256 no faster:
+//     kTablesABlock = 8 (5 % faster at the lattice shape than all 16 in
+//     one group, with twice the warps in flight; groups of 4, 2 and 1 were
+//     slower, 64 threads a block slower and 256 no faster:
 //     tools/hash_codes_variants.py); its x row is read once, into registers
-//     when d ≤ 8 (d a template parameter, the loops unrolled; a runtime-d
+//     when d ≤ 16 (d a template parameter, the loops unrolled; a runtime-d
 //     instantiation reads the row through L1 above that);
+//   * when those blocks would leave SMs idle (a batch of a few hundred
+//     points makes 4), a block of one warp takes one table instead:
+//     [256 × 16] with 16 tables makes 128 blocks.  Both mappings are
+//     compile-time constants of the kernel (the tables a block and the
+//     threads): with both runtime values the lattice shape ran 7 % slower;
 //   * each block stages its group's planes in shared memory once, as
 //     [t][j][column] rows padded to a multiple of 4 columns (1.9 KB here;
 //     wider shapes in chunks of tables), so one 16-byte broadcast load
@@ -27,19 +34,20 @@
 //   * each projection is a chain of fused multiply-adds in order
 //     j = 0..d−1 from +0, and bit b is set with a shift in registers;
 //   * a table's codes and tie-breaks are written as coalesced rows of the
-//     [T, n] outputs (a warp stores 128 contiguous bytes of each).
+//     [T, n] outputs.
 // The summation order is that of the thread-per-(point, table) kernel it
-// replaced, so codes and tie-breaks are bitwise equal to that kernel's.  The
-// plain version sums in another order, so a projection within rounding of 0
-// may take the other sign there; the checks compare codes exactly only where
-// every |proj| exceeds a stated margin.
+// replaced, whatever the grid, so codes and tie-breaks are bitwise equal to
+// that kernel's.  The plain version sums in another order, so a projection
+// within rounding of 0 may take the other sign there; the checks compare
+// codes exactly only where every |proj| exceeds a stated margin.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kTablesABlock = 8;  // tables a block takes; blockIdx.y picks the group
-constexpr int kMaxUnrolledD = 8;
+constexpr int kSmallThreads = 32;  // a block of a small batch: one warp, one table
+constexpr int kMaxUnrolledD = 16;
 constexpr int kChunkBytes = 48 * 1024;  // planes staged a pass, above one table
 
 // The projections of one point onto four consecutive plane columns.
@@ -60,8 +68,9 @@ __device__ __forceinline__ float4 project4(const float* xr, const float* __restr
   return p;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// TB tables and NT threads a block
+template <int D, int TB, int NT>
+__global__ void __launch_bounds__(NT)
 hash_codes_kernel(const float* __restrict__ x, const float* __restrict__ planes, int n,
                   int d, int n_tables, int n_bits, int chunk, int* __restrict__ codes,
                   float* __restrict__ tie) {
@@ -72,19 +81,19 @@ hash_codes_kernel(const float* __restrict__ x, const float* __restrict__ planes,
   const int stride = 4 * groups;
   const int full = n_bits / 4;  // column groups that hold four sign bits
   const int rest = n_bits % 4;  // sign bits in group `full`, then the tie column
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int i = blockIdx.x * NT + threadIdx.x;
   const bool live = i < n;
   const float* xi = x + (long long)(live ? i : 0) * d;
   float xr[D > 0 ? D : 1];
 #pragma unroll
   for (int j = 0; j < (D > 0 ? D : 0); ++j) xr[j] = live ? __ldg(xi + j) : 0.f;
 
-  const int t_end = min(n_tables, (int)(blockIdx.y + 1) * kTablesABlock);
-  for (int t0 = blockIdx.y * kTablesABlock; t0 < t_end; t0 += chunk) {
+  const int t_end = min(n_tables, (int)(blockIdx.y + 1) * TB);
+  for (int t0 = blockIdx.y * TB; t0 < t_end; t0 += chunk) {
     const int tc = min(chunk, t_end - t0);
     __syncthreads();  // the previous chunk's readers are done
     const float* src = planes + (long long)t0 * d * cols;
-    for (int e = threadIdx.x; e < tc * d * stride; e += kThreads) {
+    for (int e = threadIdx.x; e < tc * d * stride; e += NT) {
       const int row = e / stride, b = e - row * stride;  // row = table·d + j
       sp[e] = b < cols ? __ldg(src + (long long)row * cols + b) : 0.f;
     }
@@ -114,23 +123,39 @@ hash_codes_kernel(const float* __restrict__ x, const float* __restrict__ planes,
   }
 }
 
-template <int D>
-int launch(const float* x, const float* planes, int n, int d, int n_tables, int n_bits,
-           int* codes, float* tie, cudaStream_t st) {
+template <int D, int TB, int NT>
+int launch_grid(const float* x, const float* planes, int n, int d, int n_tables, int n_bits,
+                int* codes, float* tie, cudaStream_t st) {
   const int table_bytes = d * 4 * ((n_bits + 4) / 4) * (int)sizeof(float);
-  const int group = n_tables < kTablesABlock ? n_tables : kTablesABlock;
+  const int group = n_tables < TB ? n_tables : TB;
   int chunk = table_bytes > 0 ? kChunkBytes / table_bytes : group;
   chunk = chunk < 1 ? 1 : chunk > group ? group : chunk;
   const int smem = chunk * table_bytes;
   if (smem > kChunkBytes &&
-      cudaFuncSetAttribute(hash_codes_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess)
+      cudaFuncSetAttribute(hash_codes_kernel<D, TB, NT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
     return (int)cudaGetLastError();
-  const dim3 grid((unsigned)((n + kThreads - 1) / kThreads),
-                  (unsigned)((n_tables + kTablesABlock - 1) / kTablesABlock));
-  hash_codes_kernel<D><<<grid, kThreads, smem, st>>>(x, planes, n, d, n_tables, n_bits, chunk,
-                                                     codes, tie);
+  const dim3 grid((unsigned)((n + NT - 1) / NT), (unsigned)((n_tables + TB - 1) / TB));
+  hash_codes_kernel<D, TB, NT><<<grid, NT, smem, st>>>(x, planes, n, d, n_tables, n_bits,
+                                                       chunk, codes, tie);
   return (int)cudaGetLastError();
+}
+
+// kTablesABlock tables and kThreads threads a block, or, where that grid
+// has fewer blocks than the card has SMs, a table and a warp a block
+template <int D>
+int launch(const float* x, const float* planes, int n, int d, int n_tables, int n_bits,
+           int* codes, float* tie, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return (int)cudaGetLastError();
+  const long long blocks = (long long)((n + kThreads - 1) / kThreads) *
+                           ((n_tables + kTablesABlock - 1) / kTablesABlock);
+  if (blocks >= sms)
+    return launch_grid<D, kTablesABlock, kThreads>(x, planes, n, d, n_tables, n_bits, codes,
+                                                   tie, st);
+  return launch_grid<D, 1, kSmallThreads>(x, planes, n, d, n_tables, n_bits, codes, tie, st);
 }
 
 }  // namespace
@@ -151,7 +176,15 @@ extern "C" int hash_codes_f32(const float* x, const float* planes, int n, int d,
     case 5: return launch<5>(x, planes, n, d, n_tables, n_bits, codes, tie, st);
     case 6: return launch<6>(x, planes, n, d, n_tables, n_bits, codes, tie, st);
     case 7: return launch<7>(x, planes, n, d, n_tables, n_bits, codes, tie, st);
-    case kMaxUnrolledD: return launch<8>(x, planes, n, d, n_tables, n_bits, codes, tie, st);
+    case 8: return launch<8>(x, planes, n, d, n_tables, n_bits, codes, tie, st);
+    case 9: return launch<9>(x, planes, n, d, n_tables, n_bits, codes, tie, st);
+    case 10: return launch<10>(x, planes, n, d, n_tables, n_bits, codes, tie, st);
+    case 11: return launch<11>(x, planes, n, d, n_tables, n_bits, codes, tie, st);
+    case 12: return launch<12>(x, planes, n, d, n_tables, n_bits, codes, tie, st);
+    case 13: return launch<13>(x, planes, n, d, n_tables, n_bits, codes, tie, st);
+    case 14: return launch<14>(x, planes, n, d, n_tables, n_bits, codes, tie, st);
+    case 15: return launch<15>(x, planes, n, d, n_tables, n_bits, codes, tie, st);
+    case kMaxUnrolledD: return launch<16>(x, planes, n, d, n_tables, n_bits, codes, tie, st);
     default: return launch<0>(x, planes, n, d, n_tables, n_bits, codes, tie, st);
   }
 }

@@ -49,7 +49,7 @@ def knn_topk(
     if x.device.type == "cuda":
         # zero columns up to a multiple of 4 for the kernel's float4 loads
         # (they add exactly 0); it computes only the d real ones, and keeps a
-        # query's coordinates in registers when d ≤ 4
+        # query's coordinates in registers when d ≤ 4, or d ≤ 16 for k ≤ 16
         d = x.shape[1]
         dp = round_up(d, 4)
         xc = _float4_rows(x, dp)

@@ -46,6 +46,7 @@ from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
 from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
 from repro_torch.kernels.kmeans_iter.ops import kmeans_iter
 from repro_torch.kernels.kmeans_iter.ref import kmeans_iter_ref
+from repro_torch.kernels.knn_topk.kernel import choose_splits, knn_topk_cuda
 from repro_torch.kernels.knn_topk.ops import knn_topk
 from repro_torch.kernels.knn_topk.ref import knn_topk_ref
 from repro_torch.kernels.lsh_candidates.ops import hash_codes, make_planes
@@ -428,7 +429,7 @@ def test_hash_codes(n, d, t, b):
 @pytest.mark.parametrize("t", [1, 16])
 @pytest.mark.parametrize("b", [1, 16, 24])
 def test_hash_codes_grid(d, t, b):
-    """Each unrolled width (d ≤ 8), the runtime-d form (9, 90; at d = 90 and
+    """Unrolled widths (1, 3, 8, 9: d ≤ 16 unrolls), the runtime-d form (90; at d = 90 and
     24 bits the planes are staged in chunks of tables), n ragged against the
     128-point blocks."""
     n = 1000 + 7 * d + t
@@ -452,6 +453,28 @@ def test_hash_codes_grid(d, t, b):
     assert torch.equal(gc[clear], wc[clear])
 
 
+@pytest.mark.parametrize("n,d", [(256, 12), (256, 16), (37, 16), (1000, 16), (1000, 17)])
+def test_hash_codes_query_batch_widths(n, d):
+    """Query batches at the serving path's widths (256 rows and fewer: a
+    table and a warp a block) and on either side of the unrolled d ≤ 16,
+    16 tables of 16 bits: tie-breaks within the bound of two fp32
+    summation orders, 2(d + 1)·2⁻²⁴·Σ|x_j·p_j| (at d ≥ 16 a tie near 0 can
+    differ from the plain version by more than rtol 1e-5), codes equal
+    wherever every projection clears that bound and 1e-4."""
+    gen = torch.Generator().manual_seed(10 * n + d)
+    x = (torch.randn(n, d, generator=gen) * 8).cuda()
+    planes = make_planes(d, 16, 16, 0).cuda()
+    gc, gt = hash_codes(x, planes)
+    wc, wt = hash_codes_ref(x, planes)
+    proj = torch.einsum("nd,tdb->tnb", x.double(), planes.double())
+    slack = 2 * (d + 1) * 2.0 ** -24 * torch.einsum("nd,tdb->tnb", x.double().abs(),
+                                                     planes.double().abs())
+    assert bool(((gt - wt).double().abs() <= slack[..., -1]).all())
+    clear = (proj.abs() >= torch.clamp(slack, min=1e-4))[..., :-1].all(-1)
+    assert clear.float().mean() > 0.9
+    assert torch.equal(gc[clear], wc[clear])
+
+
 def _replaced_hash_codes():
     path = Path(__file__).resolve().parents[1] / "tools" / "hash_codes_variants.py"
     spec = importlib.util.spec_from_file_location("hash_codes_variants", path)
@@ -462,13 +485,17 @@ def _replaced_hash_codes():
 
 def test_hash_codes_bitwise_equal_to_the_replaced_kernel():
     """The scalable path's shape (the 142,541-voxel lattice, d = 3, 16 tables
-    of 16 bits) and a random one: codes and tie-breaks bit for bit."""
+    of 16 bits), a random one, and query batches of the serving path's
+    width (a block a table, fewer threads): codes and tie-breaks bit for
+    bit."""
     parent = _replaced_hash_codes()
     pos, _, _, _ = dti_like_pointcloud(142541, 1, 1, neighbors="none", seed=0)
     gen = torch.Generator().manual_seed(3)
     cases = [(pos, make_planes(3, 16, 16, 0).cuda()),
              ((torch.rand(3001, 9, generator=gen) - 0.5).cuda(),
-              torch.randn(5, 9, 23, generator=gen).cuda())]
+              torch.randn(5, 9, 23, generator=gen).cuda()),
+             ((torch.randn(256, 16, generator=gen) * 8).cuda(), make_planes(16, 16, 16, 0).cuda()),
+             ((torch.randn(37, 12, generator=gen) * 8).cuda(), make_planes(12, 3, 16, 0).cuda())]
     for x, planes in cases:
         gc, gt = hash_codes(x, planes)
         wc, wt = parent(x, planes)
@@ -611,6 +638,36 @@ def test_knn_query_rows_independent_of_row_count(d):
     for r in (1, 37, 128, 129):
         d_r, i_r = knn_topk(x, 10, queries=q[:r].contiguous(), query_offset=5000)
         assert torch.equal(d_r, fd[:r]) and torch.equal(i_r, fi[:r])
+
+
+@pytest.mark.parametrize("nq,nc,d,k,off", [
+    (256, 20000, 16, 10, 20000), (37, 5000, 3, 16, 0), (129, 3001, 9, 33, 3001),
+    (256, 4000, 12, 128, 100), (1, 3000, 16, 10, 3000), (300, 900, 5, 7, 0)])
+def test_knn_splits_bitwise(nq, nc, d, k, off):
+    """The candidate split: S = 1, 2, 7, the binding's choice and more
+    slices than tiles give the same bits (distances and ids), a NaN query
+    included; the rows equal the plain version's up to near-ties.  Queries
+    past the candidates (``off = nc``) are drawn apart from them."""
+    gen = torch.Generator().manual_seed(nq + nc + d)
+    x = torch.randn(nc, d, generator=gen).cuda()
+    q = (torch.randn(nq, d, generator=gen).cuda() if off >= nc
+         else x[off:off + nq].clone())
+    q[nq // 2, 0] = float("nan")
+    dp = -(-d // 4) * 4
+    xp = torch.nn.functional.pad(x, (0, dp - d)).contiguous()
+    qp = torch.nn.functional.pad(q, (0, dp - d)).contiguous()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = -(-nc // max(1, min(1024, 12288 // dp)))
+    base = knn_topk_cuda(qp, xp, k, query_offset=off, d=d, splits=1)
+    for s in {2, 7, tiles + 3, choose_splits(nq, nc, dp, sms)}:
+        got = knn_topk_cuda(qp, xp, k, query_offset=off, d=d, splits=s)
+        assert torch.equal(got[0].view(torch.int32), base[0].view(torch.int32))
+        assert torch.equal(got[1], base[1])
+    rd, ri = knn_topk_ref(x, k, queries=q, query_offset=off)
+    keep = torch.arange(nq, device="cuda") != nq // 2
+    assert torch.equal(base[1][nq // 2], ri[nq // 2])
+    torch.testing.assert_close(base[0][keep], rd[keep], rtol=1e-5, atol=1e-6)
+    knn_ids_equal_up_to_near_ties(q[keep], x, base[1][keep], ri[keep], rd[keep])
 
 
 @pytest.mark.parametrize("n,d,k,off", [(1000, 3, 16, 0), (1000, 3, 16, 1000), (300, 16, 10, 0),

@@ -1,8 +1,8 @@
 """The LSH hashing kernel (``src/repro_torch/csrc/hash_codes.cu``) against
-the kernel it replaced and against variants of its own mapping, in turns on
-one card.
+the kernel it replaced, against variants of its own mapping and against the
+kernel of another tree, in turns on one card.
 
-    python3 tools/hash_codes_variants.py
+    python3 tools/hash_codes_variants.py [OTHER_SRC_DIR]
 
 The replaced kernel — one thread per (point, table), d and n_bits runtime
 values, the planes read with ``__ldg`` for every multiply-add — lives only
@@ -21,7 +21,16 @@ bit for bit; then all are timed in
 turns (the list, then the list reversed) as ``torch.profiler`` device
 time, cold (rotating over 8 copies of x and of the outputs, 160 MB, so no
 launch finds its operands in the 50 MB L2), and as CUDA events around 50
-back-to-back warm launches.  Needs a GPU and nvcc.
+back-to-back warm launches.
+
+Given ``OTHER_SRC_DIR`` (another tree's ``src``, e.g. the parent commit
+unpacked with ``git archive`` under the gitignored ``build/``), that tree's
+``hash_codes.cu`` is built as it is and held bitwise to this tree's kernel
+(codes and tie-break bits) at the shapes the paths give it — the lattice,
+a serving batch ([256 × 16], and d = 9, 12), the serving pool ([160,000 ×
+16]) and a 4-rank plan's block (the lattice's first 35,635 points) — and
+the two are timed in turns (other, this, this, other) as profiler device
+time, cold.  Needs a GPU and nvcc.
 """
 import ctypes
 import itertools
@@ -29,6 +38,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -125,12 +135,29 @@ def parent_hash_codes(x: torch.Tensor, planes: torch.Tensor, codes=None, tie=Non
     return codes, tie
 
 
-def main() -> int:
+def device_cold(fn, copies, iters: int = 80) -> float:
+    """``torch.profiler`` device milliseconds a launch of ``fn(*copy)``, the
+    copies taken in rotation so that no launch finds its operands in L2."""
+    from torch.profiler import ProfilerActivity, profile
+
+    it = itertools.cycle(copies)
+    for _ in range(len(copies)):
+        fn(*next(it))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn(*next(it))
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages())
+    if total <= 0:
+        raise SystemExit("torch.profiler recorded no device time")
+    return total / 1e3 / iters
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("hash_codes_variants: this script needs a GPU", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.data.pointcloud import dti_like_pointcloud
     from repro_torch.kernels.lsh_candidates.kernel import _lib, hash_codes_cuda
     from repro_torch.kernels.lsh_candidates.ops import make_planes
@@ -138,8 +165,10 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     gen = torch.Generator().manual_seed(16)
-    shapes = [(1000, d, t, b) for d in (1, 3, 8, 9, 90) for t in (1, 16) for b in (1, 16, 24)]
-    for n, d, t, b in shapes + [(1, 3, 16, 16), (129, 3, 2, 16)]:
+    shapes = [(1000, d, t, b) for d in (1, 3, 8, 9, 12, 16, 17, 90) for t in (1, 16)
+              for b in (1, 16, 24)]
+    shapes += [(1, 3, 16, 16), (129, 3, 2, 16), (256, 16, 16, 16), (37, 16, 3, 16)]
+    for n, d, t, b in shapes:
         x = (torch.rand(n, d, generator=gen) * 50 - 10).cuda()
         planes = torch.randn(t, d, b + 1, generator=gen).cuda()
         got, want = hash_codes_cuda(x, planes), parent_hash_codes(x, planes)
@@ -147,7 +176,7 @@ def main() -> int:
                                                             want[1].view(torch.int32))):
             raise SystemExit(f"hash_codes differs from the parent kernel at n={n} d={d} "
                              f"T={t} bits={b}")
-    print(f"[check] {len(shapes) + 2} random shapes: codes and tie-breaks bitwise equal")
+    print(f"[check] {len(shapes)} random shapes: codes and tie-breaks bitwise equal")
     pos, _, _, _ = dti_like_pointcloud(142541, 1, 1, neighbors="none", seed=0)
     planes = make_planes(3, 16, 16, 0).cuda()
     got, want = hash_codes_cuda(pos, planes), parent_hash_codes(pos, planes)
@@ -185,19 +214,6 @@ def main() -> int:
             raise SystemExit(f"{name}: differs from the replaced kernel at the path shape")
     print(f"[check] {len(runs)} builds bitwise equal to the replaced kernel at the path shape")
 
-    def device_cold(fn, iters=80):
-        it = itertools.cycle(copies)
-        for _ in range(len(copies)):
-            fn(*next(it))
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn(*next(it))
-            torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages())
-        if total <= 0:
-            raise SystemExit("torch.profiler recorded no device time")
-        return total / 1e3 / iters
 
     def events_warm(fn, iters=50):
         fn(*copies[0])
@@ -212,12 +228,61 @@ def main() -> int:
 
     times = {name: [] for name in runs}
     for name in list(runs) + list(runs)[::-1]:
-        times[name].append((device_cold(runs[name]), events_warm(runs[name])))
+        times[name].append((device_cold(runs[name], copies), events_warm(runs[name])))
     for name, ts in times.items():
         print(f"[time] {name}: device cold " + " / ".join(f"{c:.4f}" for c, _ in ts)
               + " ms; events warm " + " / ".join(f"{w:.4f}" for _, w in ts) + " ms")
+    if argv:
+        against_other(Path(argv[0]), pos)
     return 0
 
 
+def against_other(src: Path, pos) -> None:
+    """This tree's kernel bitwise the other tree's at the paths' shapes,
+    and both timed in turns (other, this, this, other) as profiler device
+    time, cold (8 copies of x and of the outputs in rotation)."""
+    from repro_torch.kernels.lsh_candidates.kernel import _lib
+    from repro_torch.kernels.lsh_candidates.ops import make_planes
+
+    fns = {"other": build("other tree", (src / "repro_torch" / "csrc" / "hash_codes.cu")
+                          .read_text()), "this": _lib()}
+    gen = np.random.default_rng(0)  # blobs like the serving pool (16 centres × 8.0, d = 16)
+    centres = gen.normal(size=(16, 16)) * 8.0
+    blobs = torch.from_numpy((centres[gen.integers(16, size=160_000)]
+                              + gen.normal(size=(160_000, 16))).astype(np.float32)).cuda()
+    shapes = {"lattice [142541 × 3]": pos, "serve [256 × 16]": blobs[:256].contiguous(),
+              "serve [256 × 9]": blobs[:256, :9].contiguous(),
+              "serve [256 × 12]": blobs[:256, :12].contiguous(),
+              "pool [160000 × 16]": blobs, "shard [35635 × 3]": pos[:35635].contiguous()}
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, x in shapes.items():
+        n, d = x.shape
+        planes = make_planes(d, 16, 16, 0).cuda()
+        copies = [(x.clone(), torch.empty((16, n), dtype=torch.int32, device="cuda"),
+                   torch.empty((16, n), device="cuda")) for _ in range(8)]
+
+        def launcher(fn):
+            def run(a, c, t):
+                _build.check(fn(a.data_ptr(), planes.data_ptr(), n, d, 16, 16, c.data_ptr(),
+                                t.data_ptr(), stream), "hash_codes")
+            return run
+
+        runs = {tree: launcher(fn) for tree, fn in fns.items()}
+        outs = {}
+        for tree, run in runs.items():
+            c, t = torch.empty_like(copies[0][1]), torch.empty_like(copies[0][2])
+            run(x, c, t)
+            outs[tree] = (c, t.view(torch.int32))
+        if not (torch.equal(outs["this"][0], outs["other"][0])
+                and torch.equal(outs["this"][1], outs["other"][1])):
+            raise SystemExit(f"{name}: codes or tie-breaks differ from the other tree's kernel")
+        times = {"other": [], "this": []}
+        for tree in ("other", "this", "this", "other"):
+            times[tree].append(device_cold(runs[tree], copies))
+        print(f"[other] {name}, 16 tables × 16 bits: codes and tie-breaks bitwise the other "
+              f"tree's; device cold other " + " / ".join(f"{t:.5f}" for t in times["other"])
+              + " ms, this " + " / ".join(f"{t:.5f}" for t in times["this"]) + " ms")
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

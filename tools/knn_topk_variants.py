@@ -1,35 +1,38 @@
 """The kNN top-k kernel (``src/repro_torch/csrc/knn_topk.cu``) against the
-steps of its redesign and the kernel of another tree, in turns on one card.
+kernel of another tree, bit for bit and in turns on one card.
 
-    python3 tools/knn_topk_variants.py [OTHER_SRC_DIR]
+    python3 tools/knn_topk_variants.py [OTHER_SRC_DIR] [--sweep]
 
-Builds the kernel from this tree's source, each step of the redesign
-undone by a text edit of the source (the start tile, the dispatch on d, the
-``kGroup`` constant):
+``OTHER_SRC_DIR`` is another tree's ``src`` (e.g. the parent commit
+unpacked with ``git archive`` under the gitignored ``build/``); its
+``repro_torch/csrc/knn_topk.cu`` is built as it is, whichever C interface
+it has (with or without the candidate split).  The shapes, each the one a
+path gives the kernel:
 
-* ``old order`` — ascending tiles (the start tile set to 0, so the outward
-  sweep only ever steps right), all 4 padded coordinates, one branch for
-  each lane's group of 4 candidates (the sweep of the kernel before the
-  redesign, with its (distance, id) insertion rule);
-* ``near-first`` — a block starts at its own queries' tile and goes outward;
-* ``+ real d`` — only the 3 real coordinates computed;
-* ``committed`` — + one branch for 8 candidates;
-* ``one candidate a step`` — one branch a candidate;
-* ``+ warp vote`` — the group's branch taken by the whole warp or none
-  (``__any_sync``);
+* ``lattice`` — the 142,541-voxel DTI lattice, all pairs, d = 3, k = 16
+  (the first path's Stage 1);
+* ``random`` — as many uniform random points in the same box;
+* ``serve`` — a batch of 256 held-out queries against ``launch/serve.py``'s
+  blob pool (n = 160,000, 16 centres, d = 16), k = 10, query_offset = n
+  (``serve/oos.py``), query 5 with a NaN coordinate (the launcher's
+  injected fault);
+* ``pool`` — that pool all pairs, k = 10 (the serving cell's training);
+* ``shard`` — a 4-rank plan's block: rows 35,635–71,269 of the lattice's
+  first 142,540 points against all of them, offset 35,635, k = 16.
 
-and, given ``OTHER_SRC_DIR`` (e.g. the parent tree unpacked with ``git
-archive``), that tree's ``knn_topk.cu`` as it is.  On the 142,541-voxel DTI
-lattice (k = 16, d = 3, voxel ids in raster order) and on as many uniform
-random points in the same box, each is held to the plain version (lattice:
-ids and distances equal; random: distances rtol 1e-5, ids equal up to
-float64 near-ties) and timed with CUDA events in turns (the list, then the
-list reversed).  Then an instrumented build of the old order, of
-near-first and of the committed switches (an atomic count at the insertion
-site, made here and not in the package) gives the insertions a query makes:
-mean and maximum over the queries.  A diagnostic build whose lists start
-full (no candidate ever enters) times the sweep alone, and the SM clock is
-sampled during a sustained run.  Needs a GPU and nvcc.
+At each shape this tree's kernel at the slice count the binding picks
+(``choose_splits``) and at S = 1, 2 and 7 is held bitwise (distance bits
+and ids) to the other tree's kernel, or to its own S = 1 without one; then
+both are timed with CUDA events in turns (other, this, this, other).
+``--sweep`` also times this tree's kernel at a range of S on the serving
+and shard shapes.  Variants of this tree's source, each a text edit of one
+choice (``VARIANTS``: the candidates a hot-loop step takes, 8 against 16;
+the 16-slot list for k <= 12 instead of 12 slots; a 16 KB tile against
+48 KB; the group's insertions taken as one branch a candidate instead of
+one a candidate each lane keeps), are held
+bitwise too and timed in turns at the lattice, serving and shard shapes.
+The build prints ``-Xptxas -v``'s registers and spills of the kernels the
+shapes run.  Needs a GPU and nvcc.
 """
 import ctypes
 import re
@@ -37,6 +40,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,69 +48,36 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.data.pointcloud import dti_like_pointcloud  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.knn_topk.ref import knn_topk_ref  # noqa: E402
+from repro_torch.kernels.knn_topk.kernel import choose_splits  # noqa: E402
 
-N, K = 142541, 16
-# text edits of the source, each undoing or varying one step of the redesign
-ASCENDING = ("  const int t0 = (int)min(max(first / tc, 0ll), (long long)nt - 1);",
-             "  const int t0 = 0;")
-ALL_D = ("  else if (d == 3)\n", "  else if (false)\n")  # the 4-coordinate kernel for d = 3
-
-
-def group(g: int):
-    return ("constexpr int kGroup = 8;", f"constexpr int kGroup = {g};")
-
-
-# the warp-vote variant: the group's branch taken by the whole warp or none
-VOTE = ("      if (!near) continue;",
-        "      if (!__any_sync(0xffffffffu, near)) continue;")
-# each variant: its edits, applied in order (none: the committed source)
-VARIANTS = {
-    "old order": [ASCENDING, ALL_D, group(4)],
-    "near-first": [ALL_D, group(4)],
-    "+ real d": [group(4)],
-    "committed": [],
-    "one candidate a step": [group(1)],
-    "+ warp vote": [VOTE],
-}
-# a diagnostic, not a kernel: every list starts full at distance −1, so no
-# candidate ever enters — the sweep's own cost, without insertions
-SWEEP_ONLY = ("    bd[s] = CUDART_INF_F;", "    bd[s] = -1.f;")
-INSERT = "insert(bd, bi, acc, cid);"
-COUNT = "{ insert(bd, bi, acc, cid); atomicAdd(g_insertions + min(q0, nq - 1), 1u); }"
-COUNTER = '''
-__device__ unsigned int* g_insertions;
-extern "C" int set_insertion_counter(unsigned int* p) {
-  return (int)cudaMemcpyToSymbol(g_insertions, &p, sizeof(p));
-}
-'''
-
-
-def edited(src: str, edits) -> str:
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise SystemExit(f"knn_topk.cu no longer holds {old!r} once")
-        src = src.replace(old, new)
-    return src
-
-
-def instrumented(src: str) -> str:
-    if src.count(INSERT) != 1:
-        raise SystemExit(f"knn_topk.cu no longer holds {INSERT!r}")
-    src = src.replace(INSERT, COUNT)
-    # the counter's declaration goes before the kernels, inside nothing
-    head, sep, tail = src.partition("namespace {")
-    return head + COUNTER + sep + tail
+N_LATTICE, K_LATTICE = 142541, 16
+N_POOL, D_POOL, CENTRES, B_SERVE, K_SERVE = 160_000, 16, 16, 256, 10
+SHARDS = 4
+SWEEP = {"serve": (1, 2, 4, 8, 16, 32, 52, 66, 104, 132, 209),
+         "shard": (1, 2, 3, 4, 8)}
+# text edits of this tree's source, each varying one choice of the design
+GROUP = "constexpr int kGroup = 16;"
+TILE = "constexpr int kSmemFloats = 12288;"
+PICK = ("      while (keep) {  // the list may have moved since the mask: test again\n"
+        "        const int u = __ffs(keep) - 1;\n        keep &= keep - 1;\n",
+        "#pragma unroll\n      for (int u = 0; u < G; ++u) if (keep >> u & 1) {\n")
+RUNG = ("  if (k <= 12) return KNN_KP(12);\n", "")
+VARIANTS = {"kGroup 8": [(GROUP, GROUP.replace("16", "8"))],
+            "no 12-slot list": [RUNG],
+            "tile 16 KB": [(TILE, TILE.replace("12288", "4096"))],
+            "a branch a candidate": [PICK]}
+VARIANT_SHAPES = ("lattice", "serve", "shard")
 
 
 def build_all(sources: dict) -> dict:
-    """Each ``name: source`` compiled into its own library, all nvcc started
-    together; returns the loaded libraries."""
+    """Each ``name: source text`` compiled into ``build/variants/knn_topk/``,
+    all nvcc started together; returns ``name: library``, printing
+    ``-Xptxas -v``'s lines of the kernels the shapes run."""
     jobs = {}
-    for name, src in sources.items():
+    for name, text in sources.items():
         out = ROOT / "build" / "variants" / "knn_topk" / re.sub(r"\W+", "_", name)
         out.mkdir(parents=True, exist_ok=True)
-        (out / "knn_topk.cu").write_text(src)
+        (out / "knn_topk.cu").write_text(text)
         jobs[name] = (out / "knn_topk.so", subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out / "knn_topk.so"),
              str(out / "knn_topk.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -116,37 +87,48 @@ def build_all(sources: dict) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        print(f"[build] {name}: " + " | ".join(ptxas_summary(log, "knn_topk_kernelILi16E")))
+        print(f"[build] {name}: " + " | ".join(ptxas_summary(log)))
         libs[name] = ctypes.CDLL(str(so))
     return libs
 
 
-def ptxas_summary(log: str, kernel: str) -> list:
-    """``-Xptxas -v``'s registers and spills of each entry function whose
-    (mangled) name holds ``kernel``."""
+def ptxas_summary(log: str) -> list:
+    """Registers and spills of the KP = 12/16 kernels (k = 10, 16)."""
     out, fn = [], ""
     for ln in log.splitlines():
         m = re.search(r"entry function '([^']+)'", ln)
         if m:
             fn = m.group(1)
-        elif kernel in fn and ("registers" in ln or "spill" in ln):
-            out.append(f"{fn[fn.index(kernel):][:30]}: {ln.split(':', 1)[-1].strip()}")
+        elif re.search(r"ILi(12|16)E", fn) and ("registers" in ln or "spill" in ln):
+            out.append(f"{fn[:40]}: {ln.split(':', 1)[-1].strip()}")
     return out
 
 
-def entry(lib, with_d: bool):
+def entry(lib, split: bool):
+    """A call of ``knn_topk_f32`` on padded CUDA inputs: ``run(xq, xc, k, off,
+    d, splits)``; ``splits`` None is the binding's choice (ignored by a
+    kernel without the split)."""
     fn = lib.knn_topk_f32
-    ints = 5 if with_d else 4
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * ints + [ctypes.c_longlong]
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
+                   + ([ctypes.c_int] + [ctypes.c_void_p] * 2 if split else [])
                    + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def run(xp, d):
-        dist = torch.empty(N, K, device="cuda")
-        idx = torch.empty(N, K, dtype=torch.int32, device="cuda")
-        args = (N, N, 4, d) if with_d else (N, N, 4)
-        err = fn(xp.data_ptr(), xp.data_ptr(), *args, K, 0, dist.data_ptr(), idx.data_ptr(),
-                 torch.cuda.current_stream().cuda_stream)
+    def run(xq, xc, k, off, d, splits=None):
+        nq, dp = xq.shape
+        dist = torch.empty(nq, k, device="cuda")
+        idx = torch.empty(nq, k, dtype=torch.int32, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        head = (xq.data_ptr(), xc.data_ptr(), nq, xc.shape[0], dp, d, k, off)
+        if split:
+            s = choose_splits(nq, xc.shape[0], dp, sms) if splits is None else splits
+            part = [torch.empty((s, k, nq), dtype=torch.int32, device="cuda")
+                    for _ in range(2)] if s > 1 else [None, None]
+            err = fn(*head, s, *(None if p is None else p.data_ptr() for p in part),
+                     dist.data_ptr(), idx.data_ptr(), stream)
+        else:
+            err = fn(*head, dist.data_ptr(), idx.data_ptr(), stream)
         if err:
             raise SystemExit(f"launch failed with cudaError_t {err}")
         return dist, idx
@@ -165,79 +147,106 @@ def events_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def near_ties_only(x, gi, wi, wd) -> int:
-    diff = gi != wi
-    rows = torch.nonzero(diff)[:, 0]
-    x64 = x.double()
-    d_got = ((x64[rows] - x64[gi[diff].long()]) ** 2).sum(1)
-    want = wd[diff].double()
-    if not bool(((d_got - want).abs() <= 1e-5 * want + 1e-6).all()):
-        raise SystemExit("a differing id is not a near-tie")
-    return int(diff.sum())
+def same_bits(a, b) -> bool:
+    return torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) and torch.equal(a[1], b[1])
+
+
+def serve_data():
+    """``launch/serve.py``'s pool (its rng, its draws), then 256 held-out
+    queries from the same centres."""
+    rng = np.random.default_rng(0)
+    centres = rng.normal(size=(CENTRES, D_POOL)) * 8.0
+    pool = np.concatenate([centres[i] + rng.normal(size=(N_POOL // CENTRES, D_POOL))
+                           for i in range(CENTRES)]).astype(np.float32)
+    tru = rng.integers(CENTRES, size=B_SERVE)
+    q = (centres[tru] + rng.normal(size=(B_SERVE, D_POOL))).astype(np.float32)
+    q[5, 3] = np.nan
+    return torch.from_numpy(pool).cuda(), torch.from_numpy(q).cuda()
+
+
+def shapes():
+    """name: (queries, candidates, k, query_offset, d, timed iterations), the
+    rows padded to a multiple of 4 as the wrapper pads them."""
+    pos, _, _, _ = dti_like_pointcloud(N_LATTICE, 1, 1, neighbors="none", seed=0)
+    lat = torch.nn.functional.pad(pos.cuda(), (0, 1)).contiguous()
+    rnd = torch.rand(N_LATTICE, 3, generator=torch.Generator().manual_seed(0)).cuda() * 52
+    rnd = torch.nn.functional.pad(rnd, (0, 1)).contiguous()
+    pool, q = serve_data()
+    n_shard = N_LATTICE - N_LATTICE % SHARDS
+    nl = n_shard // SHARDS
+    xs = lat[:n_shard].contiguous()
+    return {"lattice": (lat, lat, K_LATTICE, 0, 3, 5),
+            "random": (rnd, rnd, K_LATTICE, 0, 3, 5),
+            "serve": (q, pool, K_SERVE, N_POOL, D_POOL, 20),
+            "pool": (pool, pool, K_SERVE, 0, D_POOL, 3),
+            "shard": (xs[nl:2 * nl].contiguous(), xs, K_LATTICE, nl, 3, 10)}
 
 
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("knn_topk_variants: this script needs a GPU", file=sys.stderr)
         return 1
-    src = (_build.CSRC / "knn_topk.cu").read_text()
-    sources = {name: edited(src, edits) for name, edits in VARIANTS.items()}
-    sources["sweep only (diagnostic)"] = edited(src, [SWEEP_ONLY])
-    counted = ("old order", "near-first", "committed")
-    for name in counted:
-        sources[f"count {name}"] = instrumented(sources[name])
-    if argv:
-        sources["other tree"] = (Path(argv[0]) / "repro_torch" / "csrc" / "knn_topk.cu").read_text()
-    libs = build_all(sources)
+    sweep = "--sweep" in argv
+    argv = [a for a in argv if a != "--sweep"]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
-
-    pos, _, _, _ = dti_like_pointcloud(N, 1, 1, neighbors="none", seed=0)
-    rnd = torch.rand(N, 3, generator=torch.Generator().manual_seed(0)).cuda() * 52
-    inputs = {"lattice": pos, "random": rnd}
-    runs = {name: entry(libs[name], "int dp, int d," in sources[name])
-            for name in sources if not name.startswith("count ")}
-    for data, x in inputs.items():
-        xp = torch.nn.functional.pad(x, (0, 1)).contiguous()
-        wd, wi = knn_topk_ref(x, K)
-        for name, run in runs.items():
-            if name.endswith("(diagnostic)"):
-                continue
-            gd, gi = run(xp, 3)
-            if data == "lattice":
-                if not (torch.equal(gd, wd) and torch.equal(gi, wi)):
-                    raise SystemExit(f"{name}: lattice neighbours differ from the plain version")
-                note = "ids and distances equal"
-            else:
-                torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-6)
-                note = f"{near_ties_only(x, gi, wi, wd)} ids swapped at near-ties"
-            print(f"[check] {data} {name}: {note}")
-        del wd, wi
-        names = list(runs)
-        times = {name: [] for name in names}
-        for name in names + names[::-1]:
-            times[name].append(events_ms(lambda: runs[name](xp, 3), iters=5))
-        for name, ts in times.items():
-            print(f"[time] {data} {name}: " + " / ".join(f"{t:.3f}" for t in ts)
-                  + f" ms (mean {sum(ts) / len(ts):.3f})")
-        if data == "lattice":  # the SM clock under a sustained run of the committed kernel
-            smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-                                    "--format=csv,noheader", "-lms", "200"],
-                                   stdout=subprocess.PIPE, text=True)
-            events_ms(lambda: runs["committed"](xp, 3), iters=150)
-            smi.terminate()
-            print("[clock] clocks.sm, power.draw during 150 runs: "
-                  + " | ".join(smi.communicate()[0].split("\n")[2:-2]))
-        for name in counted:
-            lib = libs[f"count {name}"]
-            counts = torch.zeros(N, dtype=torch.int32, device="cuda")
-            if lib.set_insertion_counter(ctypes.c_void_p(counts.data_ptr())):
-                raise SystemExit("could not set the insertion counter")
-            entry(lib, True)(xp, 3)
+    text = (_build.CSRC / "knn_topk.cu").read_text()
+    sources = {"this": text}
+    for name, edits in VARIANTS.items():
+        sources[name] = text
+        for old, new in edits:
+            if sources[name].count(old) != 1:
+                raise SystemExit(f"knn_topk.cu no longer holds {old!r} once")
+            sources[name] = sources[name].replace(old, new)
+    if argv:
+        sources["other"] = (Path(argv[0]) / "repro_torch" / "csrc" / "knn_topk.cu").read_text()
+    libs = build_all(sources)
+    runs = {name: entry(lib, "int splits" in sources[name]) for name, lib in libs.items()}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, (xq, xc, k, off, d, iters) in shapes().items():
+        chosen = choose_splits(xq.shape[0], xc.shape[0], xq.shape[1], sms)
+        ref_name = "other" if "other" in runs else "this"
+        want = runs[ref_name](xq, xc, k, off, d, 1)
+        for s in sorted({chosen, 1, 2, 7}):
+            if not same_bits(runs["this"](xq, xc, k, off, d, s), want):
+                raise SystemExit(f"{name}: S = {s} differs from the {ref_name} tree's kernel")
+        print(f"[check] {name} [{xq.shape[0]} × {xc.shape[0]} × {d}] k={k} offset={off}: "
+              f"S = 1, 2, 7 and the chosen {chosen} bitwise the {ref_name} tree's kernel "
+              f"({int(torch.isnan(want[0]).any(1).sum())} rows with NaN distances)")
+        order = ["other", "this", "this", "other"] if "other" in runs else ["this", "this"]
+        times = {r: [] for r in order}
+        for r in order:
+            times[r].append(events_ms(lambda: runs[r](xq, xc, k, off, d), iters))
+        if name in VARIANT_SHAPES:  # the variants at this tree's S, in turns
+            names = list(VARIANTS)
+            vt = {v: [] for v in names}
+            for v in names + names[::-1]:
+                if len(vt[v]) == 0 and not same_bits(runs[v](xq, xc, k, off, d), want):
+                    raise SystemExit(f"{name}: variant {v} differs")
+                vt[v].append(events_ms(lambda: runs[v](xq, xc, k, off, d, chosen), iters))
+            print(f"[variants] {name} at S = {chosen}: " + "; ".join(
+                f"{v} " + " / ".join(f"{t:.4f}" for t in ts) for v, ts in vt.items()) + " ms")
+        print(f"[time] {name}: " + "; ".join(
+            f"{r} " + " / ".join(f"{t:.4f}" for t in ts) + f" ms (mean {np.mean(ts):.4f})"
+            for r, ts in times.items()) + " (events, warm, in turns "
+            + "/".join(order) + ")")
+        if name == "serve":  # the sweep and the merge apart, profiler device time
+            from torch.profiler import ProfilerActivity, profile
+            runs["this"](xq, xc, k, off, d)
             torch.cuda.synchronize()
-            c = counts.double()
-            print(f"[insertions] {data} {name}: mean {float(c.mean()):.1f}, max {int(c.max())} "
-                  f"a query")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    runs["this"](xq, xc, k, off, d)
+                torch.cuda.synchronize()
+            parts = {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+                     if "knn" in e.key}
+            print(f"[parts] serve at S = {chosen}, device ms a call: " + "; ".join(
+                f"{'merge' if 'merge' in key else 'sweep'} {t:.4f}" for key, t in parts.items()))
+        if sweep and name in SWEEP:
+            got = {s: events_ms(lambda: runs["this"](xq, xc, k, off, d, s), iters)
+                   for s in SWEEP[name]}
+            print(f"[sweep] {name} (chosen S = {chosen}): "
+                  + ", ".join(f"S={s} {t:.4f}" for s, t in got.items()) + " ms")
     return 0
 
 
