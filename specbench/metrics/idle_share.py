@@ -1,0 +1,8 @@
+"""Per cent of the traced window in which no operation ran on the device:
+1 − (the union of the device operations' intervals ÷ the window)."""
+
+
+def read(run):
+    if run.trace is None or not run.trace.device:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.window_s)
