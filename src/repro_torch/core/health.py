@@ -18,6 +18,8 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
+
 
 class PipelineError(RuntimeError):
     """Structured stage failure: which stage, which recovery ladder was
@@ -115,7 +117,10 @@ def nonfinite_count(x):
     if not t.is_floating_point():
         return 0
     bad = (~torch.isfinite(t)).sum()
-    return int(bad) if is_concrete(bad) else bad
+    if not is_concrete(bad):
+        return bad
+    with spans.span("host.sync"):
+        return int(bad)
 
 
 def graph_signals(val: torch.Tensor, deg: Optional[torch.Tensor] = None) -> dict:
@@ -157,7 +162,8 @@ def check_points(x: torch.Tensor, n_clusters: int) -> None:
                        f"points n={n}",
             remedy="reduce n_clusters")
     # + 0.0 turns -0.0 into 0.0: np.unique(axis=0) counts the two as one row
-    distinct = torch.unique((x + 0.0).reshape(n, -1), dim=0).shape[0]
+    with spans.span("host.sync"):  # the unique rows' count
+        distinct = torch.unique((x + 0.0).reshape(n, -1), dim=0).shape[0]
     if distinct < n_clusters:
         raise PipelineError(
             "prepare", f"n_clusters={n_clusters} exceeds the number of "

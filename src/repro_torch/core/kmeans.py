@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch import _random
+from repro_torch import _random, spans
 from repro_torch._device import cpu_generator
 from repro_torch.core import health
 from repro_torch.kernels._util import KMEANS_BLOCK_K, KMEANS_BLOCK_Q
@@ -231,9 +231,10 @@ def random_init(x: torch.Tensor, k: int, generator: torch.Generator) -> torch.Te
 def seed_centroids(x: torch.Tensor, cfg: KMeansConfig,
                    generator: torch.Generator) -> torch.Tensor:
     """Dispatch the configured seeding."""
-    if cfg.init == "kmeans++":
-        return kmeanspp_init(x, cfg.k, generator)
-    return random_init(x, cfg.k, generator)
+    with spans.span("kmeans.seed"):
+        if cfg.init == "kmeans++":
+            return kmeanspp_init(x, cfg.k, generator)
+        return random_init(x, cfg.k, generator)
 
 
 # ---------------------------------------------------------------------------
@@ -285,7 +286,8 @@ def kmeans(x: torch.Tensor, cfg: KMeansConfig,
     else:
         while changed > cfg.tol_changes and iters < cfg.max_iters:
             c, labels, dmin, changed_t = one_iter(c, labels)
-            changed = int(changed_t)  # the one host read per iteration
+            with spans.span("host.sync"):
+                changed = int(changed_t)  # the one host read per iteration
             iters += 1
     return KMeansResult(labels=labels, centroids=c.to(x.dtype), inertia=dmin.sum(),
                         iterations=iters, shifted=changed)

@@ -42,7 +42,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch import _random
+from repro_torch import _random, spans
 from repro_torch._device import cpu_generator
 from repro_torch.core import health
 from repro_torch.sparse.distributed import RowBlock
@@ -247,7 +247,8 @@ def _host_flags(broke: torch.Tensor, n_conv: torch.Tensor):
     can be seen, and the converged count stays a tensor."""
     if not health.is_concrete(broke, n_conv):
         return False, n_conv
-    broke_h, n = torch.stack([broke.long(), n_conv]).tolist()
+    with spans.span("host.sync"):
+        broke_h, n = torch.stack([broke.long(), n_conv]).tolist()
     return broke_h, n
 
 
@@ -315,16 +316,19 @@ def _lanczos_topk_single(matvec: Callable, n: int, cfg: LanczosConfig, *,
         """Expand basis row j+1 and record T row/col j; returns the device
         breakdown flag (or None once handled on the host)."""
         w = matvec(V[j]).to(f32) * sign
-        c = rows.psum(V @ w)
-        T[j, :] = c
-        T[:, j] = c
-        w = w - V.T @ c
-        w = w - V.T @ rows.psum(V @ w)  # second Gram-Schmidt pass
+        with spans.span("lanczos.orth", filled=j + 1, rows=m + 1):
+            c = rows.psum(V @ w)
+            T[j, :] = c
+            T[:, j] = c
+            w = w - V.T @ c
+            w = w - V.T @ rows.psum(V @ w)  # second Gram-Schmidt pass
         beta = rows.norm(w)
         ok = beta > 1e-10
         v_next = w / torch.clamp(beta, min=1e-30)
         if careful:
-            if not bool(ok):
+            with spans.span("host.sync"):
+                ok = bool(ok)
+            if not ok:
                 v_next = _orthonormal_against(V, rng, rows)
             ok = None
         V[j + 1] = v_next
@@ -337,32 +341,34 @@ def _lanczos_topk_single(matvec: Callable, n: int, cfg: LanczosConfig, *,
         broke = torch.zeros((), dtype=torch.bool, device=device)
         for j in range(l, m):
             broke |= ~step(V, T, j, careful=False)
-        beta_m = T[m, m - 1]
-        theta, S = _eigh(T[:m, :m])  # ascending
-        res = torch.abs(beta_m * S[m - 1, :])
-        scale = torch.clamp(theta.abs().max(), min=1e-12)
-        n_conv_t = (res[m - k:] <= cfg.tol * scale).sum()
-        broke_h, n_conv = _host_flags(broke, n_conv_t)
-        if broke_h:  # replay the cycle with a host check per step
-            V[l + 1:] = 0
-            T = T0
-            for j in range(l, m):
-                step(V, T, j, careful=True)
+        with spans.span("lanczos.restart"):
             beta_m = T[m, m - 1]
-            theta, S = _eigh(T[:m, :m])
+            theta, S = _eigh(T[:m, :m])  # ascending
             res = torch.abs(beta_m * S[m - 1, :])
             scale = torch.clamp(theta.abs().max(), min=1e-12)
-            n_conv = int((res[m - k:] <= cfg.tol * scale).sum())
-        keep = slice(m - l_keep, m)
-        V_new = torch.zeros_like(V)
-        V_new[:l_keep] = S[:, keep].T @ V[:m]  # Ritz vectors
-        V_new[l_keep] = V[m]
-        h = beta_m * S[m - 1, keep]
-        T_new = torch.zeros_like(T)
-        ar = torch.arange(l_keep, device=device)
-        T_new[ar, ar] = theta[keep]
-        T_new[l_keep, :l_keep] = h
-        T_new[:l_keep, l_keep] = h
+            n_conv_t = (res[m - k:] <= cfg.tol * scale).sum()
+            broke_h, n_conv = _host_flags(broke, n_conv_t)
+            if broke_h:  # replay the cycle with a host check per step
+                V[l + 1:] = 0
+                T = T0
+                for j in range(l, m):
+                    step(V, T, j, careful=True)
+                beta_m = T[m, m - 1]
+                theta, S = _eigh(T[:m, :m])
+                res = torch.abs(beta_m * S[m - 1, :])
+                scale = torch.clamp(theta.abs().max(), min=1e-12)
+                with spans.span("host.sync"):
+                    n_conv = int((res[m - k:] <= cfg.tol * scale).sum())
+            keep = slice(m - l_keep, m)
+            V_new = torch.zeros_like(V)
+            V_new[:l_keep] = S[:, keep].T @ V[:m]  # Ritz vectors
+            V_new[l_keep] = V[m]
+            h = beta_m * S[m - 1, keep]
+            T_new = torch.zeros_like(T)
+            ar = torch.arange(l_keep, device=device)
+            T_new[ar, ar] = theta[keep]
+            T_new[l_keep, :l_keep] = h
+            T_new[:l_keep, l_keep] = h
         return V_new, T_new, (theta, S, V, res), n_conv
 
     def start():
@@ -405,22 +411,29 @@ def _lanczos_topk_block(matmat: Callable, n: int, cfg: LanczosConfig, *,
     def step(V, T, j, careful):
         """Expand basis rows j+b..j+2b-1 and record the T blocks."""
         W = matmat(V[j:j + b].T).to(f32).T * sign  # [b, n] — one operator stream
-        C = rows.psum(V @ W.T)  # [m+b, b] couplings
-        T[:, j:j + b] = C
-        T[j:j + b, :] = C.T
-        W = W - C.T @ V
-        W = W - rows.psum(V @ W.T).T @ V  # second Gram-Schmidt pass
-        Q, R = rows.qr(W.T)  # [n, b], [b, b]
+        # rows j+b.. of V are still zero here: `filled` of the `rows` multiplied
+        with spans.span("lanczos.orth", filled=j + b, rows=m + b):
+            C = rows.psum(V @ W.T)  # [m+b, b] couplings
+            T[:, j:j + b] = C
+            T[j:j + b, :] = C.T
+            W = W - C.T @ V
+            W = W - rows.psum(V @ W.T).T @ V  # second Gram-Schmidt pass
+        with spans.span("lanczos.qr"):
+            Q, R = rows.qr(W.T)  # [n, b], [b, b]
         ok = torch.diagonal(R).abs() > 1e-10
         if careful:
-            if not bool(ok.all()):  # escape deficient directions
+            with spans.span("host.sync"):
+                whole = bool(ok.all())
+            if not whole:  # escape deficient directions
                 E = _orthonormal_block_against(V, b, rng, rows)
                 Q = torch.where(ok[None, :], Q, E)
             ok = None
         else:
             ok = ok.all()
-        Qf = Q - V.T @ rows.psum(V @ Q)  # cleanup vs old basis
-        Q2, R2 = rows.qr(Qf)
+        with spans.span("lanczos.orth", filled=j + b, rows=m + b):
+            Qf = Q - V.T @ rows.psum(V @ Q)  # cleanup vs old basis
+        with spans.span("lanczos.qr"):
+            Q2, R2 = rows.qr(Qf)
         B = R2 @ R  # deficient columns of R are ~0 -> ~zero coupling
         V[j + b:j + 2 * b] = Q2.T
         T[j + b:j + 2 * b, j:j + b] = B
@@ -439,25 +452,27 @@ def _lanczos_topk_block(matmat: Callable, n: int, cfg: LanczosConfig, *,
         broke = torch.zeros((), dtype=torch.bool, device=device)
         for j in range(l, m, b):
             broke |= ~step(V, T, j, careful=False)
-        Bm, theta, S, res, n_conv_t = ritz(T)
-        broke_h, n_conv = _host_flags(broke, n_conv_t)
-        if broke_h:  # replay the cycle with a host check per step
-            V[l + b:] = 0
-            T = T0
-            for j in range(l, m, b):
-                step(V, T, j, careful=True)
+        with spans.span("lanczos.restart"):
             Bm, theta, S, res, n_conv_t = ritz(T)
-            n_conv = int(n_conv_t)
-        keep = slice(m - l_keep, m)
-        V_new = torch.zeros_like(V)
-        V_new[:l_keep] = S[:, keep].T @ V[:m]  # Ritz vectors
-        V_new[l_keep:l_keep + b] = V[m:m + b]
-        H = Bm @ S[m - b:, keep]  # [b, l_keep] restart couplings
-        T_new = torch.zeros_like(T)
-        ar = torch.arange(l_keep, device=device)
-        T_new[ar, ar] = theta[keep]
-        T_new[l_keep:l_keep + b, :l_keep] = H
-        T_new[:l_keep, l_keep:l_keep + b] = H.T
+            broke_h, n_conv = _host_flags(broke, n_conv_t)
+            if broke_h:  # replay the cycle with a host check per step
+                V[l + b:] = 0
+                T = T0
+                for j in range(l, m, b):
+                    step(V, T, j, careful=True)
+                Bm, theta, S, res, n_conv_t = ritz(T)
+                with spans.span("host.sync"):
+                    n_conv = int(n_conv_t)
+            keep = slice(m - l_keep, m)
+            V_new = torch.zeros_like(V)
+            V_new[:l_keep] = S[:, keep].T @ V[:m]  # Ritz vectors
+            V_new[l_keep:l_keep + b] = V[m:m + b]
+            H = Bm @ S[m - b:, keep]  # [b, l_keep] restart couplings
+            T_new = torch.zeros_like(T)
+            ar = torch.arange(l_keep, device=device)
+            T_new[ar, ar] = theta[keep]
+            T_new[l_keep:l_keep + b, :l_keep] = H
+            T_new[:l_keep, l_keep:l_keep + b] = H.T
         return V_new, T_new, (theta, S, V, res), n_conv
 
     def start():

@@ -34,7 +34,6 @@ padding rows never enter the result.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
@@ -45,6 +44,7 @@ import repro_torch.core.kmeans as km
 import repro_torch.core.lanczos as lz
 import repro_torch.core.laplacian as lap
 import repro_torch.core.reduce as red
+from repro_torch import spans
 from repro_torch._device import DeviceLike, cpu_generator, fold_in, resolve_device
 from repro_torch.core.health import HealthConfig, PipelineError, StageReport
 from repro_torch.core.operator import (BlockEllOperator, CooOperator, LinearOperator,
@@ -713,27 +713,30 @@ class SpectralPipeline:
     # -- the stage DAG ------------------------------------------------------
 
     def _stage_prepare(self, st: PipelineState) -> PipelineState:
-        t0 = time.perf_counter()
-        if self.health.enabled:
+        with spans.clock("spectral.prepare") as clk:
+            if self.health.enabled:
+                if st.input_graph is not None:
+                    health.check_graph(st.input_graph.val)
+                elif st.points is not None:
+                    health.check_points(st.points, self.n_clusters)
             if st.input_graph is not None:
-                health.check_graph(st.input_graph.val)
+                g = self.prepare(st.input_graph, device=st.device)
             elif st.points is not None:
-                health.check_points(st.points, self.n_clusters)
-        if st.input_graph is not None:
-            g = self.prepare(st.input_graph, device=st.device)
-        elif st.points is not None:
-            g = self.build_graph(st.points, points=st.search_points, device=st.device)
-        else:
-            raise ValueError(
-                "the prepare stage needs a PipelineState with points= or input_graph= set")
-        notes: Tuple[str, ...] = ()
-        eager = health.is_concrete(g.deg)
-        if self.health.enabled and eager:
-            iso = int((g.deg <= 0).sum())  # handled (pinned to 0): a note, not a fault
-            if iso:
-                notes += (f"isolated_vertices[{iso}]",)
+                g = self.build_graph(st.points, points=st.search_points, device=st.device)
+            else:
+                raise ValueError(
+                    "the prepare stage needs a PipelineState with points= or input_graph= set")
+            notes: Tuple[str, ...] = ()
+            eager = health.is_concrete(g.deg)
+            if self.health.enabled and eager:
+                with spans.span("host.sync"):
+                    iso = int((g.deg <= 0).sum())  # handled (pinned to 0): a note, not a fault
+                if iso:
+                    notes += (f"isolated_vertices[{iso}]",)
+            if eager:
+                _drain(st.device)
         rep = StageReport("prepare", escalations=notes,
-                          wall_s=_wall(t0, st.device) if eager else -1.0)
+                          wall_s=clk.host_s if eager else -1.0)
         return dataclasses.replace(st, graph=g, reports=st.reports + (rep,),
                                    provenance=st.provenance + ("prepare",))
 
@@ -839,49 +842,54 @@ class SpectralPipeline:
         if st.gen_embed is None:
             raise ValueError("embed needs PipelineState.gen_embed")
         hc = self.health
-        t0 = time.perf_counter()
-        op = st.operator_override if st.operator_override is not None \
-            else self.operator(st.graph)
-        ecfg = self.eig
-        emb = self.embed(st.graph, st.gen_embed, operator=op, eig=ecfg, device=st.device)
-        attempts = 1
-        rungs = []
-        if hc.enabled and health.is_concrete(emb.embedding, emb.eigenvalues, emb.converged):
-            # host-driven escalation: only on concrete outputs
-            failure = self._embed_failure(emb, ecfg)
-            while failure and attempts < hc.max_attempts:
-                ecfg, rung = self._escalate_embed(ecfg, failure, st.graph.adj.shape[0])
-                if ecfg is None:
-                    break
-                rungs.append(rung)
-                emb = self.embed(st.graph, fold_in(st.gen_embed, attempts), operator=op,
-                                 eig=ecfg, device=st.device)
-                attempts += 1
+        with spans.clock("spectral.embed") as clk:
+            op = st.operator_override if st.operator_override is not None \
+                else self.operator(st.graph)
+            ecfg = self.eig
+            emb = self.embed(st.graph, st.gen_embed, operator=op, eig=ecfg, device=st.device)
+            attempts = 1
+            rungs = []
+            if hc.enabled and health.is_concrete(emb.embedding, emb.eigenvalues, emb.converged):
+                # host-driven escalation: only on concrete outputs
                 failure = self._embed_failure(emb, ecfg)
-            if failure in ("nonfinite", "cheb_diverged"):
-                raise PipelineError(
-                    "embed", f"spectral embedding is {failure.replace('_', ' ')} "
-                             f"after {attempts} attempt(s)",
-                    ladder=tuple(rungs),
-                    remedy="check the similarity graph / operator for "
-                           "degenerate values (health.check_graph), or raise "
-                           "HealthConfig.max_attempts")
-            if failure == "unconverged" and self.eig.strict:
-                raise PipelineError(
-                    "embed",
-                    f"eigensolver unconverged after {attempts} attempt(s) "
-                    f"(residual_max={float(emb.residuals.max()):.3e}, "
-                    f"tol={self.eig.tol:g}) and EigConfig.strict is set",
-                    ladder=tuple(rungs),
-                    remedy="raise max_restarts/basis_m, loosen tol, or drop "
-                           "strict to accept the degraded subspace")
-        eager = health.is_concrete(emb.embedding, emb.residuals, emb.converged)
-        resid_max = emb.residuals.float().max()
+                while failure and attempts < hc.max_attempts:
+                    ecfg, rung = self._escalate_embed(ecfg, failure, st.graph.adj.shape[0])
+                    if ecfg is None:
+                        break
+                    rungs.append(rung)
+                    emb = self.embed(st.graph, fold_in(st.gen_embed, attempts), operator=op,
+                                     eig=ecfg, device=st.device)
+                    attempts += 1
+                    failure = self._embed_failure(emb, ecfg)
+                if failure in ("nonfinite", "cheb_diverged"):
+                    raise PipelineError(
+                        "embed", f"spectral embedding is {failure.replace('_', ' ')} "
+                                 f"after {attempts} attempt(s)",
+                        ladder=tuple(rungs),
+                        remedy="check the similarity graph / operator for "
+                               "degenerate values (health.check_graph), or raise "
+                               "HealthConfig.max_attempts")
+                if failure == "unconverged" and self.eig.strict:
+                    raise PipelineError(
+                        "embed",
+                        f"eigensolver unconverged after {attempts} attempt(s) "
+                        f"(residual_max={float(emb.residuals.max()):.3e}, "
+                        f"tol={self.eig.tol:g}) and EigConfig.strict is set",
+                        ladder=tuple(rungs),
+                        remedy="raise max_restarts/basis_m, loosen tol, or drop "
+                               "strict to accept the degraded subspace")
+            eager = health.is_concrete(emb.embedding, emb.residuals, emb.converged)
+            resid_max = emb.residuals.float().max()
+            if eager:
+                converged = bool(emb.converged)
+                with spans.span("host.sync"):
+                    resid_max = float(resid_max)
+                _drain(st.device)
+            else:
+                converged = emb.converged
         rep = StageReport(
-            "embed", escalations=tuple(rungs), attempts=attempts,
-            converged=bool(emb.converged) if eager else emb.converged,
-            residual_max=float(resid_max) if eager else resid_max,
-            wall_s=_wall(t0, st.device) if eager else -1.0)
+            "embed", escalations=tuple(rungs), attempts=attempts, converged=converged,
+            residual_max=resid_max, wall_s=clk.host_s if eager else -1.0)
         return dataclasses.replace(st, embedding=emb, reports=st.reports + (rep,),
                                    provenance=st.provenance + ("embed",))
 
@@ -891,50 +899,55 @@ class SpectralPipeline:
         if st.gen_cluster is None:
             raise ValueError("cluster needs PipelineState.gen_cluster")
         hc = self.health
-        t0 = time.perf_counter()
-        kcfg = self.kmeans.resolved(self.n_clusters)
-        res = self.cluster(st.embedding, st.gen_cluster, device=st.device)
-        attempts = 1
-        rungs = []
-        eager = health.is_concrete(res.labels, res.kmeans_inertia, st.embedding.embedding)
-        if hc.enabled and eager:
-            if self._nonfinite_rows(st.embedding.embedding):
-                raise PipelineError(
-                    "cluster", "input embedding contains non-finite values",
-                    remedy="run the embed stage with health enabled (its "
-                           "ladder catches this) or sanitize the cached "
-                           "embedding before re-clustering")
-            empty = kcfg.k - int(torch.unique(res.labels).numel())
-            bad = bool(health.nonfinite_count(res.kmeans_inertia))
-            # one reseed rung; under kmeans_sharded (fused or two-pass) it
-            # needs k rows a shard
-            n = self._embedding_rows(st.embedding)
-            can_reseed = kcfg.empty == "keep"
-            if can_reseed and self._kmeans_sharded_dispatch(n, kcfg):
-                can_reseed = n // self._shards() >= kcfg.k
-            if (empty > 0 or bad) and attempts < hc.max_attempts and can_reseed:
-                rungs.append(f"kmeans_reseed_farthest[empty={empty}]")
-                retry = dataclasses.replace(self.kmeans, empty="reseed_farthest")
-                res = self.cluster(st.embedding, fold_in(st.gen_cluster, attempts),
-                                   kmeans=retry, device=st.device)
-                attempts += 1
+        with spans.clock("spectral.cluster") as clk:
+            kcfg = self.kmeans.resolved(self.n_clusters)
+            res = self.cluster(st.embedding, st.gen_cluster, device=st.device)
+            attempts = 1
+            rungs = []
+            eager = health.is_concrete(res.labels, res.kmeans_inertia, st.embedding.embedding)
+            if hc.enabled and eager:
+                if self._nonfinite_rows(st.embedding.embedding):
+                    raise PipelineError(
+                        "cluster", "input embedding contains non-finite values",
+                        remedy="run the embed stage with health enabled (its "
+                               "ladder catches this) or sanitize the cached "
+                               "embedding before re-clustering")
+                with spans.span("host.sync"):
+                    empty = kcfg.k - int(torch.unique(res.labels).numel())
                 bad = bool(health.nonfinite_count(res.kmeans_inertia))
-            if bad:
-                raise PipelineError(
-                    "cluster", "k-means inertia is non-finite", ladder=tuple(rungs),
-                    remedy="inspect the embedding scale — k-means over a "
-                           "finite embedding cannot produce non-finite inertia")
-        if eager:
-            counts = torch.bincount(res.labels.long(), minlength=kcfg.k)
-            converged, inertia = int((counts > 0).sum()) == kcfg.k, float(res.kmeans_inertia)
-        else:  # the reference's traced report: tensors, no wall time
-            live = torch.zeros(kcfg.k, dtype=torch.bool, device=res.labels.device)
-            live[res.labels.long()] = True
-            converged, inertia = live.all(), res.kmeans_inertia
+                # one reseed rung; under kmeans_sharded (fused or two-pass) it
+                # needs k rows a shard
+                n = self._embedding_rows(st.embedding)
+                can_reseed = kcfg.empty == "keep"
+                if can_reseed and self._kmeans_sharded_dispatch(n, kcfg):
+                    can_reseed = n // self._shards() >= kcfg.k
+                if (empty > 0 or bad) and attempts < hc.max_attempts and can_reseed:
+                    rungs.append(f"kmeans_reseed_farthest[empty={empty}]")
+                    retry = dataclasses.replace(self.kmeans, empty="reseed_farthest")
+                    res = self.cluster(st.embedding, fold_in(st.gen_cluster, attempts),
+                                       kmeans=retry, device=st.device)
+                    attempts += 1
+                    bad = bool(health.nonfinite_count(res.kmeans_inertia))
+                if bad:
+                    raise PipelineError(
+                        "cluster", "k-means inertia is non-finite", ladder=tuple(rungs),
+                        remedy="inspect the embedding scale — k-means over a "
+                               "finite embedding cannot produce non-finite inertia")
+            if eager:
+                counts = torch.bincount(res.labels.long(), minlength=kcfg.k)
+                with spans.span("host.sync"):
+                    converged = int((counts > 0).sum()) == kcfg.k
+                with spans.span("host.sync"):
+                    inertia = float(res.kmeans_inertia)
+                _drain(st.device)
+            else:  # the reference's traced report: tensors, no wall time
+                live = torch.zeros(kcfg.k, dtype=torch.bool, device=res.labels.device)
+                live[res.labels.long()] = True
+                converged, inertia = live.all(), res.kmeans_inertia
         rep = StageReport(
             "cluster", escalations=tuple(rungs), attempts=attempts,
             converged=converged, residual_max=inertia,
-            wall_s=_wall(t0, st.device) if eager else -1.0)
+            wall_s=clk.host_s if eager else -1.0)
         reports = st.reports + (rep,)
         return dataclasses.replace(st, result=res._replace(reports=reports),
                                    reports=reports,
@@ -1058,8 +1071,9 @@ class SpectralPipeline:
         )
 
 
-def _wall(t0: float, device: Optional[torch.device]) -> float:
-    """Host wall seconds since ``t0``, after the device has finished."""
-    if device is not None and device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.perf_counter() - t0
+def _drain(device: Optional[torch.device]) -> None:
+    """A stage's closing wait for its device, so that the stage's span holds
+    its device work."""
+    with spans.span("host.sync"):
+        if device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)

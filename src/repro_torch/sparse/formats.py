@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
+
 
 @dataclasses.dataclass(frozen=True)
 class COO:
@@ -171,9 +173,11 @@ def _quantile_int(deg: torch.Tensor, q: float) -> int:
     n = deg.numel()
     v = (n - 1) * q
     if v >= n - 1:  # numpy takes the largest value
-        return int(deg.max())
+        with spans.span("host.sync"):
+            return int(deg.max())
     lo = math.floor(v)
-    a, b = torch.sort(deg).values[lo:lo + 2].tolist()
+    with spans.span("host.sync"):
+        a, b = torch.sort(deg).values[lo:lo + 2].tolist()
     t = v - lo
     return int(b - (b - a) * (1 - t) if t >= 0.5 else a + (b - a) * t)
 
@@ -221,7 +225,9 @@ def csr_to_blockell(
     cols[flat] = m.indices.int()
     vals[flat] = m.data
     spill = ~body
-    if int(spill.sum()):
+    with spans.span("host.sync"):
+        spilled = int(spill.sum())
+    if spilled:
         tail = COO(nnz_row[spill], m.indices[spill].long(), m.data[spill], m.shape)
     else:
         zero = torch.zeros(1, dtype=torch.int64, device=device)
